@@ -1,0 +1,218 @@
+"""The delta model: batches of (key, value, weight) changes.
+
+SURVEY.md §2 item 7: the reference's "delta buffers" are plain Python objects
+flowing on graph edges. Here the host-side representation is columnar NumPy
+(:class:`DeltaBatch`), chosen so the same batch converts losslessly to the
+device representation (padded ``torch.Tensor`` columns — see
+``executors/device_delta.py``) without a per-record Python loop.
+
+Algebra
+-------
+A *collection* is a multiset of ``(key, value)`` rows with signed integer
+multiplicities. A *delta* is itself such a multiset: positive weight inserts,
+negative weight retracts. Applying a delta is multiset addition;
+``consolidate`` merges duplicate rows and drops zero-weight rows. This is the
+differential-dataflow change algebra (cf. DBSP), which is what makes
+incremental Reduce/Join well-defined under retractions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import Counter
+from typing import Any, Hashable, Iterable, Mapping, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Spec", "DeltaBatch", "collection_counter", "counter_to_batch",
+           "host_dtype", "torch_dtype"]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The device dtype of a Spec's ``value_dtype`` (a ``torch.dtype`` or
+    anything ``np.dtype`` accepts)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def host_dtype(dtype) -> np.dtype:
+    """The numpy dtype host batches of a Spec carry. numpy has no
+    bfloat16, so a ``torch.bfloat16`` Spec keeps host values as float32
+    and casts at the upload (``executors.device_delta.to_device``)."""
+    if isinstance(dtype, torch.dtype):
+        if dtype == torch.bfloat16:
+            return np.dtype(np.float32)
+        return torch.zeros(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Static type/shape declaration for one edge's rows.
+
+    Required for the device lowering (static shapes/dtypes); the CPU
+    oracle ignores it. ``value_dtype`` is a numpy dtype or a
+    ``torch.dtype`` (``torch.bfloat16`` has no numpy counterpart; see
+    :func:`host_dtype`). ``key_space`` bounds the integer key domain
+    ``[0, key_space)`` for dense keyed state on device; host-side sources are
+    responsible for mapping raw keys (e.g. strings) into this domain (host
+    work is allowed at the graph boundary per the north star).
+    """
+
+    value_shape: Tuple[int, ...] = ()
+    value_dtype: Any = np.float32
+    key_space: int = 0  # 0 = unknown / host-only graph
+    #: at most one row per key in the materialized collection (e.g. Reduce
+    #: output). The device Join requires its left input to be unique-keyed.
+    unique: bool = False
+
+    def with_key_space(self, n: int) -> "Spec":
+        return dataclasses.replace(self, key_space=n)
+
+    def as_unique(self) -> "Spec":
+        return dataclasses.replace(self, unique=True)
+
+
+class DeltaBatch:
+    """A columnar batch of (key, value, weight) changes.
+
+    ``keys``:    int64[n] (or object[n] for host-only graphs with raw keys)
+    ``values``:  [n, *value_shape] numeric, or object[n] for host-only graphs
+    ``weights``: int64[n]; >0 insert, <0 retract
+    """
+
+    __slots__ = ("keys", "values", "weights")
+
+    def __init__(self, keys, values, weights=None):
+        keys = np.asarray(keys)
+        values = np.asarray(values)
+        if weights is None:
+            weights = np.ones(len(keys), dtype=np.int64)
+        else:
+            weights = np.asarray(weights, dtype=np.int64)
+        if not (len(keys) == len(values) == len(weights)):
+            raise ValueError(
+                f"column length mismatch: keys={len(keys)} values={len(values)} "
+                f"weights={len(weights)}"
+            )
+        self.keys = keys
+        self.values = values
+        self.weights = weights
+
+    # -- constructors ------------------------------------------------------
+
+    @staticmethod
+    def empty(spec: Spec | None = None) -> "DeltaBatch":
+        if spec is None:
+            return DeltaBatch(
+                np.empty(0, dtype=np.int64),
+                np.empty(0, dtype=object),
+                np.empty(0, dtype=np.int64),
+            )
+        return DeltaBatch(
+            np.empty(0, dtype=np.int64),
+            np.empty((0,) + tuple(spec.value_shape),
+                     dtype=host_dtype(spec.value_dtype)),
+            np.empty(0, dtype=np.int64),
+        )
+
+    @staticmethod
+    def from_pairs(pairs: Iterable[Tuple[Hashable, Any]], weight: int = 1) -> "DeltaBatch":
+        """Build from an iterable of (key, value) with a uniform weight."""
+        pairs = list(pairs)
+        keys = np.array([k for k, _ in pairs], dtype=object)
+        values = np.array([v for _, v in pairs], dtype=object)
+        weights = np.full(len(pairs), weight, dtype=np.int64)
+        return DeltaBatch(keys, values, weights)
+
+    @staticmethod
+    def concat(batches: Iterable["DeltaBatch"]) -> "DeltaBatch":
+        batches = [b for b in batches if len(b)]
+        if not batches:
+            return DeltaBatch.empty()
+        return DeltaBatch(
+            np.concatenate([b.keys for b in batches]),
+            np.concatenate([b.values for b in batches]),
+            np.concatenate([b.weights for b in batches]),
+        )
+
+    # -- basics ------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __iter__(self):
+        return zip(self.keys, self.values, self.weights)
+
+    def __repr__(self) -> str:
+        return f"DeltaBatch(n={len(self)})"
+
+    def rows(self):
+        """Iterate (key, hashable_value, weight) rows (host-side only)."""
+        for k, v, w in zip(self.keys, self.values, self.weights):
+            yield k, _hashable(v), int(w)
+
+    def consolidate(self) -> "DeltaBatch":
+        """Merge duplicate (key, value) rows; drop zero weights."""
+        acc: Counter = Counter()
+        for k, v, w in self.rows():
+            acc[(k, v)] += w
+        return counter_to_batch(acc, like=self)
+
+    def scale(self, factor: int) -> "DeltaBatch":
+        return DeltaBatch(self.keys, self.values, self.weights * factor)
+
+    def to_counter(self) -> Counter:
+        acc: Counter = Counter()
+        for k, v, w in self.rows():
+            acc[(k, v)] += w
+        return Counter({kv: w for kv, w in acc.items() if w != 0})
+
+
+def _hashable(v: Any) -> Hashable:
+    """Host-side canonical hashable form of a value (for multiset state)."""
+    if isinstance(v, np.ndarray):
+        if v.ndim == 0:
+            return v.item()
+        return tuple(_hashable(x) for x in v)
+    if isinstance(v, (np.generic,)):
+        return v.item()
+    if isinstance(v, list):
+        return tuple(_hashable(x) for x in v)
+    return v
+
+
+def collection_counter(batches: Iterable[DeltaBatch]) -> Counter:
+    """Accumulate delta batches into a multiset Counter {(key, value): weight}."""
+    acc: Counter = Counter()
+    for b in batches:
+        for k, v, w in b.rows():
+            acc[(k, v)] += w
+    return Counter({kv: w for kv, w in acc.items() if w != 0})
+
+
+def counter_to_batch(acc: Mapping, like: DeltaBatch | None = None) -> DeltaBatch:
+    """Materialize a {(key, value): weight} mapping as a DeltaBatch."""
+    items = [(k, v, w) for (k, v), w in acc.items() if w != 0]
+    if not items:
+        return DeltaBatch.empty() if like is None or like.values.dtype == object else DeltaBatch(
+            np.empty(0, dtype=like.keys.dtype),
+            np.empty((0,) + like.values.shape[1:], dtype=like.values.dtype),
+            np.empty(0, dtype=np.int64),
+        )
+    keys = np.array([k for k, _, _ in items], dtype=object)
+    values = np.array([v for _, v, _ in items], dtype=object)
+    weights = np.array([w for _, _, w in items], dtype=np.int64)
+    if like is not None and like.keys.dtype != object:
+        try:
+            keys = keys.astype(like.keys.dtype)
+        except (TypeError, ValueError):
+            pass
+    if like is not None and like.values.dtype != object:
+        try:
+            values = np.array([v for _, v, _ in items], dtype=like.values.dtype)
+        except (TypeError, ValueError):
+            pass
+    return DeltaBatch(keys, values, weights)

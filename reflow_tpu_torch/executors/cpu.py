@@ -1,0 +1,54 @@
+"""CpuExecutor: the default path and correctness oracle (SURVEY.md §2 #10).
+
+Interprets each dirty node with the op's exact host-side semantics
+(``ops/core.py``): dict/Counter state, arbitrary hashable keys and values.
+Deliberately simple — this is the baseline the device executor is
+differentially tested against.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Sequence
+
+from reflow_tpu_torch.delta import DeltaBatch
+from reflow_tpu_torch.executors.base import Executor
+from reflow_tpu_torch.graph import Node
+from reflow_tpu_torch.obs import trace as _trace
+
+__all__ = ["CpuExecutor"]
+
+
+class CpuExecutor(Executor):
+    name = "cpu"
+
+    def run_pass(self, plan: Sequence[Node],
+                 ingress: Dict[int, DeltaBatch]) -> Dict[int, DeltaBatch]:
+        t0 = time.perf_counter() if _trace.ENABLED else 0.0
+        outputs: Dict[int, DeltaBatch] = {}
+        egress: Dict[int, DeltaBatch] = {}
+        for node in plan:
+            if node.kind in ("source", "loop"):
+                out = ingress.get(node.id, DeltaBatch.empty())
+            elif node.kind == "sink":
+                (inp,) = node.inputs
+                out = outputs.get(inp.id, DeltaBatch.empty())
+                egress[node.id] = out.consolidate()
+                continue
+            else:
+                ins = [outputs.get(i.id, DeltaBatch.empty()) for i in node.inputs]
+                if all(len(b) == 0 for b in ins):
+                    continue
+                out = node.op.apply(self.states[node.id], ins)
+            if len(out):
+                outputs[node.id] = out
+        # back-edges: deltas arriving at loop variables drive the next pass
+        for loop in self.graph.loops:
+            if loop.back_input is not None and loop.back_input.id in outputs:
+                back = outputs[loop.back_input.id].consolidate()
+                if len(back):
+                    egress[loop.id] = back
+        if _trace.ENABLED:
+            _trace.evt("cpu_pass", t0, time.perf_counter() - t0,
+                       args={"nodes": len(plan)})
+        return egress

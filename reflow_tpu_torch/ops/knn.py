@@ -1,0 +1,139 @@
+"""KnnIndex: incremental k-nearest-neighbour maintenance (config 4).
+
+The k-NN re-index workload (BASELINE.md: "k-NN re-index on 1Mx768
+embedding deltas") as a first-class operator, demonstrating the
+op-extension seam: a stateful binary op with its exact host semantics
+here and a device lowering in ``executors/lowerings.py`` (cosine scores
+by matmul, then the hand-written CUDA top-k kernel).
+
+Semantics
+---------
+Inputs: port 0 = query deltas {qid: vec}, port 1 = corpus deltas
+{did: vec}; weights +-1 insert/retract (an update is retract + insert —
+re-inserting a live id without retracting it first is undefined).
+Maintains, per live query, the top-k corpus ids by cosine similarity.
+Emits Reduce-style retract-old/insert-new rows keyed by query id; the
+value is a ``[k, 2]`` float32 array of (doc_id, score) rows, padded with
+(-1, NEG) when fewer than k docs are live — so the collection stays
+unique-keyed and telescopes.
+
+Ties resolve to the lowest doc id (both executors). Exact float ties may
+still order differently across executors when scores are computed in
+different precisions; use real-valued embeddings in differential tests.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from reflow_tpu_torch.delta import DeltaBatch, Spec, counter_to_batch
+from reflow_tpu_torch.ops.core import Op
+
+__all__ = ["KnnIndex", "NEG"]
+
+NEG = float(np.finfo(np.float32).min)
+
+
+def _normalize(v: np.ndarray) -> np.ndarray:
+    n = float(np.linalg.norm(v))
+    return v / n if n > 0 else v
+
+
+class KnnIndex(Op):
+    kind = "knn"
+    arity = 2
+
+    def __init__(self, k: int, dim: int, *, out_spec: Optional[Spec] = None,
+                 scan_chunk: int = 8192, precision: str = "highest"):
+        self.k = k
+        self.dim = dim
+        self._out_spec = out_spec
+        #: device path: corpus chunk size for the streaming top-k scan
+        self.scan_chunk = scan_chunk
+        #: scoring precision of the graph, carried for parity with the
+        #: JAX package's graphs: "highest" (float32 tables) or "default"
+        #: (bf16/int8 tables). The port sums scores in float32 either way
+        #: (``kernels.topk.scores``)
+        self.precision = precision
+
+    def out_spec(self, in_specs):
+        if self._out_spec is not None:
+            return self._out_spec
+        return Spec((self.k, 2), np.float32,
+                    key_space=in_specs[0].key_space, unique=True)
+
+    def initial_state(self):
+        return {"queries": {}, "docs": {}, "emitted": {}}
+
+    # -- exact host semantics (the oracle) ---------------------------------
+
+    @staticmethod
+    def _corpus(docs: dict):
+        """(ids sorted ascending, stacked matrix) — built once per tick."""
+        if not docs:
+            return None
+        ids = np.array(sorted(docs), dtype=np.int64)
+        mat = np.stack([docs[int(i)] for i in ids])
+        return ids, mat
+
+    def _topk_row(self, qvec: np.ndarray, corpus) -> np.ndarray:
+        row = np.full((self.k, 2), NEG, np.float32)
+        row[:, 0] = -1.0
+        if corpus is not None:
+            ids, mat = corpus
+            scores = mat @ qvec
+            # stable sort on id-ascending corpus: ties -> lowest doc id
+            take = np.argsort(-scores, kind="stable")[:self.k]
+            m = len(take)
+            row[:m, 0] = ids[take].astype(np.float32)
+            row[:m, 1] = scores[take].astype(np.float32)
+        return row
+
+    def apply(self, state, in_batches):
+        dq, dd = in_batches
+        queries, docs, emitted = (state["queries"], state["docs"],
+                                  state["emitted"])
+        for kq, v, w in zip(dq.keys, dq.values, dq.weights):
+            if w > 0:
+                queries[int(kq)] = _normalize(np.asarray(v, np.float32))
+            elif w < 0:
+                queries.pop(int(kq), None)
+        doc_change = len(dd) > 0
+        for kd, v, w in zip(dd.keys, dd.values, dd.weights):
+            if w > 0:
+                docs[int(kd)] = _normalize(np.asarray(v, np.float32))
+            elif w < 0:
+                docs.pop(int(kd), None)
+
+        affected = set(queries) if doc_change else \
+            {int(kq) for kq in dq.keys}
+        affected |= {q for q in emitted if q not in queries}
+        from collections import Counter
+
+        out: Counter = Counter()
+        corpus = self._corpus(docs)
+        for q in sorted(affected):
+            old = emitted.get(q)
+            new = (self._topk_row(queries[q], corpus)
+                   if q in queries else None)
+            if old is not None and (new is None or
+                                    not np.array_equal(old, new)):
+                out[(q, tuple(map(tuple, old.tolist())))] -= 1
+                emitted.pop(q, None)
+            if new is not None and (old is None or
+                                    not np.array_equal(old, new)):
+                out[(q, tuple(map(tuple, new.tolist())))] += 1
+                emitted[q] = new
+        like = DeltaBatch(
+            np.empty(0, np.int64),
+            np.empty((0, self.k, 2), np.float32),
+            np.empty(0, np.int64))
+        batch = counter_to_batch(out, like=like)
+        if len(batch) and batch.values.dtype == object:
+            batch = DeltaBatch(
+                batch.keys,
+                np.array([np.array(v, np.float32) for v in batch.values]),
+                batch.weights)
+        return batch

@@ -9,13 +9,13 @@ Phases, each printing its own lines:
 
 1. **Device** — the card's name and power limit; TF32 off for matmul and
    cuDNN (the port's float32 scoring must stay float32).
-2. **Build** — every ``reflow_tpu_torch/csrc/*.cu`` compiled by ``nvcc``
-   for ``sm_90a`` (one compiler process per source, all started
-   together) into the git-ignored ``reflow_tpu_torch/_build/``.
+2. **Build** — ``reflow_tpu_torch/csrc/topk.cu`` compiled by ``nvcc``
+   for ``sm_90a`` into the git-ignored ``reflow_tpu_torch/_build/``.
 3. **Kernels vs their plain versions** — each kernel's wrapper on card
    tensors at the shapes the main path gives it (and at edge shapes),
-   held to exact equality with the plain PyTorch version; times of the
-   kernel, the plain version and the one-call library yardstick.
+   held to exact equality with the plain PyTorch version; device times
+   (from a ``torch.profiler`` trace) of the kernel, the plain version and
+   the one-call library yardstick, beside their CUDA-event times.
 4. **Serving slice at full width** — the k-NN re-index workload
    (BASELINE.md config 4: 256 queries, a 2^20-id corpus of 768-dim int8
    embeddings, k = 16, scan chunk 8192) served through
@@ -38,11 +38,11 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from reflow_tpu_torch import DeltaBatch, DirtyScheduler, get_executor
 from reflow_tpu_torch.executors.device_delta import DeviceDelta
@@ -101,16 +101,11 @@ def phase_device() -> Dict[str, object]:
 # -- phase 2: build -------------------------------------------------------
 
 def phase_build() -> float:
-    """Compile every CUDA source at once (one nvcc each); returns the
-    wall seconds."""
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    """Compile the top-k kernel; returns the wall seconds."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        futs = [pool.submit(_build.build, n, verbose=True) for n in names]
-        paths = [f.result() for f in futs]
+    path = _build.build("topk")
     secs = time.perf_counter() - t0
-    log(f"[build] {len(names)} source(s) {names} -> "
-        f"{[p.name for p in paths]} in {secs:.2f} s")
+    log(f"[build] topk.cu -> {path.name} in {secs:.2f} s")
     return secs
 
 
@@ -130,6 +125,26 @@ def time_ms(fn: Callable[[], object], iters: int, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn: Callable[[], object], iters: int,
+              warmup: int = 5) -> float:
+    """Mean milliseconds of device work per call: the summed durations of
+    every kernel, copy and fill the card ran during ``iters`` calls, from
+    a ``torch.profiler`` trace (host launch costs excluded). NaN when the
+    trace holds no device activity."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else float("nan")
 
 
 def topk_cases(device, seed: int = 0) -> List[tuple]:
@@ -181,9 +196,22 @@ def phase_kernels(device) -> Dict[str, object]:
     s = torch.randn((MAIN_Q, MAIN_N),
                     generator=torch.Generator(device=device).manual_seed(1),
                     device=device)
-    ms = time_ms(lambda: topk(s, MAIN_K), iters=200)
-    plain_ms = time_ms(lambda: topk_plain(s, MAIN_K), iters=50)
-    lib_ms = time_ms(lambda: torch.topk(s, MAIN_K, dim=1), iters=200)
+    calls = {"kernel": lambda: topk(s, MAIN_K),
+             "plain": lambda: topk_plain(s, MAIN_K),
+             "library": lambda: torch.topk(s, MAIN_K, dim=1)}
+    ev = {name: time_ms(fn, iters=100) for name, fn in calls.items()}
+    dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
+    log(f"[kernels] topk device time (profiler) kernel {dev['kernel']:.5f} "
+        f"ms, plain {dev['plain']:.5f} ms, torch.topk {dev['library']:.5f} "
+        f"ms; CUDA-event time per back-to-back call kernel "
+        f"{ev['kernel']:.5f} ms, plain {ev['plain']:.5f} ms, torch.topk "
+        f"{ev['library']:.5f} ms")
+    traced = all(v == v for v in dev.values())
+    if not traced:
+        log("[kernels] the profiler trace held no device time; the "
+            "record's times are CUDA-event times")
+    t = dev if traced else ev
+    ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
     nbytes = MAIN_Q * MAIN_N * 4 + MAIN_Q * MAIN_K * (4 + 4)
     ops = MAIN_Q * MAIN_N                 # one comparison per candidate
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -195,7 +223,8 @@ def phase_kernels(device) -> Dict[str, object]:
            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": lib_ms}
-    log(f"[kernels] topk [{MAIN_Q}, {MAIN_N}] k={MAIN_K}: kernel "
+    log(f"[kernels] topk [{MAIN_Q}, {MAIN_N}] k={MAIN_K} "
+        f"({'profiler' if traced else 'CUDA events'}): kernel "
         f"{ms:.5f} ms, plain (stable sort) {plain_ms:.5f} ms, torch.topk "
         f"{lib_ms:.5f} ms, bound {rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']}: {nbytes} B)")

@@ -15,13 +15,14 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from reflow_tpu_torch.executors.device_delta import resolve_device
 from reflow_tpu_torch.executors.lowerings import knn_state
 from reflow_tpu_torch.graph import FlowGraph, GraphError
 
 __all__ = ["states_from_jax", "states_to_numpy"]
 
 
-def _template(graph: FlowGraph, device) -> Dict[int, Dict[str, torch.Tensor]]:
+def _template(graph: FlowGraph) -> Dict[int, Dict[str, torch.Tensor]]:
     out = {}
     for node in graph.nodes:
         if node.kind != "op":
@@ -35,16 +36,17 @@ def _template(graph: FlowGraph, device) -> Dict[int, Dict[str, torch.Tensor]]:
 
 
 def states_from_jax(np_states: Mapping[int, Mapping[str, np.ndarray]],
-                    graph: FlowGraph, device="cpu"
+                    graph: FlowGraph, device=None
                     ) -> Dict[int, Dict[str, torch.Tensor]]:
     """``{node_id: {name: array}}`` from the JAX executor's ``states``
-    (as numpy) -> the port's state dict for ``graph`` on ``device``,
-    ready for ``CudaExecutor.state_restore``. Every node and array the
+    (as numpy) -> the port's state dict for ``graph`` on ``device``
+    (cuda unless the caller names another), ready for ``CudaExecutor.state_restore``. Every node and array the
     port's lowering keeps must be present with the port's shape; values
     are cast to the port's dtype (float32 -> bfloat16 for a bf16 table,
     which is exact for values that came from bf16)."""
+    device = resolve_device(device)
     out = {}
-    for nid, tmpl in _template(graph, device).items():
+    for nid, tmpl in _template(graph).items():
         if nid not in np_states:
             raise KeyError(f"{graph.nodes[nid]}: no state given")
         src = np_states[nid]

@@ -108,6 +108,13 @@ topk_rows_kernel(const float* __restrict__ x, float* __restrict__ vals,
   }
 }
 
+constexpr int kMaxDevices = 64;
+// per device, queried once: the opt-in shared memory a block may take,
+// and the dynamic size the shared-memory kernel is currently allowed
+// (0 = not yet queried / the 48 KB default)
+int g_optin_smem[kMaxDevices];
+int g_allowed_smem[kMaxDevices];
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream` for the
@@ -116,24 +123,29 @@ topk_rows_kernel(const float* __restrict__ x, float* __restrict__ vals,
 extern "C" int reflow_topk_f32(const float* x, float* vals, int* idx,
                                int rows, int n, int k, int device,
                                void* stream) {
+  if (device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows == 0) return 0;
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (g_optin_smem[device] == 0) {
+    err = cudaDeviceGetAttribute(&g_optin_smem[device],
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   // static shared memory of the kernel: red[] and pick
   const size_t static_smem = (kWarps + 1) * sizeof(unsigned long long);
   const size_t row_smem = static_cast<size_t>(n) * sizeof(uint32_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_smem + static_smem <= static_cast<size_t>(max_smem)) {
-    if (row_smem > 48 * 1024) {
+  if (row_smem + static_smem <= static_cast<size_t>(g_optin_smem[device])) {
+    if (row_smem > 48 * 1024 &&
+        row_smem > static_cast<size_t>(g_allowed_smem[device])) {
       err = cudaFuncSetAttribute(topk_rows_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(row_smem));
       if (err != cudaSuccess) return static_cast<int>(err);
+      g_allowed_smem[device] = static_cast<int>(row_smem);
     }
     topk_rows_kernel<true><<<rows, kThreads, row_smem, s>>>(x, vals, idx,
                                                             n, k);

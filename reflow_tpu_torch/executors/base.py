@@ -16,7 +16,7 @@ the north star); the executor decides *how*. The contract:
 from __future__ import annotations
 
 import abc
-from typing import Callable, Dict, List, Sequence, Union
+from typing import Callable, Dict, Sequence, Union
 
 from reflow_tpu_torch.delta import DeltaBatch
 from reflow_tpu_torch.graph import FlowGraph, Node

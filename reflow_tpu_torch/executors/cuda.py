@@ -7,10 +7,8 @@ the dirty plan's lowerings in order (``executors/lowerings.py``).
 
 What it leaves out, and why the scheduler does not miss it: PyTorch runs
 eagerly, so there is no compiled-program cache; there is no on-device
-fixpoint, no macro-tick and no window path yet, so the scheduler's
-``getattr`` probes for ``run_tick_fixpoint_many``/``run_window``/
-``stage_window`` find nothing and it streams tick by tick; and one card
-needs no ``place``. Op kinds without a ported lowering are refused at
+fixpoint yet, so the scheduler's ``run_tick_fixpoint`` probe gets None;
+and one card needs no ``place``. Op kinds without a ported lowering are refused at
 :meth:`bind`.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
@@ -23,12 +21,12 @@ from __future__ import annotations
 import time
 from typing import Dict, Sequence
 
-import torch
 
 from reflow_tpu_torch.delta import DeltaBatch
 from reflow_tpu_torch.executors.base import Executor
-from reflow_tpu_torch.executors.device_delta import (DeviceDelta, to_device,
-                                                     to_host)
+from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
+                                                     resolve_device,
+                                                     to_device, to_host)
 from reflow_tpu_torch.executors.lowerings import (LOWERINGS, knn_state,
                                                   lower_node)
 from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
@@ -37,33 +35,13 @@ from reflow_tpu_torch.obs import trace as _trace
 __all__ = ["CudaExecutor"]
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the 'cuda' executor found no CUDA device; pass "
-                "device='cpu' to run its plain PyTorch path on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but no CUDA "
-                               f"device is available")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"the 'cuda' executor runs on cuda or cpu, not "
-                         f"{dev}")
-    return dev
-
-
 class CudaExecutor(Executor):
     name = "cuda"
 
     def __init__(self, *, device=None):
         super().__init__()
         #: where state, uploads and every lowering run
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         #: device->host scalar readbacks the lowerings made to decide a
         #: branch on the host (the k-NN full-vs-incremental choice); the
         #: scheduler folds them into its ``forced_syncs``

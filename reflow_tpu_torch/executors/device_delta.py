@@ -20,9 +20,33 @@ import torch
 from reflow_tpu_torch.delta import DeltaBatch, Spec, host_dtype, torch_dtype
 
 __all__ = ["DeviceDelta", "bucket_capacity", "check_weight_mass",
-           "to_device", "to_host", "MAX_BATCH_WEIGHT_MASS"]
+           "resolve_device", "to_device", "to_host",
+           "MAX_BATCH_WEIGHT_MASS"]
 
 MIN_CAPACITY = 64
+
+
+def resolve_device(device=None) -> torch.device:
+    """Where an entry point of the port puts its tensors: the current
+    CUDA device unless the caller names another. With no card and no
+    ``device`` it raises rather than running on the CPU; ``device="cpu"``
+    runs the plain PyTorch path there (the tests do)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain PyTorch path on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but no CUDA "
+                               f"device is available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"the port runs on cuda or cpu, not {dev}")
+    return dev
 
 
 def bucket_capacity(n: int) -> int:
@@ -57,7 +81,8 @@ class DeviceDelta(NamedTuple):
 
     @staticmethod
     def empty(spec: Spec, capacity: int = MIN_CAPACITY,
-              device="cpu") -> "DeviceDelta":
+              device=None) -> "DeviceDelta":
+        device = resolve_device(device)
         return DeviceDelta(
             keys=torch.zeros((capacity,), dtype=torch.int32, device=device),
             values=torch.zeros((capacity,) + tuple(spec.value_shape),
@@ -86,13 +111,15 @@ def check_weight_mass(batch: DeltaBatch) -> None:
 
 def to_device(batch: DeltaBatch, spec: Spec,
               capacity: Optional[int] = None,
-              device="cpu") -> DeviceDelta:
-    """Host DeltaBatch -> padded DeviceDelta (the source host boundary).
+              device=None) -> DeviceDelta:
+    """Host DeltaBatch -> padded DeviceDelta (the source host boundary),
+    on ``device`` (see :func:`resolve_device`: cuda unless named).
 
     Host values are laid out at the Spec's host dtype (float32 for a
     ``torch.bfloat16`` Spec) and cast to the Spec's torch dtype on the
     device, in one host->device copy per column.
     """
+    device = resolve_device(device)
     n = len(batch)
     cap = capacity if capacity is not None else bucket_capacity(n)
     if n > cap:

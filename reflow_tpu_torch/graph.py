@@ -14,9 +14,9 @@ validator the survey calls for in §5 in lieu of a data-race sanitizer).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from reflow_tpu_torch.delta import DeltaBatch, Spec
+from reflow_tpu_torch.delta import Spec
 from reflow_tpu_torch.ops import (Filter, GroupBy, Join, KnnIndex, Map, Op,
                                   Reduce, Union)
 

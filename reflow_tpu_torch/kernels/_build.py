@@ -52,24 +52,20 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str, *, verbose: bool = False) -> Path:
+def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library's path. ``verbose`` adds ``-Xptxas -v`` and
-    returns with the compiler's report printed. Raises with the
-    compiler's output when the build fails."""
+    returns the library's path. Raises with the compiler's output when
+    the build fails."""
     out = _lib_path(name)
-    if out.exists() and not verbose:
+    if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="", flush=True)
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
     return out
 

@@ -17,7 +17,7 @@ folded into a running (values, ids) top-k carry.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch

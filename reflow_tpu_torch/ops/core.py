@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from collections import Counter, defaultdict
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 

@@ -27,7 +27,6 @@ import torch
 
 from reflow_tpu_torch.delta import DeltaBatch, host_dtype
 from reflow_tpu_torch.executors import CpuExecutor, Executor
-from reflow_tpu_torch.utils.config import env_float
 from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
 
@@ -122,8 +121,8 @@ class TickResult:
     def block(self) -> "TickResult":
         """Force any device-resident scalar fields to host values and
         surface deferred executor errors (the streaming sync point; a
-        no-op for synchronous ticks). Macro-tick results (tick_many)
-        carry per-tick [K] stacks; they aggregate here."""
+        no-op for synchronous ticks). ``tick_many`` results carry
+        the per-tick parts; they aggregate here."""
         def to_int(x):
             if isinstance(x, (int, LazyScalar)):
                 return int(x)
@@ -180,21 +179,6 @@ class SourceCursor:
         return cls(source, top + 1)
 
 
-class _StagedTicks:
-    """Handle for one staged-but-undispatched fused window
-    (``stage_window`` → ``dispatch_staged`` → ``retire_staged``): the
-    executor's :class:`StagedWindow` plus the scheduler-side facts the
-    dispatch needs to build the aggregated TickResult."""
-
-    __slots__ = ("sw", "k", "host_rows", "plan")
-
-    def __init__(self, sw, k: int, host_rows: int, plan):
-        self.sw = sw
-        self.k = k
-        self.host_rows = host_rows
-        self.plan = plan
-
-
 class DirtyScheduler:
     def __init__(self, graph: FlowGraph, executor: Optional[Executor] = None,
                  *, max_loop_iters: int = 10_000,
@@ -220,16 +204,6 @@ class DirtyScheduler:
         #: dispatch, so the first increments also emits a one-time
         #: warning (utils/runtime.note_forced_sync) — VERDICT r3 weak #6
         self.forced_syncs = 0
-        #: mega-tick window path (docs/guide.md "Compiled mega-ticks"):
-        #: windows dispatched through the device ingress queue vs windows
-        #: that fell back (ragged feeds too wasteful, over-capacity
-        #: batches, device-resident feeds, unsupported graph)
-        self.megatick_windows = 0
-        self.megatick_fallbacks = 0
-        #: max tolerated padding waste: the fraction of the window's
-        #: (tick, source) slots that would be zero-row padding. Divergent
-        #: per-tick dirty sets above this run the per-tick path instead
-        self.megatick_waste = env_float("REFLOW_MEGATICK_WASTE")
 
     # -- host boundary in --------------------------------------------------
 
@@ -429,26 +403,22 @@ class DirtyScheduler:
     def tick_many(self, feeds: Sequence[Dict[Node, DeltaBatch]], *,
                   feed_ids: Optional[Sequence[Dict[Node, Sequence[str]]]]
                   = None) -> TickResult:
-        """K consecutive streaming ticks, fused into ONE device execution
-        when the executor supports it (the macro-tick; see
-        ``TpuExecutor.run_tick_fixpoint_many``). ``feeds[t]`` is tick
-        ``t``'s source-push set; semantics are identical to pushing and
-        ticking each feed in order with ``sync=False``.
+        """K consecutive streaming ticks. ``feeds[t]`` is tick ``t``'s
+        source-push set; semantics are identical to pushing and ticking
+        each feed in order with ``sync=False``. The port has no fused
+        multi-tick path yet, so the ticks run one by one.
 
         ``feed_ids`` (parallel to ``feeds``) carries the producer batch
         ids a coalesced feed entry commits — the serving frontend merges
         several ``submit()`` micro-batches into one feed batch, and their
-        ids must land in the dedup window atomically with the macro-tick
-        so replays dedup exactly as ``push(batch_id=...)`` replays do.
-        Ids are *recorded*, not filtered: the caller (the frontend's
-        admission path) is responsible for rejecting duplicates before
-        coalescing.
+        ids must land in the dedup window with the ticks so replays dedup
+        exactly as ``push(batch_id=...)`` replays do. Ids are *recorded*,
+        not filtered: the caller (the frontend's admission path) is
+        responsible for rejecting duplicates before coalescing.
 
         Returns ONE aggregated TickResult covering all K ticks (scalar
-        fields sum/all-combine at ``block()``). Falls back to the
-        per-tick loop for executors/graphs without the fused path.
-        Requires no pending pushes (push() + tick_many don't mix) and a
-        sink-free graph on the fused path.
+        fields sum/all-combine at ``block()``, so no readback happens
+        here). Requires no pending pushes (push() + tick_many don't mix).
         """
         if any(self._pending.values()):
             raise GraphError("tick_many cannot run with pending push()ed "
@@ -471,252 +441,33 @@ class DirtyScheduler:
                         f"can only feed sources/loops, not {node}")
 
         t0 = time.perf_counter()
-        fx = None
-        plan = self._dirty_plan(sorted({n for f in feeds for n in f}))
-        if feeds:
-            fx = self._run_window_path(plan, feeds)
-        runner = getattr(self.executor, "run_tick_fixpoint_many", None)
-        if fx is None and runner is not None and feeds:
-            fx = runner(plan, feeds, self.max_loop_iters)
-        if fx is None:
-            # fallback: ordinary streaming ticks, aggregated lazily (no
-            # readbacks here — everything combines at block(), keeping
-            # the deferred-sync contract even on the unfused path)
-            results = []
-            for f in feeds:
-                for nid, b in f.items():
-                    self._pending[nid].append(b)
-                results.append(self.tick(sync=False))
-            merged_sinks: Dict[str, List[DeltaBatch]] = defaultdict(list)
-            for r in results:
-                for name, b in r.sink_deltas.items():
-                    merged_sinks[name].append(b)
-            agg = TickResult(
-                tick=self._tick,
-                sink_deltas={name: DeltaBatch.concat(bs)
-                             for name, bs in merged_sinks.items()},
-                passes=LazyScalar(*[r.passes for r in results]),
-                dirty_nodes=max((r.dirty_nodes for r in results),
-                                default=0),
-                deltas_in=LazyScalar(*[r.deltas_in for r in results]),
-                deltas_out=LazyScalar(*[r.deltas_out for r in results]),
-                wall_s=time.perf_counter() - t0,
-                quiesced=(lambda rs=results: all(
-                    bool(_host(r.quiesced).all()) for r in rs)),
-                _check_errors=self.executor.check_errors,
-            )
-            if _trace.ENABLED:
-                _trace.evt("tick_many", t0, agg.wall_s,
-                           args={"ticks": len(feeds), "fused": False})
-            self.history.append(agg)
-            return agg
-
-        passes_base, iters, rows, conv, extra_dirty = fx
-        K = len(feeds)
-        host_rows = sum(len(b) for f in feeds for b in f.values())
-        plan_ids = {n.id for n in plan}
-        self._tick += K
-        result = TickResult(
+        results = []
+        for f in feeds:
+            for nid, b in f.items():
+                self._pending[nid].append(b)
+            results.append(self.tick(sync=False))
+        merged_sinks: Dict[str, List[DeltaBatch]] = defaultdict(list)
+        for r in results:
+            for name, b in r.sink_deltas.items():
+                merged_sinks[name].append(b)
+        agg = TickResult(
             tick=self._tick,
-            sink_deltas={},
-            # per-tick [K] stacks stay device-resident; block() aggregates
-            passes=LazyScalar(passes_base, iters),
-            dirty_nodes=len(plan_ids | extra_dirty),
-            deltas_in=LazyScalar(host_rows, rows),
-            deltas_out=0,
+            sink_deltas={name: DeltaBatch.concat(bs)
+                         for name, bs in merged_sinks.items()},
+            passes=LazyScalar(*[r.passes for r in results]),
+            dirty_nodes=max((r.dirty_nodes for r in results), default=0),
+            deltas_in=LazyScalar(*[r.deltas_in for r in results]),
+            deltas_out=LazyScalar(*[r.deltas_out for r in results]),
             wall_s=time.perf_counter() - t0,
-            quiesced=conv,
+            quiesced=(lambda rs=results: all(
+                bool(_host(r.quiesced).all()) for r in rs)),
             _check_errors=self.executor.check_errors,
         )
         if _trace.ENABLED:
-            _trace.evt("tick_many", t0, result.wall_s,
-                       args={"ticks": K, "fused": True})
-        self.history.append(result)
-        return result
-
-    # -- mega-tick window path (docs/guide.md "Compiled mega-ticks") -------
-
-    @property
-    def window_support(self) -> bool:
-        """Whether the executor advertises the fused window path for the
-        bound graph (the serve frontend reads this to pick admission
-        accounting and the pump's default window behavior)."""
-        sup = getattr(self.executor, "supports_window", None)
-        return bool(sup()) if callable(sup) else False
-
-    def _zero_batch(self, nid: int) -> DeltaBatch:
-        spec = self.graph.nodes[nid].spec
-        vshape = tuple(spec.value_shape)
-        return DeltaBatch(np.zeros(0, np.int64),
-                          np.zeros((0,) + vshape,
-                                   host_dtype(spec.value_dtype)),
-                          np.zeros(0, np.int64))
-
-    def _run_window_path(self, plan, feeds):
-        """Try the device-resident window executor on this tick_many
-        call: pad ragged per-tick feeds to the window's union source set
-        with zero-row deltas (weight-0 rows are semantic no-ops, so the
-        compiled body keeps ONE fixed plan for the whole window) and
-        hand the window to ``executor.run_window``. Returns the fused
-        result tuple or None — padding waste above ``megatick_waste``,
-        over-capacity batches, and executor refusals fall back to the
-        stacked/per-tick paths, counted in ``megatick_fallbacks``.
-        Device-resident batches skip silently (they ride their own feed
-        slot by design — that's the walpipe protocol, not a fallback).
-        """
-        run = getattr(self.executor, "run_window", None)
-        if run is None or not self.window_support:
-            return None
-        for f in feeds:
-            for b in f.values():
-                if hasattr(b, "nonzero"):
-                    return None
-        K = len(feeds)
-        union = sorted({n for f in feeds for n in f})
-        if not union:
-            return None
-        pad_slots = sum(1 for f in feeds for nid in union
-                        if nid not in f or len(f[nid]) == 0)
-        if pad_slots / (K * len(union)) > self.megatick_waste:
-            # dirty sets diverge too much: padding every tick to the
-            # union would mostly move zeros — per-tick plans win
-            self.megatick_fallbacks += 1
-            return None
-        padded = [dict(f) for f in feeds]
-        for f in padded:
-            for nid in union:
-                if nid not in f:
-                    f[nid] = self._zero_batch(nid)
-        fx = run(plan, padded, self.max_loop_iters)
-        if fx is None:
-            self.megatick_fallbacks += 1
-        else:
-            self.megatick_windows += 1
-        return fx
-
-    # -- staged (pipelined) window path ------------------------------------
-    #
-    # The serve pump's software-pipelined drive of the same mega-tick:
-    # stage_window (host slot writes + WAL append) can overlap a previous
-    # window's device execution; dispatch_staged commits the tick horizon
-    # and returns the TickResult; retire_staged re-adopts the donated
-    # buffers off the critical path. stage → dispatch → retire on one
-    # window is semantically identical to tick_many's fused branch.
-
-    def stage_window(self, feeds: Sequence[Dict[Node, DeltaBatch]], *,
-                     feed_ids: Optional[Sequence[Dict[Node, Sequence[str]]]]
-                     = None):
-        """Stage (but do not dispatch) one K-tick fused window: validate
-        and pad the feeds exactly as ``tick_many``'s window path does,
-        slot-write them into the executor's ingress queue, and seal the
-        staged generation. Returns an opaque handle for
-        :meth:`dispatch_staged` / :meth:`retire_staged`, or None when the
-        window doesn't fit the fused path — the caller then falls back to
-        :meth:`tick_many`, which re-checks and counts the fallback itself
-        (nothing is counted or logged here on refusal, so the fallback
-        isn't double-counted).
-
-        A successful stage has already WAL-logged the window's pushes
-        (append-before-dispatch, same order as ``tick_many``) and
-        registered its batch ids, so the caller MUST follow with
-        ``dispatch_staged`` — abandoning a staged window is a crash, not
-        a fallback."""
-        if any(self._pending.values()):
-            raise GraphError("stage_window cannot run with pending "
-                             "push()ed batches; tick() them first")
-        stage = getattr(self.executor, "stage_window", None)
-        if stage is None or not self.window_support or not feeds:
-            return None
-        nfeeds = []
-        for f in feeds:
-            entry = {}
-            for src, b in f.items():
-                if src.kind not in ("source", "loop"):
-                    raise GraphError(
-                        f"can only feed sources/loops, not {src}")
-                if hasattr(b, "nonzero"):
-                    return None  # device-resident: walpipe's own slot
-                entry[src.id] = b
-            nfeeds.append(entry)
-        K = len(nfeeds)
-        union = sorted({n for f in nfeeds for n in f})
-        if not union:
-            return None
-        pad_slots = sum(1 for f in nfeeds for nid in union
-                        if nid not in f or len(f[nid]) == 0)
-        if pad_slots / (K * len(union)) > self.megatick_waste:
-            return None
-        plan = self._dirty_plan(union)
-        padded = [dict(f) for f in nfeeds]
-        for f in padded:
-            for nid in union:
-                if nid not in f:
-                    f[nid] = self._zero_batch(nid)
-        sw = stage(plan, padded, self.max_loop_iters)
-        if sw is None:
-            return None
-        # the stage is committed: register ids and WAL-log the pushes NOW
-        # (append-before-dispatch). On the earlier refusals above nothing
-        # was registered, so the tick_many fallback re-registers cleanly
-        # (_register_batch_id tolerates replays).
-        if feed_ids is not None:
-            if len(feed_ids) != len(feeds):
-                raise GraphError(
-                    f"feed_ids must parallel feeds "
-                    f"({len(feed_ids)} != {len(feeds)})")
-            for ids_map in feed_ids:
-                for ids in ids_map.values():
-                    for bid in ids:
-                        self._register_batch_id(bid)
-        self._log_window_feeds(feeds, feed_ids)
-        host_rows = sum(len(b) for f in nfeeds for b in f.values())
-        return _StagedTicks(sw, K, host_rows, plan)
-
-    def _log_window_feeds(self, feeds, feed_ids) -> None:
-        """Durability hook for a successfully staged window: the base
-        scheduler has no log; ``DurableScheduler`` appends the window's
-        push records here (append-before-dispatch)."""
-
-    def dispatch_staged(self, handle: "_StagedTicks") -> TickResult:
-        """Dispatch a staged window: ONE device execution, the tick
-        horizon advances by K, and the aggregated TickResult (identical
-        to ``tick_many``'s fused branch) is returned. The dispatch is
-        async — the caller can stage the next window immediately and
-        ``retire_staged`` this one later."""
-        t0 = time.perf_counter()
-        fx = self.executor.dispatch_window(handle.sw)
-        if fx is None:
-            # stage_window guaranteed the fused program exists — a None
-            # here is a lifecycle bug, and the window's WAL records are
-            # already appended, so falling back would double-log
-            raise GraphError("staged window refused dispatch")
-        self.megatick_windows += 1
-        passes_base, iters, rows, conv, extra_dirty = fx
-        K = handle.k
-        plan_ids = {n.id for n in handle.plan}
-        self._tick += K
-        result = TickResult(
-            tick=self._tick,
-            sink_deltas={},
-            passes=LazyScalar(passes_base, iters),
-            dirty_nodes=len(plan_ids | extra_dirty),
-            deltas_in=LazyScalar(handle.host_rows, rows),
-            deltas_out=0,
-            wall_s=time.perf_counter() - t0,
-            quiesced=conv,
-            _check_errors=self.executor.check_errors,
-        )
-        if _trace.ENABLED:
-            _trace.evt("tick_many", t0, result.wall_s,
-                       args={"ticks": K, "fused": True, "staged": True})
-        self.history.append(result)
-        return result
-
-    def retire_staged(self, handle: "_StagedTicks") -> None:
-        """Settle a dispatched window off the critical path: hand the
-        window program's returned zeroed stack back to the ingress queue
-        (placement re-assertion included) and free its generation."""
-        self.executor.retire_window(handle.sw)
+            _trace.evt("tick_many", t0, agg.wall_s,
+                       args={"ticks": len(feeds)})
+        self.history.append(agg)
+        return agg
 
     def publish_metrics(self, registry=None, *, name: Optional[str]
                         = None) -> str:
@@ -733,11 +484,6 @@ class DirtyScheduler:
         reg.gauge(f"{key}.pending_batches",
                   lambda: sum(len(v) for v in self._pending.values()))
         reg.gauge(f"{key}.history_len", lambda: len(self.history))
-        reg.gauge(f"{key}.megatick_windows", lambda: self.megatick_windows)
-        reg.gauge(f"{key}.megatick_fallbacks",
-                  lambda: self.megatick_fallbacks)
-        reg.gauge(f"{key}.megatick_cache_hits",
-                  lambda: getattr(self.executor, "megatick_cache_hits", 0))
         self._metric_keys.append((reg, key))
         return key
 

@@ -34,10 +34,9 @@ tier forced — admission and pumping are **injectable**):
   the per-graph in-flight latch: a graph's macro-tick never interleaves
   with itself, whoever pumps it.
 
-Steady-state traffic rides the fused streaming path: the pump calls
-``tick_many`` (never a synchronous ``tick``), so on a device executor
-no mid-stream forced syncs happen — the zero-``forced_syncs`` property
-``REFLOW_BENCH_SERVE=1`` asserts.
+Steady-state traffic rides the streaming path: the pump calls
+``tick_many`` (never a synchronous ``tick``), so the scheduler itself
+forces no mid-stream readback.
 
 Durability pipeline (durable schedulers): the pump never blocks on an
 fsync. ``tick_many(wait_durable=False)`` returns once the window's WAL
@@ -72,7 +71,6 @@ from typing import Deque, Dict, List, Optional, Tuple
 from reflow_tpu_torch.graph import GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
 from reflow_tpu_torch.scheduler import SourceCursor
-from reflow_tpu_torch.utils.config import env_int
 from reflow_tpu_torch.utils.runtime import named_lock
 
 from .budget import AdmissionBudget
@@ -103,18 +101,6 @@ class _ResBlock:
     t_exec1: float
 
 
-@dataclasses.dataclass
-class _InflightWindow:
-    """One dispatched-but-unretired pipelined window: the scheduler's
-    staged handle (whose retire re-adopts the donated queue generation)
-    plus the :class:`_ResBlock` whose durability wiring happens at the
-    retire step — both deliberately OFF the stage→dispatch critical
-    path."""
-
-    handle: object               # scheduler _StagedTicks
-    block: _ResBlock
-
-
 #: per-sample metric retention: percentile summaries only need a recent
 #: window, and a long-running serving process must not grow them forever
 METRIC_WINDOW = 4096
@@ -143,8 +129,7 @@ class IngestFrontend:
                  queue_batches: int = 256, max_bytes: int = 64 << 20,
                  window: Optional[CoalesceWindow] = None, crash=None,
                  start: bool = True, budget=None, lock=None, work=None,
-                 name: Optional[str] = None, admission: str = "auto",
-                 depth: Optional[int] = None):
+                 name: Optional[str] = None, admission: str = "auto"):
         if policy not in POLICIES:
             raise ValueError(f"policy {policy!r} not in {POLICIES}")
         if admission not in ("auto", "host"):
@@ -156,28 +141,9 @@ class IngestFrontend:
         self.policy = policy
         self.window = window if window is not None else CoalesceWindow()
         self.name = name
-        #: the executor advertises the fused mega-tick window path for
-        #: this graph (no ported executor does yet: the pump's tick_many
-        #: then streams tick by tick)
-        self.megatick = bool(getattr(sched, "window_support", False))
         #: what a host batch's admission charge measures: its payload
         #: bytes ("host", the only mode until the window path is ported)
         self.admission = "host"
-        #: pipelined window depth: how many dispatched-but-unretired
-        #: windows may be in flight while the NEXT one stages (software
-        #: pipelining over the async device dispatch). 1 = the fully
-        #: serial stage→dispatch→retire loop, bit-for-bit today's
-        #: behavior; >1 requires the staged scheduler surface, so it is
-        #: forced to 1 off the fused mega-tick path.
-        if depth is None:
-            depth = env_int("REFLOW_WINDOW_DEPTH")
-        staged = (self.megatick
-                  and getattr(sched, "stage_window", None) is not None)
-        self.depth = max(1, int(depth)) if staged else 1
-        #: dispatched windows awaiting their retire step, oldest first.
-        #: Owned by whoever holds the pump latch (or the pool's settle
-        #: latch) — never mutated concurrently.
-        self._inflight: Deque[_InflightWindow] = deque()
         self._crash = crash
         self._lock = (lock if lock is not None
                       else named_lock(f"serve.frontend.{name}" if name
@@ -214,14 +180,6 @@ class IngestFrontend:
         self.shed = 0
         self.ticks = 0
         self.pump_iterations = 0
-        #: pipelining counters: fused windows staged through the split
-        #: lifecycle, how many staged while a previous window was still
-        #: in flight, and the host-stage seconds in each bucket
-        #: (``stage_overlap_frac`` is the overlapped fraction)
-        self.windows_staged = 0
-        self.windows_pipelined = 0
-        self.stage_s_total = 0.0
-        self.stage_overlap_s = 0.0
         #: times a failed frontend was re-armed (:meth:`revive`)
         self.revives = 0
         # bounded reservoirs (most recent METRIC_WINDOW samples) — the
@@ -505,10 +463,7 @@ class IngestFrontend:
         be inspected/driven directly until :meth:`resume`."""
         with self._lock:
             self._paused = True
-            # also wait out dispatched-but-unretired pipelined windows:
-            # their retire mutates the ingress queue the caller is about
-            # to drive directly
-            while self._executing or self._inflight:
+            while self._executing:
                 self._idle.wait()
 
     def resume(self) -> None:
@@ -575,7 +530,7 @@ class IngestFrontend:
         # fail whatever is still queued
         with self._lock:
             while self._state == "closing" and (
-                    self._executing or self._inflight
+                    self._executing
                     or (self._closing_flush
                         and self._queues.queued_batches)):
                 remaining = (None if deadline is None
@@ -589,13 +544,6 @@ class IngestFrontend:
                 self._idle.wait(timeout=remaining)
             if self._state == "closing" and not self._closing_flush:
                 self._exit_pump_locked()
-
-    @property
-    def stage_overlap_frac(self) -> float:
-        """Fraction of host staging time that overlapped an in-flight
-        device dispatch (0.0 at depth 1 or before any fused window)."""
-        return (self.stage_overlap_s / self.stage_s_total
-                if self.stage_s_total > 0 else 0.0)
 
     def _seal(self) -> None:
         closefn = getattr(self.sched, "close", None)
@@ -660,27 +608,12 @@ class IngestFrontend:
         return drained
 
     def _finish_window(self) -> None:
-        """Release the latch and the window's remaining budget bytes
-        (staged chunks already released theirs at stage-complete); wake
-        blocked producers (budget-wide) and flush/pause waiters."""
+        """Release the latch and the window's budget bytes; wake blocked
+        producers (budget-wide) and flush/pause waiters."""
         self._executing = False
         self._queues.commit_executing()
         self._budget.notify_room()
         self._idle.notify_all()
-
-    def _needs_settle(self) -> bool:
-        """Pool eligibility for a settle-only iteration (caller holds
-        the lock): dispatched windows are waiting for their retire and
-        nobody owns the latch. Ignores ``_paused`` deliberately — pause
-        WAITS on the in-flight windows, so settling must proceed."""
-        return (bool(self._inflight) and not self._executing
-                and self._state != "failed")
-
-    def _begin_settle(self) -> None:
-        """Latch the graph for a settle-only iteration (caller holds
-        the lock; follow with ``_settle_all`` unlocked, then
-        ``_finish_window``)."""
-        self._executing = True
 
     def _pump_loop(self) -> None:
         try:
@@ -691,28 +624,14 @@ class IngestFrontend:
                         if self._state == "closing" and (
                                 not self._closing_flush
                                 or self._queues.queued_batches == 0):
-                            if not self._inflight:
-                                self._exit_pump_locked()
-                                return
-                            self._begin_settle()  # retire first
-                            break
+                            self._exit_pump_locked()
+                            return
                         fire, wait_t = self._fire_or_timeout(
                             time.perf_counter())
                         if fire:
                             drained = self._take_window()
                             break
-                        if self._inflight:
-                            # idle with windows in flight: the device has
-                            # nothing to overlap with, so retire now
-                            # (latched, so pause/close wait it out)
-                            self._begin_settle()
-                            break
                         self._work.wait(timeout=wait_t)
-                if drained is None:
-                    self._settle_all()
-                    with self._lock:
-                        self._finish_window()
-                    continue
                 self._run_window(drained)
                 with self._lock:
                     self._finish_window()
@@ -775,68 +694,7 @@ class IngestFrontend:
         k = self.window.max_ticks
         for i in range(0, len(feeds), k):
             chunk = feeds[i:i + k]
-            # bound the pipeline: at most depth dispatched windows may
-            # exist once this chunk dispatches, so retire the oldest
-            # until a slot is free (depth 1 ⇒ settle everything here ⇒
-            # the serial stage→dispatch→retire loop, today's behavior)
-            while len(self._inflight) > self.depth - 1:
-                self._settle_one()
             self._crash_point("pump_before_tick")
-            handle = None
-            if self.depth > 1:
-                t_s0 = time.perf_counter()
-                inflight0 = len(self._inflight)
-                handle = self.sched.stage_window(
-                    [f.batches for f in chunk],
-                    feed_ids=[f.ids for f in chunk])
-                if handle is not None:
-                    t_s1 = time.perf_counter()
-                    self.windows_staged += 1
-                    self.stage_s_total += t_s1 - t_s0
-                    if inflight0 > 0:
-                        self.windows_pipelined += 1
-                        self.stage_overlap_s += t_s1 - t_s0
-                    if tr:
-                        _trace.evt("window_stage", t_s0, t_s1 - t_s0,
-                                   args={"graph": self.name or "frontend",
-                                         "ticks": len(chunk),
-                                         "inflight": inflight0,
-                                         "device": self._device_label()})
-                    # stage-complete budget release: the chunk's rows now
-                    # live in the device ingress queue, so their admission
-                    # bytes stop occupying the frontend — producers
-                    # unblock a window earlier than the retire
-                    chunk_bytes = sum(
-                        e.nbytes for f in chunk
-                        for entries in f.entries.values() for e in entries)
-                    with self._lock:
-                        self._queues.release_executing(chunk_bytes)
-                        self._budget.notify_room()
-            if handle is not None:
-                tick0 = self.sched._tick
-                t_exec0 = time.perf_counter()
-                self.sched.dispatch_staged(handle)
-                lsn = wal.last_lsn() if wal is not None else 0
-                t_exec1 = time.perf_counter()
-                if tr:
-                    _trace.evt("pump_execute", t_exec0, t_exec1 - t_exec0,
-                               args={"graph": self.name or "frontend",
-                                     "ticks": len(chunk), "lsn": lsn,
-                                     "megatick": True,
-                                     "depth": len(self._inflight) + 1,
-                                     "device": self._device_label()})
-                self._crash_point("pump_after_tick")
-                block = _ResBlock(self._chunk_items(chunk, tick0), lsn,
-                                  len(chunk), t_ready, t_exec0, t_exec1)
-                with self._lock:
-                    self._pending_res += 1
-                self._inflight.append(_InflightWindow(handle, block))
-                continue
-            # unfused (or depth-1) chunk: settle the pipeline first so
-            # ticket wiring stays LSN-ordered, then run today's serial
-            # tick_many path verbatim (it re-checks the window fit and
-            # counts any fallback exactly once)
-            self._settle_all()
             tick0 = self.sched._tick
             t_exec0 = time.perf_counter()
             if wal is not None:
@@ -853,8 +711,6 @@ class IngestFrontend:
                 _trace.evt("pump_execute", t_exec0, t_exec1 - t_exec0,
                            args={"graph": self.name or "frontend",
                                  "ticks": len(chunk), "lsn": lsn,
-                                 "megatick": self.megatick,
-                                 "depth": 1,
                                  "device": self._device_label()})
             self._crash_point("pump_after_tick")
             block = _ResBlock(self._chunk_items(chunk, tick0), lsn,
@@ -871,15 +727,7 @@ class IngestFrontend:
         with self._lock:
             self.pump_iterations += 1
             self.ticks_per_pump.append(len(feeds))
-            more = (self._state == "running" and not self._paused
-                    and not self._flush_pending
-                    and self._queues.queued_batches > 0)
         self._window_entries = None
-        # keep the pipeline primed only when another window is imminent:
-        # its stage will overlap these dispatches. Otherwise retire now,
-        # inside the latch, so flush/pause/close observe a settled graph.
-        if self.depth <= 1 or not more:
-            self._settle_all()
 
     @staticmethod
     def _chunk_items(chunk, tick0: int) -> List[Tuple[Entry, int, int]]:
@@ -890,29 +738,9 @@ class IngestFrontend:
                     items.append((e, tick0 + j + 1, len(entries) - 1))
         return items
 
-    def _settle_one(self) -> None:
-        """Retire the OLDEST dispatched window (lock NOT held): re-adopt
-        its donated queue generation, then wire its tickets onto the
-        durable watermark. Runs off the stage→dispatch critical path —
-        under pipelining this executes while the next window is already
-        on the device."""
-        iw = self._inflight.popleft()
-        tr = _trace.ENABLED
-        t_r0 = time.perf_counter() if tr else 0.0
-        self.sched.retire_staged(iw.handle)
-        if tr:
-            _trace.evt("window_retire", t_r0, time.perf_counter() - t_r0,
-                       args={"graph": self.name or "frontend",
-                             "ticks": iw.block.nticks})
-        self._wire_block(iw.block)
-
-    def _settle_all(self) -> None:
-        while self._inflight:
-            self._settle_one()
-
     def _wire_block(self, block: _ResBlock) -> None:
         """Park one executed chunk's tickets on the durable watermark
-        (``_pending_res`` was already taken at dispatch). Pipelined
+        (``_pending_res`` was already taken by the caller). Pipelined
         resolution: commit-before-resolve holds, but the commit (the
         fsync) may still be in flight — ``when_durable`` fires on the
         committer once the window's LSN is covered, so the pump overlaps
@@ -1001,17 +829,6 @@ class IngestFrontend:
             self._state = "failed"
             self.pump_error = error
             self._executing = False
-            # dispatched-but-unretired pipelined windows die with the
-            # pump: their device work may or may not have completed, so
-            # treat them like the in-flight window — tickets fail (the
-            # upstream re-sends; durable replay dedups what actually
-            # applied) and their ids STAY in the dedup mirror. Their
-            # queue generations are never retired; the executor's
-            # use-after-donate guard already dropped the queue on a
-            # dispatch crash, and a fresh one is allocated next window.
-            inflight = list(self._inflight)
-            self._inflight.clear()
-            self._pending_res -= len(inflight)
             stranded = self._queues.drain_all()
             self._queues.commit_executing()
             # the stranded backlog never reached the scheduler: drop its
@@ -1031,10 +848,6 @@ class IngestFrontend:
         crash.__cause__ = error
         if window is None:
             window = getattr(self, "_window_entries", None) or {}
-        for iw in inflight:
-            for e, _tick, _co in iw.block.items:
-                if not e.ticket.done():
-                    e.ticket._fail(crash)
         for entries in list(window.values()) + list(stranded.values()):
             for e in entries:
                 if not e.ticket.done():
@@ -1052,11 +865,6 @@ class IngestFrontend:
         self.sched = sched
         self._cursors.clear()  # auto-id cursors re-derive from new sched
         self._admitted = dict.fromkeys(sched._seen_batch_ids)
-        self.megatick = bool(getattr(sched, "window_support", False))
-        staged = (self.megatick
-                  and getattr(sched, "stage_window", None) is not None)
-        if not staged:
-            self.depth = 1
 
     def revive(self, sched=None) -> None:
         """Re-arm a failed frontend: ``"failed"`` → ``"running"`` — the

@@ -172,16 +172,3 @@ class SourceQueues:
         if self.executing_bytes:
             self.budget.release(self.executing_bytes)
         self.executing_bytes = 0
-
-    def release_executing(self, nbytes: int) -> int:
-        """Release part of ``executing_bytes`` back to the budget — the
-        pipelined pump's stage-complete release: once a window's rows
-        are slot-written into the device ingress queue, their HOST
-        payload no longer occupies the frontend, so producers may be
-        admitted against that room while the window is still in flight.
-        Clamped to what is actually held; returns the bytes released."""
-        n = min(int(nbytes), self.executing_bytes)
-        if n > 0:
-            self.executing_bytes -= n
-            self.budget.release(n)
-        return n

@@ -113,10 +113,6 @@ def knob_table() -> str:
 
 # -- the knobs the port reads -----------------------------------------------
 
-declare("REFLOW_WINDOW_DEPTH", "int", 2,
-        "pipelined window depth (1 = serial stage->dispatch->retire)")
-declare("REFLOW_MEGATICK_WASTE", "float", 0.5,
-        "max padded-slot fraction before a fused window falls back")
 declare("REFLOW_TRACE", "flag", False,
         "enable per-ticket trace spans at import time (obs.enable())")
 declare("REFLOW_TRACE_RING", "int", 65536,

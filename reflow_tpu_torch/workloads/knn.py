@@ -12,7 +12,7 @@ trigger the chunked full corpus rescan on the device).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch

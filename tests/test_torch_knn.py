@@ -225,7 +225,7 @@ def test_states_from_jax_rejects_wrong_shape():
     st = states_to_numpy(run.sched.executor.states)
     st[nid]["dvec"] = st[nid]["dvec"][:-1]
     with pytest.raises(ValueError):
-        states_from_jax(st, run.kg.graph)
+        states_from_jax(st, run.kg.graph, device="cpu")
 
 
 def test_snapshot_survives_in_place_ticks():
@@ -248,6 +248,27 @@ def test_cuda_executor_without_device_needs_a_card(monkeypatch):
         P.get_executor("cuda")
     with pytest.raises(RuntimeError):
         P.get_executor("cuda", device="cuda")
+
+
+def test_entry_points_without_device_need_a_card(monkeypatch):
+    """The host boundary and the state carry default to the card too:
+    with no card and no ``device=`` they raise rather than stay on the
+    host."""
+    from reflow_tpu_torch.delta import Spec as PSpec
+    from reflow_tpu_torch.executors.device_delta import DeviceDelta, to_device
+
+    run = Run("port")
+    st = states_to_numpy(run.sched.executor.states)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = PSpec((DIM,), torch.float32, D)
+    b = P.DeltaBatch(np.zeros(1, np.int64), np.zeros((1, DIM), np.float32),
+                     np.ones(1, np.int64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_device(b, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceDelta.empty(spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        states_from_jax(st, run.kg.graph)
 
 
 def test_unported_op_refused_at_bind():
@@ -281,7 +302,8 @@ def test_to_device_matches_jax_padding(dt):
                 "int8": (np.int8, torch.int8)}[dt]
     keys = rng.integers(0, D, n)
     w = rng.choice([-1, 1], n)
-    pd = to_device(P.DeltaBatch(keys, vals, w), PSpec((DIM,), pdt, D))
+    pd = to_device(P.DeltaBatch(keys, vals, w), PSpec((DIM,), pdt, D),
+                   device="cpu")
     jd = jto_device(JDeltaBatch(keys, vals, w), JSpec((DIM,), jdt, D))
     assert pd.capacity == jd.capacity == 128
     np.testing.assert_array_equal(pd.keys.numpy(), np.asarray(jd.keys))
@@ -301,4 +323,4 @@ def test_to_device_refuses_weight_mass_beyond_float32():
     b = P.DeltaBatch(np.zeros(2, np.int64), np.zeros((2, DIM), np.float32),
                      np.array([1 << 23, 1 << 23]))
     with pytest.raises(ValueError, match="2\\*\\*24"):
-        to_device(b, PSpec((DIM,), torch.float32, D))
+        to_device(b, PSpec((DIM,), torch.float32, D), device="cpu")

@@ -11,21 +11,28 @@ Phases, each printing its own lines:
    cuDNN (the port's float32 scoring must stay float32).
 2. **Build** — ``reflow_tpu_torch/csrc/topk.cu`` compiled by ``nvcc``
    for ``sm_90a`` into the git-ignored ``reflow_tpu_torch/_build/``.
-3. **Kernels vs their plain versions** — each kernel's wrapper on card
-   tensors at the shapes the main path gives it (and at edge shapes),
-   held to exact equality with the plain PyTorch version; device times
-   (from a ``torch.profiler`` trace) of the kernel, the plain version and
-   the one-call library yardstick, beside their CUDA-event times.
+3. **Kernels vs their plain versions** — each kernel entry's wrapper
+   (``topk``, and the scan step ``topk_merge``) on card tensors at the
+   shapes the main path gives it (and at edge shapes), held to exact
+   equality with the plain PyTorch version; device times (from a
+   ``torch.profiler`` trace) and CUDA-event times of each entry, warm
+   (back to back, input in L2) and cold (L2 flushed by a 64 MB write
+   between calls, the flush left out of both), beside the plain
+   version's and the one-call library yardstick's.
 4. **Serving slice at full width** — the k-NN re-index workload
    (BASELINE.md config 4: 256 queries, a 2^20-id corpus of 768-dim int8
    embeddings, k = 16, scan chunk 8192) served through
    ``IngestFrontend`` -> ``DirtyScheduler`` -> the ``cuda`` executor:
    queries, a device-made corpus preload, then host insert batches
    (incremental ticks), a retraction batch and a query update (full
-   rescans), every ticket ``applied``; the table is checked against a
-   brute-force top-k over the same corpus, and the kernel launch counts
-   (zeroed just before the path, read just after) prove the path ran
-   through the kernel.
+   rescans), every ticket ``applied``; then one more insert tick and one
+   more retraction tick under ``torch.profiler`` (device-busy share of
+   the tick, top device operations, longest idle gaps, host op counts).
+   The table is checked against a brute-force top-k over the same
+   corpus, and the kernel launch counts (zeroed just before the path,
+   read just after) prove the path ran through the kernels: one ``topk``
+   per incremental tick, one ``topk_merge`` per corpus chunk of a rescan
+   tick.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -38,7 +45,7 @@ import json
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, FrozenSet, List, Set
 
 import numpy as np
 import torch
@@ -48,7 +55,8 @@ from reflow_tpu_torch import DeltaBatch, DirtyScheduler, get_executor
 from reflow_tpu_torch.executors.device_delta import DeviceDelta
 from reflow_tpu_torch.kernels import _build
 from reflow_tpu_torch.kernels import topk as topk_mod
-from reflow_tpu_torch.kernels.topk import NEG, scores, topk, topk_plain
+from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
+                                           topk_merge_plain, topk_plain)
 from reflow_tpu_torch.serve import APPLIED, CoalesceWindow, IngestFrontend
 from reflow_tpu_torch.workloads import knn
 
@@ -63,11 +71,15 @@ F32_OPS_PER_S = 67e12
 #: update, which rescans)
 FULL = dict(Q=256, D=1 << 20, dim=768, k=16, scan_chunk=8192,
             per_tick=8192, preload_chunk=1 << 16, preload_chunks=15,
-            insert_ticks=5, retract=1024, query_update=16)
+            insert_ticks=5, retract=1024, query_update=16, trace=True)
 
-#: the main-path shape of the top-k kernel: Q rows of k + scan_chunk
-#: candidates (insert tick: k + 8192 delta docs; rescan: k + one chunk)
+#: the main-path shape of the top-k kernel: Q rows of k + 8192
+#: candidates (an insert tick's k emitted + 8192 delta docs); the merge
+#: entry's is a carry of k plus one 8192-doc chunk (a rescan step)
 MAIN_Q, MAIN_N, MAIN_K = 256, 16 + 8192, 16
+MAIN_CHUNK = 8192
+#: bytes written between calls to time a kernel with a cold L2 (50 MB)
+FLUSH_BYTES = 64 << 20
 
 
 def log(msg: str) -> None:
@@ -127,24 +139,72 @@ def time_ms(fn: Callable[[], object], iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn: Callable[[], object], iters: int,
-              warmup: int = 5) -> float:
-    """Mean milliseconds of device work per call: the summed durations of
-    every kernel, copy and fill the card ran during ``iters`` calls, from
-    a ``torch.profiler`` trace (host launch costs excluded). NaN when the
-    trace holds no device activity."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def _profile(fn: Callable[[], object], iters: int):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    return prof
+
+
+def device_names(fn: Callable[[], object]) -> Set[str]:
+    """Names of the device operations one call of ``fn`` runs."""
+    fn()
+    torch.cuda.synchronize()
+    return {e.name for e in _profile(fn, 1).events()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn: Callable[[], object], iters: int, warmup: int = 5,
+              exclude: FrozenSet[str] = frozenset()) -> float:
+    """Mean milliseconds of device work per call: the summed durations of
+    every kernel, copy and fill the card ran during ``iters`` calls, from
+    a ``torch.profiler`` trace (host launch costs excluded), leaving out
+    operations named in ``exclude``. NaN when the trace holds no device
+    activity."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in _profile(fn, iters).events()
+             if e.device_type == DeviceType.CUDA and e.name not in exclude)
     return us / 1e3 / iters if us > 0 else float("nan")
+
+
+def cold_event_ms(fn: Callable[[], object], flush: Callable[[], object],
+                  iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call by CUDA events around each call alone,
+    with ``flush`` (run before each call, outside the events) evicting
+    its inputs from L2."""
+    for _ in range(warmup):
+        flush()
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def kernel_times(fn: Callable[[], object], flush: Callable[[], object],
+                 flush_names: FrozenSet[str]) -> Dict[str, float]:
+    """An entry's device and CUDA-event times, warm (back-to-back calls,
+    inputs in L2 as the scan finds them after the matmul) and cold (L2
+    flushed before each call; the flush is outside the events and left
+    out of the profiler sum by name)."""
+    return {"warm_dev": device_ms(fn, iters=20),
+            "warm_ev": time_ms(fn, iters=100),
+            "cold_dev": device_ms(lambda: (flush(), fn()), iters=20,
+                                  exclude=flush_names),
+            "cold_ev": cold_event_ms(fn, flush, iters=50)}
 
 
 def topk_cases(device, seed: int = 0) -> List[tuple]:
@@ -168,67 +228,153 @@ def topk_cases(device, seed: int = 0) -> List[tuple]:
          torch.full((32, 513), NEG, device=device), 16),
         ("partly NEG 32x513 k16", partly, 16),
         ("ties 64x2000 k32", ties, 32),
+        ("ragged multi-tile 8x20001 k16", randn(8, 20001), 16),
     ]
 
 
-def phase_kernels(device) -> Dict[str, object]:
-    """Hold the top-k kernel to its plain version, exactly, on every
-    case; time the kernel, the plain version and ``torch.topk`` at the
-    main-path shape."""
-    max_err = 0.0
-    for label, s, k in topk_cases(device):
-        v, i = topk(s, k)
-        pv, pi = topk_plain(s, k)
-        torch.cuda.synchronize()
-        if v.shape != (s.shape[0], k) or i.dtype != torch.int32:
-            raise AssertionError(f"{label}: kernel output {tuple(v.shape)} "
-                                 f"{i.dtype}")
-        if not (torch.equal(v, pv) and torch.equal(i, pi)):
-            bad = (v != pv) | (i != pi)
-            raise AssertionError(
-                f"{label}: kernel != plain at {int(bad.sum())} of "
-                f"{bad.numel()} entries")
-        if int(i.min()) < 0 or int(i.max()) >= s.shape[1]:
-            raise AssertionError(f"{label}: id out of [0, N)")
-        max_err = max(max_err, float((v - pv).abs().max()))
-        log(f"[kernels] topk {label}: kernel == plain (values and ids "
-            f"exact)")
-    s = torch.randn((MAIN_Q, MAIN_N),
-                    generator=torch.Generator(device=device).manual_seed(1),
-                    device=device)
-    calls = {"kernel": lambda: topk(s, MAIN_K),
-             "plain": lambda: topk_plain(s, MAIN_K),
-             "library": lambda: torch.topk(s, MAIN_K, dim=1)}
-    ev = {name: time_ms(fn, iters=100) for name, fn in calls.items()}
-    dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
-    log(f"[kernels] topk device time (profiler) kernel {dev['kernel']:.5f} "
-        f"ms, plain {dev['plain']:.5f} ms, torch.topk {dev['library']:.5f} "
-        f"ms; CUDA-event time per back-to-back call kernel "
-        f"{ev['kernel']:.5f} ms, plain {ev['plain']:.5f} ms, torch.topk "
-        f"{ev['library']:.5f} ms")
-    traced = all(v == v for v in dev.values())
-    if not traced:
-        log("[kernels] the profiler trace held no device time; the "
-            "record's times are CUDA-event times")
-    t = dev if traced else ev
-    ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
-    nbytes = MAIN_Q * MAIN_N * 4 + MAIN_Q * MAIN_K * (4 + 4)
-    ops = MAIN_Q * MAIN_N                 # one comparison per candidate
+def merge_cases(device, seed: int = 2) -> List[tuple]:
+    """(label, carry_vals, carry_ids, scores, live, lo): the rescan step's
+    shape and the cases that matter for the merge entry."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def case(label, q, k, n, ints=False, carry="random", live_p=0.9):
+        if ints:                             # exact ties everywhere
+            cv = torch.randint(0, 3, (q, k), generator=g,
+                               device=device).float()
+            s = torch.randint(0, 3, (q, n), generator=g,
+                              device=device).float()
+        else:
+            cv = torch.randn((q, k), generator=g, device=device)
+            s = torch.randn((q, n), generator=g, device=device)
+        cv = torch.sort(cv, dim=1, descending=True).values
+        lo = 37 * n
+        ci = torch.randint(0, lo, (q, k), generator=g, device=device,
+                           dtype=torch.int32)
+        if carry == "neg":
+            cv.fill_(NEG)
+            ci.fill_(-1)
+        elif carry == "best":
+            cv += 10.0
+        live = torch.rand((n,), generator=g, device=device) < live_p
+        return (label, cv, ci, s, live, lo)
+
+    return [
+        case(f"main 256x({MAIN_K}+{MAIN_CHUNK})", MAIN_Q, MAIN_K,
+             MAIN_CHUNK),
+        case("first step: carry (NEG, -1) 256x(16+8192)", 256, 16, 8192,
+             carry="neg"),
+        case("dead chunk 64x(16+8192)", 64, 16, 8192, live_p=0.0),
+        case("ties across carry|chunk 64x(16+2000)", 64, 16, 2000,
+             ints=True, live_p=0.5),
+        case("carry holds the best 64x(16+8192)", 64, 16, 8192,
+             carry="best"),
+        case("k=1 64x(1+4099)", 64, 1, 4099),
+        case("k=40 32x(40+3000) (rounds path)", 32, 40, 3000),
+    ]
+
+
+def _same(label: str, got, want, n_cols: int = 0) -> float:
+    """Exact equality of (values, ids); returns the max abs difference
+    (0.0) for the record."""
+    (v, i), (pv, pi) = got, want
+    torch.cuda.synchronize()
+    if v.shape != pv.shape or i.dtype != torch.int32:
+        raise AssertionError(f"{label}: kernel output {tuple(v.shape)} "
+                             f"{i.dtype}")
+    if not (torch.equal(v, pv) and torch.equal(i, pi)):
+        bad = (v != pv) | (i != pi)
+        raise AssertionError(f"{label}: kernel != plain at "
+                             f"{int(bad.sum())} of {bad.numel()} entries")
+    if n_cols and (int(i.min()) < 0 or int(i.max()) >= n_cols):
+        raise AssertionError(f"{label}: id out of [0, N)")
+    return float((v - pv).abs().max())
+
+
+def _bound(nbytes: int, ops: int) -> tuple:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
-    rec = {"name": "topk", "route": "cuda",
-           "source": "reflow_tpu_torch/csrc/topk.cu",
-           "replaces": "reflow_tpu/kernels/topk.py:64",
-           "launches": None, "max_abs_err": max_err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": lib_ms}
-    log(f"[kernels] topk [{MAIN_Q}, {MAIN_N}] k={MAIN_K} "
-        f"({'profiler' if traced else 'CUDA events'}): kernel "
-        f"{ms:.5f} ms, plain (stable sort) {plain_ms:.5f} ms, torch.topk "
-        f"{lib_ms:.5f} ms, bound {rec['bound_ms']:.5f} ms "
-        f"({rec['bound_by']}: {nbytes} B)")
-    return rec
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _times_line(name: str, t: Dict[str, float]) -> str:
+    return (f"{name}: warm device {t['warm_dev']:.5f} ms, warm events "
+            f"{t['warm_ev']:.5f} ms, cold device {t['cold_dev']:.5f} ms, "
+            f"cold events {t['cold_ev']:.5f} ms")
+
+
+def phase_kernels(device) -> List[Dict[str, object]]:
+    """Hold both top-k entries to their plain versions, exactly, on every
+    case; time each entry warm and cold at its main-path shape beside
+    the plain version and (for ``topk``) ``torch.topk``. Returns the two
+    kernel records."""
+    max_err = 0.0
+    for label, s, k in topk_cases(device):
+        max_err = max(max_err, _same(label, topk(s, k), topk_plain(s, k),
+                                     n_cols=s.shape[1]))
+        log(f"[kernels] topk {label}: kernel == plain (values and ids "
+            f"exact)")
+    merge_err = 0.0
+    for label, *args in merge_cases(device):
+        merge_err = max(merge_err, _same(label, topk_merge(*args),
+                                         topk_merge_plain(*args)))
+        log(f"[kernels] topk_merge {label}: kernel == plain (values and "
+            f"ids exact)")
+
+    l2 = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+
+    def flush():
+        l2.fill_(1)
+
+    flush_names = frozenset(device_names(flush))
+    gen = torch.Generator(device=device).manual_seed(1)
+    s = torch.randn((MAIN_Q, MAIN_N), generator=gen, device=device)
+    _, *margs = merge_cases(device, seed=3)[0]
+    recs = []
+    for name, fn, plain, lib, nbytes, ops in [
+            ("topk", lambda: topk(s, MAIN_K),
+             lambda: topk_plain(s, MAIN_K),
+             lambda: torch.topk(s, MAIN_K, dim=1),
+             MAIN_Q * MAIN_N * 4 + MAIN_Q * MAIN_K * (4 + 4),
+             MAIN_Q * MAIN_N),
+            ("topk_merge", lambda: topk_merge(*margs),
+             lambda: topk_merge_plain(*margs), None,
+             MAIN_Q * MAIN_CHUNK * 4 + MAIN_CHUNK
+             + 2 * MAIN_Q * MAIN_K * (4 + 4),
+             MAIN_Q * (MAIN_K + MAIN_CHUNK))]:
+        t = kernel_times(fn, flush, flush_names)
+        plain_dev, plain_ev = device_ms(plain, iters=20), time_ms(plain, 50)
+        lib_dev = lib_ev = None
+        if lib is not None:
+            lib_dev, lib_ev = device_ms(lib, iters=20), time_ms(lib, 100)
+        traced = t["warm_dev"] == t["warm_dev"] and plain_dev == plain_dev
+        if not traced:
+            log(f"[kernels] {name}: the profiler trace held no device "
+                f"time; the record's times are CUDA-event times")
+        bound_ms, bound_by = _bound(nbytes, ops)
+        rec = {"name": name, "route": "cuda",
+               "source": "reflow_tpu_torch/csrc/topk.cu",
+               "replaces": "reflow_tpu/kernels/topk.py:64",
+               "launches": None,
+               "max_abs_err": max_err if name == "topk" else merge_err,
+               "ms": t["warm_dev"] if traced else t["warm_ev"],
+               "plain_ms": plain_dev if traced else plain_ev,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": (lib_dev if traced else lib_ev)
+               if lib is not None else None}
+        shape = (f"[{MAIN_Q}, {MAIN_N}]" if name == "topk" else
+                 f"carry [{MAIN_Q}, {MAIN_K}] + chunk [{MAIN_Q}, "
+                 f"{MAIN_CHUNK}] with a live mask")
+        log(f"[kernels] {_times_line(name + ' ' + shape, t)}")
+        log(f"[kernels] {name}: plain device {plain_dev:.5f} ms, events "
+            f"{plain_ev:.5f} ms"
+            + (f"; torch.topk device {lib_dev:.5f} ms, events "
+               f"{lib_ev:.5f} ms" if lib is not None else "")
+            + f"; bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B); warm "
+            f"device time is {bound_ms / rec['ms'] * 100:.1f}% of the "
+            f"bound")
+        recs.append(rec)
+    return recs
 
 
 # -- phase 4: the serving slice -------------------------------------------
@@ -245,6 +391,19 @@ def _device_chunk(n: int, base: int, dim: int, D: int, seed: int,
     keys = ((base + torch.arange(n, device=device)) % D).to(torch.int32)
     return DeviceDelta(keys, rows,
                        torch.ones(n, dtype=torch.int32, device=device))
+
+
+def tick_profiler():
+    """A CPU + CUDA profiler that also records the host ops of threads
+    started before it (the frontend's pump runs the tick), where this
+    torch can (``profile_all_threads``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return torch.profiler.profile(activities=acts)
+    return torch.profiler.profile(activities=acts, experimental_config=cfg)
 
 
 def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
@@ -266,21 +425,34 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
     rng = np.random.default_rng(seed)
     tickets = []
     launches: List[tuple] = []
+    traces: List[tuple] = []
 
-    def tick(kind: str, source, batch) -> float:
+    def tick(kind: str, source, batch, trace: bool = False) -> float:
         """One batch through submit, flushed and applied; returns the
-        wall seconds from submit to the device finishing."""
-        l0 = topk_mod.TOPK_LAUNCHES
-        t0 = time.perf_counter()
-        t = fe.submit(source, batch)
-        fe.flush()
-        res = t.result(timeout=600)
-        sync()
-        wall = time.perf_counter() - t0
+        wall seconds from submit to the device finishing. ``trace`` runs
+        it under ``torch.profiler`` and keeps the trace."""
+        l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        prof = None
+        if trace:
+            prof = tick_profiler()
+            prof.__enter__()
+        try:
+            t0 = time.perf_counter()
+            t = fe.submit(source, batch)
+            fe.flush()
+            res = t.result(timeout=600)
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
         if res.status != APPLIED:
             raise AssertionError(f"{kind} ticket {res.status}: {res}")
         tickets.append(res)
-        launches.append((kind, topk_mod.TOPK_LAUNCHES - l0))
+        launches.append((kind, topk_mod.TOPK_LAUNCHES - l0[0],
+                         topk_mod.TOPK_MERGE_LAUNCHES - l0[1]))
+        if prof is not None:
+            traces.append((kind, wall, prof))
         return wall
 
     try:
@@ -315,6 +487,19 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
         qvecs[:nq] = rng.standard_normal((nq, dim), dtype=np.float32)
         qupdate_s = tick("query update", kg.queries, DeltaBatch(
             np.arange(nq, dtype=np.int64), qvecs[:nq]))
+        if cfg.get("trace"):
+            # one more of each tick kind, traced (not among the timed)
+            ids = np.arange(next_id, next_id + cfg["per_tick"],
+                            dtype=np.int64)
+            next_id += cfg["per_tick"]
+            tick("insert", kg.docs, DeltaBatch(ids, knn.quantize_int8(
+                rng.standard_normal((len(ids), dim), dtype=np.float32))),
+                trace=True)
+            gone = np.arange(cfg["retract"], 2 * cfg["retract"],
+                             dtype=np.int64)
+            tick("retract", kg.docs, DeltaBatch(
+                gone, np.zeros((len(gone), dim), np.int8),
+                -np.ones(len(gone), np.int64)), trace=True)
         fe.flush()
         table = sched.read_table(kg.index)
     finally:
@@ -341,25 +526,106 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
     return {"preload_s": preload_s, "insert_s": insert_s,
             "insert_ops": insert_ops, "rescan_s": rescan_s,
             "query_update_s": qupdate_s, "launches": launches,
+            "traces": traces,
             "tickets": len(tickets), "recall": recall,
             "score_max_abs_diff": score_diff,
             "forced_syncs": sched.forced_syncs, "peak_bytes": peak,
             "live_docs": int(st["dlive"].sum())}
 
 
+#: host-side ops that chunked_corpus_topk must not issue once per chunk
+PER_CHUNK_FORBIDDEN = ("aten::cat", "aten::where", "aten::gather")
+
+
+def _short(name: str, width: int = 72) -> str:
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return name if len(name) <= width else name[:width - 3] + "..."
+
+
+def trace_report(kind: str, wall_s: float, prof, chunks: int,
+                 card: str) -> Dict[str, object]:
+    """Read one traced tick: the device-busy share of its wall time, the
+    top device operations by total time, the longest idle gaps between
+    device operations, and the host op counts."""
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    if not dev:
+        raise AssertionError(f"traced {kind} tick: no device operation "
+                             f"in the trace")
+    merged: List[List[float]] = []
+    for a, b, _ in dev:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy_us = sum(b - a for a, b in merged)
+    span_us = merged[-1][1] - merged[0][0]
+    gaps = sorted(((merged[i + 1][0] - merged[i][1], i)
+                   for i in range(len(merged) - 1)), reverse=True)[:5]
+    by_name: Dict[str, List[float]] = {}
+    for a, b, name in dev:
+        slot = by_name.setdefault(_short(name), [0, 0.0])
+        slot[0] += 1
+        slot[1] += b - a
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    counts = {op: host.count(op)
+              for op in PER_CHUNK_FORBIDDEN + ("aten::matmul",)}
+    if counts["aten::matmul"] == 0:
+        # this torch records no host ops of the pump thread
+        log(f"[trace] {kind}: host ops of the pump thread not recorded")
+        counts = {}
+    log(f"[trace] {kind} tick: wall {wall_s * 1e3:.3f} ms (under the "
+        f"profiler), device busy {busy_us / 1e3:.3f} ms = "
+        f"{busy_us / (wall_s * 1e6) * 100:.1f}% of the wall, "
+        f"{busy_us / span_us * 100:.1f}% of the first-to-last device span "
+        f"{span_us / 1e3:.3f} ms; {len(dev)} device ops [{card}]")
+    for name, (n, us) in top:
+        log(f"[trace] {kind} top device op: {us / 1e3:.3f} ms in {n} x "
+            f"{name}")
+    log(f"[trace] {kind} longest idle gaps between device ops: "
+        + ", ".join(f"{g:.1f} us" for g, _ in gaps))
+    loop = [(a, b) for a, b, name in dev if "MergeSource" in name]
+    if loop:
+        # the scan loop alone: from the first merge to the last
+        lo, hi = loop[0][0], loop[-1][1]
+        inside = sum(min(b, hi) - max(a, lo) for a, b in merged
+                     if b > lo and a < hi)
+        log(f"[trace] {kind} scan loop ({len(loop)} merges): device busy "
+            f"{inside / 1e3:.3f} ms of {(hi - lo) / 1e3:.3f} ms = "
+            f"{inside / (hi - lo) * 100:.1f}%; the tick outside it "
+            f"{(span_us - (hi - lo)) / 1e3:.3f} ms of the device span")
+    if counts:
+        log(f"[trace] {kind} host op counts: "
+            + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    if kind == "retract" and counts:
+        per_chunk = [op for op in PER_CHUNK_FORBIDDEN
+                     if counts[op] >= chunks]
+        if per_chunk or counts["aten::matmul"] < chunks:
+            raise AssertionError(
+                f"rescan tick trace: {counts} over {chunks} chunks "
+                f"({per_chunk} issued once per chunk)")
+    return {"busy_share": busy_us / (wall_s * 1e6), "counts": counts}
+
+
 def phase_serve(card: str) -> Dict[str, object]:
     torch.cuda.reset_peak_memory_stats()
-    topk_mod.TOPK_LAUNCHES = 0             # counts of the main path only
+    # counts of the main path only
+    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
     out = serve_slice(FULL, "cuda")
     total = topk_mod.TOPK_LAUNCHES
+    total_merge = topk_mod.TOPK_MERGE_LAUNCHES
     mem = out["peak_bytes"]
     chunks = FULL["D"] // FULL["scan_chunk"]
-    for kind, n in out["launches"]:
-        need = chunks if kind in ("retract", "query update",
-                                  "query insert") else 1
-        if n < need:
-            raise AssertionError(f"{kind} tick launched the top-k kernel "
-                                 f"{n} times, expected >= {need}")
+    for kind, n, nm in out["launches"]:
+        rescan = kind in ("retract", "query update", "query insert")
+        want = (0, chunks) if rescan else (1, 0)
+        if (n, nm) != want:
+            raise AssertionError(
+                f"{kind} tick launched topk {n} and topk_merge {nm} times, "
+                f"expected {want[0]} and {want[1]}")
     if out["recall"] < 0.99 or out["score_max_abs_diff"] > 1e-2:
         raise AssertionError(
             f"table vs brute force: recall {out['recall']:.4f} (need "
@@ -369,8 +635,9 @@ def phase_serve(card: str) -> Dict[str, object]:
     med = ins[len(ins) // 2]
     dops = sum(out["insert_ops"]) / sum(out["insert_s"])
     log(f"[serve] {out['tickets']} tickets applied; {out['live_docs']} live "
-        f"docs; top-k launches per tick "
-        f"{[n for _, n in out['launches']]} (total {total})")
+        f"docs; (topk, topk_merge) launches per tick "
+        f"{[(n, nm) for _, n, nm in out['launches']]} (totals {total}, "
+        f"{total_merge})")
     log(f"[serve] check vs brute force: recall {out['recall']:.6f}, score "
         f"max_abs_diff {out['score_max_abs_diff']:.6g}")
     log(f"[serve] insert tick (8192 int8 docs, incremental) median "
@@ -380,18 +647,22 @@ def phase_serve(card: str) -> Dict[str, object]:
         f"{out['query_update_s'] * 1e3:.3f} ms; delta-ops/s {dops:.1f}; "
         f"peak device memory {mem} B; forced syncs {out['forced_syncs']} "
         f"[{card}]")
-    out.update(total_launches=total, insert_median_s=med,
-               delta_ops_per_s=dops)
+    for kind, wall, prof in out.pop("traces"):
+        trace_report(kind, wall, prof, chunks, card)
+    out.update(total_launches=total, total_merge_launches=total_merge,
+               insert_median_s=med, delta_ops_per_s=dops)
     return out
 
 
 def main() -> int:
     dev = phase_device()
     phase_build()
-    rec = phase_kernels("cuda")
+    recs = phase_kernels("cuda")
     serve = phase_serve(dev["card"])
-    rec["launches"] = serve["total_launches"]
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    for rec in recs:
+        rec["launches"] = serve["total_launches" if rec["name"] == "topk"
+                                else "total_merge_launches"]
+    print(json.dumps({"kernels": recs}), flush=True)
     print(f"card: {dev['card']}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),

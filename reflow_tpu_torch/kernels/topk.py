@@ -1,52 +1,70 @@
-"""Top-k: the hand-written CUDA kernel and its plain PyTorch version.
+"""Top-k: the hand-written CUDA kernels and their plain PyTorch versions.
 
 The k-NN workload's hot op is a row-wise top-k over a float32 scores
-matrix. On a CUDA tensor :func:`topk` launches ``csrc/topk.cu`` (one
-thread block per row, the row held in shared memory, k block-wide
-argmax rounds; it replaces the TPU kernel
-``reflow_tpu/kernels/topk.py::_topk_kernel``). On a CPU tensor it runs
+matrix. On a CUDA tensor :func:`topk` launches ``csrc/topk.cu``, which
+replaces the TPU kernel ``reflow_tpu/kernels/topk.py::_topk_kernel``: each
+row is split over a cluster of thread blocks that each keep the
+candidates at or above a threshold taken from lane maxima, rank those few
+survivors, and merge their lists through distributed shared memory (the
+source's note gives the design). On a CPU tensor it runs
 :func:`topk_plain`, a stable descending sort. Both return distinct
 columns, larger value first and the lower column on equal values, so
 they agree exactly on every input.
 
+:func:`topk_merge` is one step of the corpus scan, the same kernel
+reading its candidates in place: a running (values, ids) carry, then one
+chunk of scores masked by a live mask. :func:`topk_merge_plain` builds
+the concatenation it stands for.
+
 ``chunked_corpus_topk`` is the streaming form for corpora whose scores
 matrix would not fit memory: one ``torch.matmul`` per corpus chunk,
-folded into a running (values, ids) top-k carry.
+folded into the running top-k carry by one :func:`topk_merge` each.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["topk", "topk_plain", "chunked_corpus_topk", "score_form",
-           "scores", "NEG", "INT8_EMBED_SCALE", "TOPK_LAUNCHES"]
+__all__ = ["topk", "topk_plain", "topk_merge", "topk_merge_plain",
+           "chunked_corpus_topk", "score_form", "scores", "NEG",
+           "INT8_EMBED_SCALE", "TOPK_LAUNCHES", "TOPK_MERGE_LAUNCHES"]
 
 #: sentinel for "no candidate" — finite so arithmetic/compares stay clean
 NEG = float(np.finfo(np.float32).min)
 
-#: kernel launches made by :func:`topk` (CUDA tensors only); a run resets
-#: it to 0 and reads it back to show its path went through the kernel
+#: kernel launches made by :func:`topk` and by :func:`topk_merge` (CUDA
+#: tensors only); a run resets them to 0 and reads them back to show its
+#: path went through the kernels
 TOPK_LAUNCHES = 0
+TOPK_MERGE_LAUNCHES = 0
 
-_fn = None
+#: the kernels index rows and columns with int32 (a cluster of up to 8
+#: blocks per row, each a tile past its segment's end): shapes stay
+#: below this
+_INT32_ROOM = (1 << 31) - (1 << 16)
+
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from reflow_tpu_torch.kernels._build import load
 
-        fn = load("topk").reflow_topk_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(load("topk"), name)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = {
+            "reflow_topk_f32": [p, p, p, i, i, i, i, p],
+            "reflow_topk_merge_f32": [p, p, p, p, i, p, p, i, i, i, i, p],
+        }[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def topk_plain(scores: torch.Tensor, k: int
@@ -79,18 +97,119 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"topk runs on cpu or cuda, not {scores.device}")
     if not scores.is_contiguous():
         raise ValueError("topk needs a contiguous scores matrix")
-    if q >= 1 << 31 or n >= 1 << 31:
+    if 8 * q >= _INT32_ROOM or n >= _INT32_ROOM:
         raise ValueError(f"topk shape {tuple(scores.shape)} exceeds int32")
     vals = torch.empty((q, k), dtype=torch.float32, device=scores.device)
     ids = torch.empty((q, k), dtype=torch.int32, device=scores.device)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
-    err = _kernel()(scores.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                    q, n, k, scores.device.index, stream)
+    err = _kernel("reflow_topk_f32")(
+        scores.data_ptr(), vals.data_ptr(), ids.data_ptr(), q, n, k,
+        scores.device.index, stream)
     if err != 0:
         raise RuntimeError(f"top-k kernel launch failed: cudaError {err} "
                            f"(shape {q}x{n}, k={k})")
     TOPK_LAUNCHES += 1
     return vals, ids
+
+
+def topk_merge_plain(carry_vals: torch.Tensor, carry_ids: torch.Tensor,
+                     scores: torch.Tensor, live: torch.Tensor, lo: int,
+                     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One scan step by plain ops: the top k of the carry ``[Q, k]``
+    followed by ``scores [Q, n]`` masked to NEG where ``live [n]`` is
+    False, with ids ``carry_ids`` then ``lo + j``; ties to the earlier
+    candidate. Written into ``out`` when given."""
+    q, k = carry_vals.shape
+    n = scores.shape[1]
+    s = torch.where(live[None, :], scores, NEG)
+    cols = torch.arange(n, dtype=torch.int32, device=scores.device)
+    vals, sel = topk_plain(torch.cat([carry_vals, s], dim=1), k)
+    ids = torch.gather(torch.cat([carry_ids, (lo + cols).expand(q, n)],
+                                 dim=1), 1, sel.long())
+    if out is None:
+        return vals, ids
+    out[0].copy_(vals)
+    out[1].copy_(ids)
+    return out
+
+
+def _check_merge(carry_vals, carry_ids, scores, live, lo) -> None:
+    if carry_vals.dim() != 2 or scores.dim() != 2 or live.dim() != 1:
+        raise ValueError("topk_merge takes carry [Q, k], scores [Q, n] and "
+                         "live [n]")
+    q, k = carry_vals.shape
+    n = scores.shape[1]
+    if (tuple(carry_ids.shape) != (q, k) or scores.shape[0] != q
+            or live.shape[0] != n or k < 1):
+        raise ValueError(
+            f"topk_merge shapes: carry {tuple(carry_vals.shape)} / "
+            f"{tuple(carry_ids.shape)}, scores {tuple(scores.shape)}, live "
+            f"{tuple(live.shape)}")
+    if (carry_vals.dtype != torch.float32 or scores.dtype != torch.float32
+            or carry_ids.dtype != torch.int32 or live.dtype != torch.bool):
+        raise TypeError("topk_merge takes float32 values, int32 ids and a "
+                        "bool live mask")
+    dev = scores.device
+    if any(t.device != dev for t in (carry_vals, carry_ids, live)):
+        raise ValueError("topk_merge's tensors must share one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"topk_merge runs on cpu or cuda, not {dev}")
+    if dev.type == "cuda":
+        if not all(t.is_contiguous()
+                   for t in (carry_vals, carry_ids, scores, live)):
+            raise ValueError("topk_merge needs contiguous tensors on cuda")
+        if 8 * q >= _INT32_ROOM or not 0 <= lo <= _INT32_ROOM - n - k:
+            raise ValueError(f"topk_merge shape {q}x{n}, lo={lo} exceeds "
+                             f"int32")
+
+
+def _launch_merge(carry_vals, carry_ids, scores, live, lo, out, stream):
+    """Launch the merge kernel on checked CUDA tensors, writing ``out``
+    (which must alias no input)."""
+    global TOPK_MERGE_LAUNCHES
+    q, k = carry_vals.shape
+    n = scores.shape[1]
+    vals, ids = out
+    err = _kernel("reflow_topk_merge_f32")(
+        carry_vals.data_ptr(), carry_ids.data_ptr(), scores.data_ptr(),
+        live.data_ptr(), lo, vals.data_ptr(), ids.data_ptr(), q, n, k,
+        scores.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"top-k merge kernel launch failed: cudaError "
+                           f"{err} (carry {q}x{k}, chunk {n})")
+    TOPK_MERGE_LAUNCHES += 1
+    return out
+
+
+def topk_merge(carry_vals: torch.Tensor, carry_ids: torch.Tensor,
+               scores: torch.Tensor, live: torch.Tensor, lo: int,
+               out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k of the carry ``(carry_vals f32, carry_ids int32) [Q, k]``
+    followed by chunk column j of ``scores [Q, n]`` (value ``scores[:,
+    j]`` if ``live[j]`` else NEG, id ``lo + j``), ties to the earlier
+    candidate: exactly :func:`topk_merge_plain`. A CPU tensor runs that
+    plain version; a CUDA tensor launches the merge kernel on the current
+    stream, reading the candidates in place, or raises. The result goes
+    into ``out = (vals, ids)`` when given (on CUDA it must alias no
+    input), else into new tensors."""
+    _check_merge(carry_vals, carry_ids, scores, live, lo)
+    if scores.device.type == "cpu":
+        return topk_merge_plain(carry_vals, carry_ids, scores, live, lo, out)
+    if out is None:
+        out = (torch.empty_like(carry_vals), torch.empty_like(carry_ids))
+    elif (tuple(out[0].shape) != tuple(carry_vals.shape)
+          or tuple(out[1].shape) != tuple(carry_ids.shape)
+          or out[0].dtype != torch.float32 or out[1].dtype != torch.int32
+          or not (out[0].is_contiguous() and out[1].is_contiguous())):
+        raise ValueError("topk_merge's out must be contiguous (float32, "
+                         "int32) tensors of the carry's shape")
+    elif {o.data_ptr() for o in out} & {
+            t.data_ptr() for t in (carry_vals, carry_ids, scores, live)}:
+        raise ValueError("topk_merge's out must not alias its inputs")
+    return _launch_merge(carry_vals, carry_ids, scores, live, lo, out,
+                         torch.cuda.current_stream(scores.device).cuda_stream)
 
 
 #: int8 embedding encoding: wire/table value is round(unit_vec * 127);
@@ -134,10 +253,14 @@ def chunked_corpus_topk(qvec: torch.Tensor, dvec: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of ``qvec @ dvec.T`` without materializing the full [Q, D]
     scores matrix: score the corpus one chunk at a time and fold each
-    chunk into a running top-k carry (one :func:`topk` per chunk).
+    chunk into a running top-k carry (one :func:`topk_merge` per chunk,
+    which reads the carry, the chunk's scores and its slice of ``dlive``
+    in place; dead slots count as NEG).
 
-    ``dlive`` masks dead corpus slots to NEG. D must be a multiple of the
-    chunk (or <= chunk, in which case one pass covers it).
+    The carry is updated in place: two (values, ids) buffers allocated
+    once per scan take turns as a step's input and its ``out``. Shapes
+    are checked once per scan, not per chunk. D must be a multiple of
+    the chunk (or <= chunk, in which case one pass covers it).
     """
     q = qvec.shape[0]
     d = dvec.shape[0]
@@ -146,14 +269,25 @@ def chunked_corpus_topk(qvec: torch.Tensor, dvec: torch.Tensor,
         raise ValueError(f"corpus size {d} must be a multiple of the "
                          f"scan chunk {chunk}")
     dev = qvec.device
-    vals = torch.full((q, k), NEG, dtype=torch.float32, device=dev)
-    ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
-    cols = torch.arange(chunk, dtype=torch.int32, device=dev)
-    for lo in range(0, d, chunk):
-        s = scores(qvec, dvec[lo:lo + chunk])
-        s = torch.where(dlive[lo:lo + chunk][None, :], s, NEG)
-        cand_vals = torch.cat([vals, s], dim=1)
-        cand_ids = torch.cat([ids, (lo + cols).expand(q, chunk)], dim=1)
-        vals, sel = topk(cand_vals, k)
-        ids = torch.gather(cand_ids, 1, sel.long())
-    return vals, ids
+    bufs = [(torch.full((q, k), NEG, dtype=torch.float32, device=dev),
+             torch.full((q, k), -1, dtype=torch.int32, device=dev)),
+            (torch.empty((q, k), dtype=torch.float32, device=dev),
+             torch.empty((q, k), dtype=torch.int32, device=dev))]
+    # the query operand in its float32 compute form, once per scan
+    qf = score_form(qvec).float()
+    if tuple(dlive.shape) != (d,) or not dlive.is_contiguous():
+        raise ValueError(f"dlive must be a contiguous [{d}] mask")
+    if dev.type == "cuda":
+        step = functools.partial(_launch_merge,
+                                 stream=torch.cuda.current_stream(dev)
+                                 .cuda_stream)
+    else:
+        step = topk_merge_plain
+    for c, lo in enumerate(range(0, d, chunk)):
+        s = torch.matmul(qf, score_form(dvec[lo:lo + chunk]).float().T)
+        if c == 0:
+            # every chunk's scores are a fresh contiguous [q, chunk]
+            # float32 product: the first chunk's check covers them all
+            _check_merge(*bufs[0], s, dlive[:chunk], d - chunk)
+        step(*bufs[c % 2], s, dlive[lo:lo + chunk], lo, out=bufs[1 - c % 2])
+    return bufs[(d // chunk) % 2]

@@ -1,12 +1,13 @@
 """The port's top-k (reflow_tpu_torch/kernels/topk.py) against the JAX
 package's: the plain version against the Pallas kernel (interpret mode)
-and ``jax.lax.top_k``, and ``chunked_corpus_topk`` against the JAX one.
-Inputs are made with numpy from a seed and handed to both packages.
+and ``jax.lax.top_k``, the scan step ``topk_merge`` against the JAX
+scan's step, and ``chunked_corpus_topk`` against the JAX one. Inputs are
+made with numpy from a seed and handed to both packages.
 
-On the CPU the port's ``topk`` takes its plain version (the tensors lie
-on the CPU); the CUDA kernel itself is held to the plain version,
-exactly, by ``chip_smoke.py`` phase 3 and by the ``cuda``-marked test
-below on a machine with a card.
+On the CPU the port's ``topk`` and ``topk_merge`` take their plain
+versions (the tensors lie on the CPU); the CUDA kernels themselves are
+held to the plain versions, exactly, by ``chip_smoke.py`` phase 3 and by
+the ``cuda``-marked tests below on a machine with a card.
 """
 
 import importlib
@@ -168,4 +169,137 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, q, n, k):
     kv, ki = ptopk.topk(x, k)
     pv, pi = ptopk.topk_plain(x, k)
     assert ptopk.TOPK_LAUNCHES == before + 1
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+# -- the scan step: topk_merge ----------------------------------------------
+
+#: (kind, q, k, n): the carry and chunk shapes of each merge case
+MERGE_CASES = [("neg_carry", 8, 6, 256), ("dead_chunk", 8, 6, 256),
+               ("partly_neg", 8, 6, 300), ("int_ties", 8, 6, 256),
+               ("carry_best", 8, 6, 256), ("k1", 8, 1, 130),
+               ("random", 4, 16, 513)]
+
+
+def _merge_case(kind, q, k, n, seed):
+    """(carry_vals, carry_ids, scores, live, lo) as numpy: the carry is a
+    previous step's output (values descending, distinct ids below lo)."""
+    rng = np.random.default_rng(seed)
+    lo = 4 * n
+    cv = -np.sort(-rng.standard_normal((q, k)).astype(np.float32), axis=1)
+    ci = np.stack([rng.permutation(lo)[:k] for _ in range(q)]
+                  ).astype(np.int32)
+    s = rng.standard_normal((q, n)).astype(np.float32)
+    live = rng.random(n) < 0.8
+    if kind == "neg_carry":               # the scan's first step
+        cv[:] = NEG
+        ci[:] = -1
+    elif kind == "dead_chunk":
+        live[:] = False
+    elif kind == "partly_neg":            # NEG in both halves
+        cv[:, k // 2:] = NEG
+        ci[:, k // 2:] = -1
+        s[:, 2:] = NEG
+        s[::2] = NEG
+    elif kind == "int_ties":              # exact ties across the boundary
+        cv = -np.sort(-rng.integers(0, 3, (q, k)), axis=1).astype(np.float32)
+        s = rng.integers(0, 3, (q, n)).astype(np.float32)
+    elif kind == "carry_best":            # the chunk changes nothing
+        cv += 10.0
+    return cv, ci, s, live, lo
+
+
+def _merge_by_topk_plain(cv, ci, s, live, lo):
+    """The step as topk_plain on the concatenation, then the id gather."""
+    q, n = s.shape
+    cand = np.concatenate([cv, np.where(live[None, :], s, NEG)], axis=1)
+    cand_ids = np.concatenate(
+        [ci, np.broadcast_to(lo + np.arange(n, dtype=np.int32), (q, n))],
+        axis=1)
+    v, sel = ptopk.topk_plain(torch.from_numpy(cand), cv.shape[1])
+    return v.numpy(), np.take_along_axis(cand_ids, sel.long().numpy(), 1)
+
+
+@pytest.mark.parametrize("kind,q,k,n", MERGE_CASES)
+def test_merge_plain_matches_topk_on_concatenation(kind, q, k, n):
+    cv, ci, s, live, lo = _merge_case(kind, q, k, n, seed=n + k)
+    pv, pi = ptopk.topk_merge_plain(*map(torch.from_numpy, (cv, ci, s, live)),
+                                    lo)
+    ev, ei = _merge_by_topk_plain(cv, ci, s, live, lo)
+    np.testing.assert_array_equal(pv.numpy(), ev)
+    np.testing.assert_array_equal(pi.numpy(), ei)
+    assert pv.dtype == torch.float32 and pi.dtype == torch.int32
+
+
+@pytest.mark.parametrize("kind,q,k,n", MERGE_CASES)
+def test_merge_matches_jax_step(kind, q, k, n):
+    """The JAX scan's step with the Pallas kernel (interpret mode):
+    concatenate, top-k, take the ids along. Values exact; ids exact
+    wherever the value is above NEG (see _check_against)."""
+    cv, ci, s, live, lo = _merge_case(kind, q, k, n, seed=3 * n + k)
+    cand = jnp.concatenate([jnp.asarray(cv), jnp.where(
+        jnp.asarray(live)[None, :], jnp.asarray(s), NEG)], axis=1)
+    cand_ids = jnp.concatenate([jnp.asarray(ci), jnp.broadcast_to(
+        lo + jnp.arange(n, dtype=jnp.int32), (q, n))], axis=1)
+    jv, sel = jtopk._topk_pallas(cand, k, interpret=True)
+    ji = jnp.take_along_axis(cand_ids, sel, axis=1)
+    pv, pi = ptopk.topk_merge(*map(torch.from_numpy, (cv, ci, s, live)), lo)
+    _check_against(pv.numpy(), pi.numpy(), np.asarray(jv), np.asarray(ji))
+
+
+def test_merge_writes_out_on_cpu():
+    cv, ci, s, live, lo = _merge_case("random", 4, 5, 64, seed=1)
+    args = list(map(torch.from_numpy, (cv, ci, s, live)))
+    out = (torch.empty((4, 5)), torch.empty((4, 5), dtype=torch.int32))
+    got = ptopk.topk_merge(*args, lo, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    ev, ei = ptopk.topk_merge_plain(*args, lo)
+    assert torch.equal(out[0], ev) and torch.equal(out[1], ei)
+
+
+def test_merge_refuses_bad_input():
+    *arrays, lo = _merge_case("random", 4, 5, 64, seed=2)
+    cv, ci, s, live = map(torch.from_numpy, arrays)
+    with pytest.raises(ValueError):
+        ptopk.topk_merge(cv, ci[:, :4], s, live, lo)       # ids shape
+    with pytest.raises(ValueError):
+        ptopk.topk_merge(cv, ci, s, live[:10], lo)         # live length
+    with pytest.raises(TypeError):
+        ptopk.topk_merge(cv, ci.long(), s, live, lo)       # id dtype
+    with pytest.raises(TypeError):
+        ptopk.topk_merge(cv, ci, s, live.int(), lo)        # mask dtype
+
+
+def test_chunked_corpus_topk_integer_ties_match_jax():
+    """Integer-valued embeddings: scores are exact small integers, so equal
+    scores straddle every chunk boundary and the carry's earlier (lower)
+    ids must win them, as in the JAX scan."""
+    rng = np.random.default_rng(17)
+    qv = rng.integers(-1, 2, (10, 8)).astype(np.float32)
+    dv = rng.integers(-1, 2, (512, 8)).astype(np.float32)
+    live = rng.random(512) < 0.9
+    jv, ji = jtopk.chunked_corpus_topk(
+        jnp.asarray(qv), jnp.asarray(dv), jnp.asarray(live), 12, 64,
+        use_pallas=False, precision=jax.lax.Precision.HIGHEST)
+    pv, pi = ptopk.chunked_corpus_topk(
+        torch.from_numpy(qv), torch.from_numpy(dv), torch.from_numpy(live),
+        12, 64)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    # the ties are real: some row's k-th score recurs past its k-th id
+    full = np.where(live[None, :], qv @ dv.T, NEG)
+    assert any((full[r] == pv.numpy()[r, -1]).sum()
+               > (pv.numpy()[r] == pv.numpy()[r, -1]).sum()
+               for r in range(10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,q,k,n", MERGE_CASES)
+def test_merge_kernel_matches_plain_on_card(cuda_device, kind, q, k, n):
+    cv, ci, s, live, lo = _merge_case(kind, q, k, n, seed=9)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (cv, ci, s, live)]
+    before = ptopk.TOPK_MERGE_LAUNCHES
+    kv, ki = ptopk.topk_merge(*args, lo)
+    pv, pi = ptopk.topk_merge_plain(*args, lo)
+    assert ptopk.TOPK_MERGE_LAUNCHES == before + 1
     assert torch.equal(kv, pv) and torch.equal(ki, pi)

@@ -33,6 +33,21 @@ Phases, each printing its own lines:
    read just after) prove the path ran through the kernels: one ``topk``
    per incremental tick, one ``topk_merge`` per corpus chunk of a rescan
    tick.
+5. **PageRank at full width** — incremental PageRank (BASELINE.md
+   config 3: 100k nodes, 1M edges, 1% churn, tol 1e-4, seed 7) through
+   ``DirtyScheduler`` -> the ``cuda`` executor (no device argument) ->
+   the row lowerings (Join with its edge arena, GroupBy, Map, Union, the
+   linear Reduce), the scheduler driving the fixpoint passes: the full
+   initial tick, 8 timed churn ticks and one traced (device-busy share,
+   top device ops, idle gaps, host op counts, and device time and ops
+   by composition from the lowerings' ``reflow::`` profiler ranges).
+   Printed: ms and passes per tick, the churn median, delta-ops/s,
+   incremental-vs-full, forced syncs, the arena's ``rcount`` and ``gen``,
+   peak device memory. The ranks are checked against the float64 power
+   iteration over the final edge set (``max|rank - ref| / max(ref, 1)``
+   <= 1e-3), and the final arena is compacted on the card and on the CPU
+   (bit-identical). This path runs no hand-written kernel; the top-k
+   counts, zeroed before it, must stay 0.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -52,13 +67,15 @@ import torch
 from torch.autograd import DeviceType
 
 from reflow_tpu_torch import DeltaBatch, DirtyScheduler, get_executor
-from reflow_tpu_torch.executors.device_delta import DeviceDelta
+from reflow_tpu_torch.executors.arena import compact_arena
+from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
+                                                     bucket_capacity)
 from reflow_tpu_torch.kernels import _build
 from reflow_tpu_torch.kernels import topk as topk_mod
 from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
                                            topk_merge_plain, topk_plain)
 from reflow_tpu_torch.serve import APPLIED, CoalesceWindow, IngestFrontend
-from reflow_tpu_torch.workloads import knn
+from reflow_tpu_torch.workloads import knn, pagerank
 
 #: H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 outside
 #: the tensor cores, for the kernels' least-time bounds
@@ -80,6 +97,19 @@ MAIN_Q, MAIN_N, MAIN_K = 256, 16 + 8192, 16
 MAIN_CHUNK = 8192
 #: bytes written between calls to time a kernel with a cold L2 (50 MB)
 FLUSH_BYTES = 64 << 20
+
+#: BASELINE.md config 3 at full width (bench.py's setting: 100k nodes,
+#: 1M edges, 1% edge churn a tick, tol 1e-4, seed 7; the arena sized as
+#: bench.py sizes it); cut: 8 measured churn ticks and one traced
+PAGERANK = dict(n_nodes=100_000, n_edges=1_000_000, churn=0.01, tol=1e-4,
+                seed=7, churn_ticks=8)
+#: the largest max|rank - ref| / max(ref, 1) against the float64 power
+#: iteration that phase 5 accepts (tol-suppressed emissions leave errors
+#: of order tol; a bound relative to the rank holds at scale)
+PAGERANK_MAX_REL_ERR = 1e-3
+#: host ops whose counts the traced churn tick reports
+PAGERANK_HOST_OPS = ("aten::item", "aten::sort", "aten::index_add_",
+                     "aten::nonzero")
 
 
 def log(msg: str) -> None:
@@ -544,13 +574,23 @@ def _short(name: str, width: int = 72) -> str:
     return name if len(name) <= width else name[:width - 3] + "..."
 
 
-def trace_report(kind: str, wall_s: float, prof, chunks: int,
-                 card: str) -> Dict[str, object]:
+def _device_events(prof) -> List[tuple]:
+    """(start us, end us, name) of every device operation in a trace,
+    sorted; the device-side copies of ``reflow::`` profiler ranges are
+    spans, not operations, and are left out."""
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("reflow::"))
+
+
+def trace_report(kind: str, wall_s: float, prof, card: str,
+                 host_ops=()) -> Dict[str, object]:
     """Read one traced tick: the device-busy share of its wall time, the
-    top device operations by total time, the longest idle gaps between
-    device operations, and the host op counts."""
-    dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    top device operations by total time with their launch counts, the
+    longest idle gaps between device operations, and the counts of the
+    host ops named in ``host_ops``."""
+    dev = _device_events(prof)
     host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
     if not dev:
         raise AssertionError(f"traced {kind} tick: no device operation "
@@ -571,12 +611,7 @@ def trace_report(kind: str, wall_s: float, prof, chunks: int,
         slot[0] += 1
         slot[1] += b - a
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    counts = {op: host.count(op)
-              for op in PER_CHUNK_FORBIDDEN + ("aten::matmul",)}
-    if counts["aten::matmul"] == 0:
-        # this torch records no host ops of the pump thread
-        log(f"[trace] {kind}: host ops of the pump thread not recorded")
-        counts = {}
+    counts = {op: host.count(op) for op in host_ops}
     log(f"[trace] {kind} tick: wall {wall_s * 1e3:.3f} ms (under the "
         f"profiler), device busy {busy_us / 1e3:.3f} ms = "
         f"{busy_us / (wall_s * 1e6) * 100:.1f}% of the wall, "
@@ -587,6 +622,24 @@ def trace_report(kind: str, wall_s: float, prof, chunks: int,
             f"{name}")
     log(f"[trace] {kind} longest idle gaps between device ops: "
         + ", ".join(f"{g:.1f} us" for g, _ in gaps))
+    return {"busy_share": busy_us / (wall_s * 1e6), "busy_us": busy_us,
+            "dev": dev, "merged": merged, "span_us": span_us,
+            "counts": counts, "gaps_us": [g for g, _ in gaps]}
+
+
+def knn_trace_report(kind: str, wall_s: float, prof, chunks: int,
+                     card: str) -> Dict[str, object]:
+    """:func:`trace_report` of a k-NN tick, plus the scan loop's own
+    device-busy share and, on a rescan tick, the check that no cat,
+    where or gather is issued once per corpus chunk."""
+    rep = trace_report(kind, wall_s, prof, card,
+                       PER_CHUNK_FORBIDDEN + ("aten::matmul",))
+    dev, merged, span_us = rep["dev"], rep["merged"], rep["span_us"]
+    counts = rep["counts"]
+    if counts["aten::matmul"] == 0:
+        # this torch records no host ops of the pump thread
+        log(f"[trace] {kind}: host ops of the pump thread not recorded")
+        counts = {}
     loop = [(a, b) for a, b, name in dev if "MergeSource" in name]
     if loop:
         # the scan loop alone: from the first merge to the last
@@ -607,7 +660,7 @@ def trace_report(kind: str, wall_s: float, prof, chunks: int,
             raise AssertionError(
                 f"rescan tick trace: {counts} over {chunks} chunks "
                 f"({per_chunk} issued once per chunk)")
-    return {"busy_share": busy_us / (wall_s * 1e6), "counts": counts}
+    return rep
 
 
 def phase_serve(card: str) -> Dict[str, object]:
@@ -648,9 +701,184 @@ def phase_serve(card: str) -> Dict[str, object]:
         f"peak device memory {mem} B; forced syncs {out['forced_syncs']} "
         f"[{card}]")
     for kind, wall, prof in out.pop("traces"):
-        trace_report(kind, wall, prof, chunks, card)
+        knn_trace_report(kind, wall, prof, chunks, card)
     out.update(total_launches=total, total_merge_launches=total_merge,
                insert_median_s=med, delta_ops_per_s=dops)
+    return out
+
+
+# -- phase 5: PageRank ------------------------------------------------------
+
+def span_table(prof) -> Dict[str, List[float]]:
+    """``{span: [device us, device ops]}`` over the ``reflow::`` profiler
+    ranges of a trace: the device operations launched inside each range
+    (through the trace's CPU op tree), summed over its occurrences."""
+    def under(e):
+        us, n = sum(k.duration for k in e.kernels), len(e.kernels)
+        for c in e.cpu_children:
+            cu, cn = under(c)
+            us, n = us + cu, n + cn
+        return us, n
+
+    out: Dict[str, List[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("reflow::"):
+            us, n = under(e)
+            slot = out.setdefault(e.name[len("reflow::"):], [0.0, 0])
+            slot[0] += us
+            slot[1] += n
+    return out
+
+
+def pagerank_slice(cfg: Dict[str, object]) -> Dict[str, object]:
+    """Incremental PageRank through ``DirtyScheduler`` on the ``cuda``
+    executor, on the current card: the teleport and the initial edge
+    batch in one full tick, then ``churn_ticks`` measured churn ticks
+    and one more under ``torch.profiler``. Each tick is
+    timed by the host clock around push -> tick -> synchronize. Returns
+    the timings, passes, syncs, the arena's counters and the ranks' error
+    against the float64 reference computed on the host from the final
+    edge set."""
+    n, e, churn = cfg["n_nodes"], cfg["n_edges"], cfg["churn"]
+    arena = (bucket_capacity(e)
+             + 8 * bucket_capacity(2 * int(churn * e) + 2))
+    pg = pagerank.build_graph(n, tol=cfg["tol"], arena_capacity=arena)
+    web = pagerank.WebGraph.random(n, e, seed=cfg["seed"])
+    ex = get_executor("cuda")
+    sched = DirtyScheduler(pg.graph, ex)
+
+    def tick(pushes, trace=False) -> Dict[str, object]:
+        s0, h0 = sched.forced_syncs, ex.host_syncs
+        prof = None
+        if trace:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        try:
+            t0 = time.perf_counter()
+            for src, batch in pushes:
+                sched.push(src, batch)
+            res = sched.tick()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        if not res.quiesced:
+            raise AssertionError(f"tick {res.tick} did not quiesce")
+        return {"s": wall, "passes": res.passes, "delta_ops": res.delta_ops,
+                "syncs": sched.forced_syncs - s0,
+                "branch_syncs": ex.host_syncs - h0, "prof": prof}
+
+    init = tick([(pg.teleport, pagerank.teleport_batch(n)),
+                 (pg.edges, web.initial_batch())])
+    log(f"[pagerank] initial tick: {init['s'] * 1e3:.3f} ms, "
+        f"{init['passes']} passes")
+    ticks = [tick([(pg.edges, web.churn(churn))])
+             for _ in range(cfg["churn_ticks"])]
+    traced = tick([(pg.edges, web.churn(churn))], trace=True)
+    st = ex.states[pg.join.id]
+    table = sched.read_table(pg.new_rank)
+    peak = torch.cuda.max_memory_allocated()
+
+    ranks = pagerank.ranks_to_array(table, n)
+    t0 = time.perf_counter()
+    ref = pagerank.reference_ranks(web)
+    ref_s = time.perf_counter() - t0
+    if ranks.shape != (n,) or not np.isfinite(ranks).all():
+        raise AssertionError(f"ranks: shape {ranks.shape}, finite "
+                             f"{bool(np.isfinite(ranks).all())}")
+    rel = np.abs(ranks - ref) / np.maximum(ref, 1.0)
+    return {"init": init, "ticks": ticks, "traced": traced,
+            "rel_err": float(rel.max()), "rel_err_at": int(rel.argmax()),
+            "abs_err": float(np.abs(ranks - ref).max()),
+            "ref_s": ref_s, "keys": len(table), "arena": arena,
+            "rcount": int(st["rcount"]), "gen": int(st["gen"]),
+            "forced_syncs": sched.forced_syncs, "peak_bytes": peak,
+            "join_state": {k: st[k] for k in ("rkeys", "rvals", "rw",
+                                              "rcount", "gen")}}
+
+
+def _bit_equal(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.uint8), y.view(torch.uint8)
+        if not torch.equal(x, y):
+            raise AssertionError(f"compact_arena on the card != on the "
+                                 f"CPU in {k!r}")
+
+
+def phase_pagerank(card: str) -> Dict[str, object]:
+    torch.cuda.reset_peak_memory_stats()
+    out = pagerank_slice(PAGERANK)
+    cfg = PAGERANK
+    init, ticks = out["init"], out["ticks"]
+    ms = sorted(t["s"] * 1e3 for t in ticks)
+    med = ms[len(ms) // 2]
+    dops = sum(t["delta_ops"] for t in ticks) / sum(t["s"] for t in ticks)
+    log(f"[pagerank] {cfg['n_nodes']} nodes, {cfg['n_edges']} edges, churn "
+        f"{cfg['churn']:g} ({2 * int(cfg['churn'] * cfg['n_edges'])} delta "
+        f"rows a tick), tol {cfg['tol']:g}, seed {cfg['seed']}; arena "
+        f"{out['arena']} rows [{card}]")
+    log(f"[pagerank] churn ticks ms: "
+        f"{[round(t['s'] * 1e3, 3) for t in ticks]}; passes: "
+        f"{[t['passes'] for t in ticks]}; median {med:.3f} ms")
+    log(f"[pagerank] initial tick {init['s'] * 1e3:.3f} ms in "
+        f"{init['passes']} passes; incremental-vs-full "
+        f"{init['s'] * 1e3 / med:.3f}x (initial over the churn median); "
+        f"delta-ops/s over the churn ticks {dops:.1f}")
+    log(f"[pagerank] forced syncs {out['forced_syncs']} (per tick: initial "
+        f"{init['syncs']}, churn {[t['syncs'] for t in ticks]}; of them "
+        f"compact-or-append readbacks {init['branch_syncs']} + "
+        f"{sum(t['branch_syncs'] for t in ticks)}); one quiescence "
+        f"readback per pass besides")
+    log(f"[pagerank] arena rcount {out['rcount']} of {out['arena']}, gen "
+        f"{out['gen']} (compactions); peak device memory "
+        f"{out['peak_bytes']} B")
+    log(f"[pagerank] check vs the float64 reference ({out['ref_s']:.2f} s "
+        f"on the host): max|rank - ref| / max(ref, 1) = "
+        f"{out['rel_err']:.6g} at node {out['rel_err_at']} (bound "
+        f"{PAGERANK_MAX_REL_ERR:g}); max abs {out['abs_err']:.6g}; "
+        f"{out['keys']} ranks emitted")
+    if out["rel_err"] > PAGERANK_MAX_REL_ERR:
+        raise AssertionError(f"PageRank relative error {out['rel_err']:.3g} "
+                             f"> {PAGERANK_MAX_REL_ERR:g}")
+
+    traced = out["traced"]
+    prof = traced["prof"]
+    rep = trace_report("pagerank churn", traced["s"], prof, card,
+                       PAGERANK_HOST_OPS)
+    log(f"[trace] pagerank churn tick: {traced['passes']} passes; host op "
+        f"counts: " + ", ".join(f"{op} {n}"
+                                for op, n in rep["counts"].items()))
+    spans = span_table(prof)
+    total = sum(b - a for a, b, _ in rep["dev"])
+    for name, (us, n) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
+        log(f"[trace] pagerank composition {name}: device {us / 1e3:.3f} ms "
+            f"in {n} device ops ({n / traced['passes']:.1f} a pass)")
+    log(f"[trace] pagerank outside the compositions (uploads, the "
+        f"scheduler's per-pass count and readback): device "
+        f"{(total - sum(us for us, _ in spans.values())) / 1e3:.3f} ms of "
+        f"{total / 1e3:.3f} ms")
+
+    # compaction at full width: this run's arena compacted on the card and
+    # on the CPU, bit for bit; its device time and ops (its main-path
+    # trigger lies past the eight churn ticks' headroom)
+    js = out.pop("join_state")
+    compacted = compact_arena(js)
+    _bit_equal(compacted, compact_arena({k: v.cpu() for k, v in js.items()}))
+    c_ms = time_ms(lambda: compact_arena(js), iters=5, warmup=2)
+    c_prof = _profile(lambda: compact_arena(js), 1)
+    c_dev = _device_events(c_prof)
+    log(f"[pagerank] compact_arena on the final arena ({int(js['rcount'])} "
+        f"rows -> {int(compacted['rcount'])} live): == the CPU's bit for "
+        f"bit; {c_ms:.3f} ms by events, device "
+        f"{sum(b - a for a, b, _ in c_dev) / 1e3:.3f} ms in {len(c_dev)} "
+        f"device ops [{card}]")
+    out.update(median_ms=med, delta_ops_per_s=dops,
+               incr_vs_full=init["s"] * 1e3 / med, compact_ms=c_ms)
     return out
 
 
@@ -659,6 +887,11 @@ def main() -> int:
     phase_build()
     recs = phase_kernels("cuda")
     serve = phase_serve(dev["card"])
+    # the PageRank path runs no hand-written kernel: its counts stay 0
+    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+    phase_pagerank(dev["card"])
+    if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
+        raise AssertionError("the PageRank path launched a top-k kernel")
     for rec in recs:
         rec["launches"] = serve["total_launches" if rec["name"] == "topk"
                                 else "total_merge_launches"]

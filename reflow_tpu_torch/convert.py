@@ -1,11 +1,15 @@
 """Carry operator state between the JAX package and the port.
 
 The state of a graph — for k-NN the query and corpus tables, their live
-masks and each query's emitted top-k — is what the two packages must
-compute the same thing from, as a model's weights are for a model. The
-JAX executor's per-node state, handed over as numpy arrays (bf16 arrays
-as float32, since numpy has no bfloat16), becomes the port's tensors at
-the dtypes the port's lowerings build, and back.
+masks and each query's emitted top-k; for PageRank the Reduce's linear
+tables and emitted ranks and the Join's left table and edge arena — is
+what the two packages must compute the same thing from, as a model's
+weights are for a model. The JAX executor's per-node state, handed over
+as numpy arrays (bf16 arrays as float32, since numpy has no bfloat16),
+becomes the port's tensors at the dtypes the port's lowerings build, and
+back. Integer and boolean arrays (keys, weights, ``rcount``, ``gen``,
+flags) must arrive at exactly the port's dtype: they are int32 in both
+packages, and a silent cast could wrap them.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import numpy as np
 import torch
 
 from reflow_tpu_torch.executors.device_delta import resolve_device
-from reflow_tpu_torch.executors.lowerings import knn_state
+from reflow_tpu_torch.executors.lowerings import (join_state, knn_state,
+                                                  reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError
 
 __all__ = ["states_from_jax", "states_to_numpy"]
@@ -27,11 +32,20 @@ def _template(graph: FlowGraph) -> Dict[int, Dict[str, torch.Tensor]]:
     for node in graph.nodes:
         if node.kind != "op":
             continue
-        if node.op.kind != "knn":
-            raise GraphError(f"{node}: state conversion for op kind "
-                             f"{node.op.kind!r} is not ported yet")
-        out[node.id] = knn_state(node.op, *(i.spec for i in node.inputs),
-                                 "meta")
+        op = node.op
+        specs = [i.spec for i in node.inputs]
+        if op.kind in ("filter", "groupby", "union") or (
+                op.kind == "map" and op.params is None):
+            continue
+        if op.kind == "knn":
+            out[node.id] = knn_state(op, *specs, "meta")
+        elif op.kind == "reduce":
+            out[node.id] = reduce_state(specs[0], node.spec, "meta")
+        elif op.kind == "join" and specs[0].unique:
+            out[node.id] = join_state(op, specs[0], specs[1], "meta")
+        else:
+            raise GraphError(f"{node}: state conversion for this "
+                             f"{op.kind!r} op is not ported yet")
     return out
 
 
@@ -60,6 +74,11 @@ def states_from_jax(np_states: Mapping[int, Mapping[str, np.ndarray]],
                 raise ValueError(
                     f"{graph.nodes[nid]}: state {name!r} has shape "
                     f"{a.shape}, the port's is {tuple(t.shape)}")
+            if not t.dtype.is_floating_point and \
+                    torch.from_numpy(np.zeros(0, a.dtype)).dtype != t.dtype:
+                raise ValueError(
+                    f"{graph.nodes[nid]}: state {name!r} is {a.dtype}, the "
+                    f"port's is {t.dtype}")
             # np.array copies: the tensor owns writable memory
             st[name] = torch.from_numpy(np.array(a)).to(device=device,
                                                         dtype=t.dtype)

@@ -7,9 +7,16 @@ the dirty plan's lowerings in order (``executors/lowerings.py``).
 
 What it leaves out, and why the scheduler does not miss it: PyTorch runs
 eagerly, so there is no compiled-program cache; there is no on-device
-fixpoint yet, so the scheduler's ``run_tick_fixpoint`` probe gets None;
-and one card needs no ``place``. Op kinds without a ported lowering are refused at
-:meth:`bind`.
+fixpoint yet, so the scheduler's ``run_tick_fixpoint`` probe gets None
+and the scheduler drives an iterative graph's passes itself, one
+``run_pass`` per pass with one scalar readback per pass for its
+quiescence test (the JAX ``TpuExecutor(fixpoint=False)`` loop); and one
+card needs no ``place``.
+
+Refused at :meth:`bind` with "not ported yet": op kinds without a
+lowering, min/max reducers, the multiset-left Join (a left input whose
+Spec is not unique), Map ``params``, and loops with ``defer_passes``
+(their residual state belongs to the fused loop).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do): on the CPU every kernel wrapper takes its plain PyTorch
@@ -21,18 +28,30 @@ from __future__ import annotations
 import time
 from typing import Dict, Sequence
 
+import numpy as np
+import torch
 
 from reflow_tpu_torch.delta import DeltaBatch
+from reflow_tpu_torch.executors.arena import propagate_plan_caps
 from reflow_tpu_torch.executors.base import Executor
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      resolve_device,
                                                      to_device, to_host)
-from reflow_tpu_torch.executors.lowerings import (LOWERINGS, knn_state,
-                                                  lower_node)
+from reflow_tpu_torch.executors.lowerings import (LINEAR_DEVICE_REDUCERS,
+                                                  LOWERINGS, join_state,
+                                                  knn_state, lower_node,
+                                                  reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
 
 __all__ = ["CudaExecutor"]
+
+#: op kinds whose lowering keeps no state
+_STATELESS = ("map", "filter", "groupby", "union")
+#: what a set sticky ``error`` flag means (only the Join's state has one)
+_ERROR_REASON = ("join sticky error: the arena overflowed (live rows + "
+                 "appends exceeded capacity even after compaction — raise "
+                 "arena_capacity); this tick's state is invalid")
 
 
 class CudaExecutor(Executor):
@@ -43,8 +62,9 @@ class CudaExecutor(Executor):
         #: where state, uploads and every lowering run
         self.device = resolve_device(device)
         #: device->host scalar readbacks the lowerings made to decide a
-        #: branch on the host (the k-NN full-vs-incremental choice); the
-        #: scheduler folds them into its ``forced_syncs``
+        #: branch on the host (the k-NN full-vs-incremental choice, the
+        #: Join's compact-before-append check); the scheduler folds them
+        #: into its ``forced_syncs``
         self.host_syncs = 0
 
     def _note_sync(self) -> None:
@@ -55,22 +75,62 @@ class CudaExecutor(Executor):
     def bind(self, graph: FlowGraph) -> None:
         self.graph = graph
         self.states = {}
+        for loop in graph.loops:
+            if loop.defer_passes:
+                raise GraphError(
+                    f"{loop}: defer_passes (cross-tick residual deferral "
+                    f"in the fused loop) is not ported yet to the cuda "
+                    f"executor")
         for node in graph.nodes:
             if node.kind != "op":
                 continue
-            op = node.op
-            if op.kind not in LOWERINGS:
+            self._bind_op(node)
+
+    def _bind_op(self, node: Node) -> None:
+        op = node.op
+        if op.kind not in LOWERINGS:
+            raise GraphError(
+                f"{node}: op kind {op.kind!r} is not ported yet to the "
+                f"cuda executor (ported: {sorted(LOWERINGS)}); run it "
+                f"on the cpu executor")
+        if op.kind == "map" and op.params is not None:
+            raise GraphError(f"{node}: Map params are not ported yet to "
+                             f"the cuda executor")
+        if op.kind in _STATELESS:
+            return
+        in_specs = [i.spec for i in node.inputs]
+        for s in in_specs:
+            if s.key_space <= 0:
                 raise GraphError(
-                    f"{node}: op kind {op.kind!r} is not ported yet to the "
-                    f"cuda executor (ported: {sorted(LOWERINGS)}); run it "
-                    f"on the cpu executor")
-            in_specs = [i.spec for i in node.inputs]
-            for s in in_specs:
-                if s.key_space <= 0:
+                    f"{node}: the device lowering needs key_space > 0 "
+                    f"on every keyed-op input Spec")
+        if op.kind == "reduce":
+            if op.how not in LINEAR_DEVICE_REDUCERS:
+                raise GraphError(
+                    f"{node}: reducer {op.how!r} is not ported yet to the "
+                    f"cuda executor (ported: {LINEAR_DEVICE_REDUCERS}); run "
+                    f"it on the cpu executor")
+            self.states[node.id] = reduce_state(in_specs[0], node.spec,
+                                                self.device)
+        elif op.kind == "join":
+            if not in_specs[0].unique:
+                raise GraphError(
+                    f"{node}: the multiset-left join (left Spec not "
+                    f"unique) is not ported yet to the cuda executor")
+            if op.merge is None:
+                # the default merge lowers to the flattened concatenation
+                # of (va, vb); the out Spec must size it
+                flat = (int(np.prod(in_specs[0].value_shape or (1,)))
+                        + int(np.prod(in_specs[1].value_shape or (1,))))
+                got = int(np.prod(node.spec.value_shape or (1,)))
+                if got != flat:
                     raise GraphError(
-                        f"{node}: the device lowering needs key_space > 0 "
-                        f"on every keyed-op input Spec")
-            # op.kind == "knn", the one ported lowering
+                        f"{node}: default-merge device Join needs a spec "
+                        f"with {flat} flat value elements (va ++ vb), got "
+                        f"{node.spec.value_shape}")
+            self.states[node.id] = join_state(op, in_specs[0], in_specs[1],
+                                              self.device)
+        else:  # knn
             for port, s in enumerate(in_specs):
                 if tuple(s.value_shape) != (op.dim,):
                     raise GraphError(
@@ -101,8 +161,12 @@ class CudaExecutor(Executor):
     def run_pass(self, plan: Sequence[Node],
                  ingress: Dict[int, DeltaBatch]) -> Dict[int, object]:
         t0 = time.perf_counter() if _trace.ENABLED else 0.0
+        dev_ingress = self._to_device_ingress(ingress)
+        # fail loudly BEFORE an append could be truncated
+        self._track_arena(plan, {nid: d.capacity
+                                 for nid, d in dev_ingress.items()})
         states, egress = self.build_pass_fn(list(plan))(
-            self.states, self._to_device_ingress(ingress))
+            self.states, dev_ingress)
         self.states = states
         if _trace.ENABLED:
             _trace.evt("device_dispatch", t0, time.perf_counter() - t0,
@@ -155,13 +219,41 @@ class CudaExecutor(Executor):
         return batch
 
     def check_errors(self) -> None:
-        """No ported lowering carries a sticky error flag yet (the k-NN
-        state has none), so there is nothing to check."""
+        """Raise if a state's sticky ``error`` flag is set (the Join's arena
+        overflow). All flags come back in one readback."""
+        flagged = [(nid, st["error"]) for nid, st in self.states.items()
+                   if "error" in st]
+        if not flagged:
+            return
+        vals = torch.stack([e for _, e in flagged]).cpu().tolist()
+        for (nid, _), v in zip(flagged, vals):
+            if v:
+                raise RuntimeError(f"{self.graph.nodes[nid]}: {_ERROR_REASON}")
+
+    def _track_arena(self, plan, ingress_caps: Dict[int, int]) -> None:
+        """Static per-pass capacity sanity for Join arenas: reject one
+        pass's right-delta capacity exceeding the whole arena. The dynamic
+        high-water check is the Join lowering's (compact, else the sticky
+        error)."""
+        propagate_plan_caps(plan, ingress_caps)
 
     def read_table(self, node: Node):
         st = self.states.get(node.id)
         if st is None:
             raise KeyError(f"{node} holds no materialized state")
+        if node.op.kind in ("reduce", "join"):
+            if "error" in st and bool(st["error"]):
+                raise RuntimeError(f"{node}: {_ERROR_REASON}")
+            if node.op.kind == "reduce":
+                keys = st["emitted_has"].cpu().numpy().nonzero()[0]
+                vals = st["emitted"]
+            else:
+                keys = (st["lw"] > 0).cpu().numpy().nonzero()[0]
+                vals = st["lval"]
+            vals = vals.float() if vals.dtype == torch.bfloat16 else vals
+            vals = vals.cpu().numpy()
+            return {int(k): vals[k] if vals.ndim > 1 else vals[k].item()
+                    for k in keys}
         if node.op.kind == "knn":
             has = st["em_has"].cpu().numpy()
             rows = st["emitted"].cpu().numpy()

@@ -4,31 +4,146 @@ Each lowering is a function ``(op, node, state, in_deltas) ->
 (out_delta, state')`` over :class:`DeviceDelta` buffers and dense keyed
 state tables, the counterpart of ``reflow_tpu/executors/lowerings.py``.
 Emission capacities are fixed functions of input capacities and
-key-space sizes; dead rows carry weight 0.
+key-space sizes; dead rows carry weight 0, and every consumption goes
+through a ``where(w == 0, 0, ...)`` guard so padding garbage never
+reaches live state.
 
-Only the KnnIndex lowering is ported so far; the executor refuses other
-op kinds at ``bind``.
+Keyed-state representations (as in the JAX package):
+
+- Reduce (linear reducers sum/count/mean): dense tables over the key
+  space — ``wsum[K,*V]`` (Σ w·v), ``wcnt[K]`` (Σ w), ``emitted[K,*V]`` +
+  ``emitted_has[K]`` (the last aggregate emitted downstream, so
+  retractions stay exact under ``tol``).
+- Join, unique left: a dense left table (``lval[K,*VA]``, ``lw[K]``) and
+  the right side as an append-log arena (``rkeys[R]``, ``rvals[R,*VB]``,
+  ``rw[R]``, ``rcount``, ``gen``) with a sticky ``error`` flag.
+
+Ported: Map, Filter, GroupBy, Union, the linear Reduce (dense and sparse
+modes), the unique-left Join with its arena, and KnnIndex. The executor
+refuses the rest at ``bind`` (min/max reducers, the multiset-left Join,
+Map ``params``).
+
+Out-of-range keys: the JAX package's scatters drop them and its gathers
+clamp them (``mode="drop"`` and the default gather). PyTorch raises on
+the CPU and asserts on the card instead, so every keyed scatter here
+goes through :func:`_table_index` (wrap a negative key once, clamp the
+index, mask the row out of the scatter) — never an out-of-range index.
+
+In place: the arena, the Reduce's sparse-mode tables and the Join's left
+table are updated in place (the JAX package donates its state); the
+``state`` dict passed in is consumed, and ``state_snapshot`` clones.
+
+Profiler spans: each composition opens a ``torch.profiler`` range
+(``reflow::<op>.<part>``) only while a profiler is recording, so a
+traced tick attributes its device time by composition; otherwise a
+span costs one flag check.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from reflow_tpu_torch.delta import Spec, torch_dtype
+from reflow_tpu_torch.executors.arena import compact_arena
 from reflow_tpu_torch.executors.device_delta import DeviceDelta
 from reflow_tpu_torch.graph import Node
 from reflow_tpu_torch.kernels.topk import (NEG, chunked_corpus_topk, scores,
                                            topk)
 
-__all__ = ["lower_node", "knn_state", "LOWERINGS",
-           "LINEAR_DEVICE_REDUCERS"]
+__all__ = ["lower_node", "knn_state", "reduce_state", "join_state",
+           "join_core", "LOWERINGS", "LINEAR_DEVICE_REDUCERS"]
 
-#: the reducers whose device lowering is a linear scatter-add (the
-#: scheduler's ``refresh_minmax`` refuses them); the Reduce lowering
-#: itself is not ported yet
+#: the reducers whose device lowering is a linear scatter-add (the only
+#: ones the cuda executor lowers; the scheduler's ``refresh_minmax``
+#: refuses them)
 LINEAR_DEVICE_REDUCERS = ("sum", "count", "mean")
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``reflow::<name>`` while a profiler
+    records, else a no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(f"reflow::{name}")
+    return contextlib.nullcontext()
+
+
+# -- state builders --------------------------------------------------------
+
+def reduce_state(in_spec: Spec, out_spec: Spec, device) -> dict:
+    K = in_spec.key_space
+    vshape = tuple(in_spec.value_shape)
+    oshape = tuple(out_spec.value_shape)
+    return {
+        "wsum": torch.zeros((K,) + vshape, dtype=torch.float32,
+                            device=device),
+        "wcnt": torch.zeros((K,), dtype=torch.int32, device=device),
+        "emitted": torch.zeros((K,) + oshape,
+                               dtype=torch_dtype(out_spec.value_dtype),
+                               device=device),
+        "emitted_has": torch.zeros((K,), dtype=torch.bool, device=device),
+    }
+
+
+def join_state(op, left_spec: Spec, right_spec: Spec, device) -> dict:
+    """Unique-left Join state (the multiset-left form is not ported)."""
+    K = left_spec.key_space
+    R = op.arena_capacity
+
+    def scalar(dtype):
+        return torch.zeros((), dtype=dtype, device=device)
+
+    return {
+        "lval": torch.zeros((K,) + tuple(left_spec.value_shape),
+                            dtype=torch_dtype(left_spec.value_dtype),
+                            device=device),
+        "lw": torch.zeros((K,), dtype=torch.int32, device=device),
+        "rkeys": torch.zeros((R,), dtype=torch.int32, device=device),
+        "rvals": torch.zeros((R,) + tuple(right_spec.value_shape),
+                             dtype=torch_dtype(right_spec.value_dtype),
+                             device=device),
+        "rw": torch.zeros((R,), dtype=torch.int32, device=device),
+        "rcount": scalar(torch.int32),
+        # bumped by every compaction (which reorders the arena's rows)
+        "gen": scalar(torch.int32),
+        # sticky: an append overflowed the arena even after compaction
+        "error": scalar(torch.bool),
+    }
+
+
+# -- helpers ---------------------------------------------------------------
+
+def _bcast_w(w: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """weights [C] broadcast against values [C, *V]."""
+    return w.reshape(w.shape + (1,) * (values.dim() - 1))
+
+
+def _masked_contrib(w: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """w·v with an explicit zero at w==0 so padding NaNs never propagate."""
+    wb = _bcast_w(w, values)
+    return torch.where(wb == 0, 0, wb.to(values.dtype) * values)
+
+
+def _differs(a: torch.Tensor, b: torch.Tensor, tol: float) -> torch.Tensor:
+    """Per-key 'aggregates differ' over trailing value axes."""
+    d = torch.abs(a - b) > tol if tol > 0.0 else a != b
+    if d.dim() > 1:
+        d = torch.any(d.flatten(1), dim=1)
+    return d
+
+
+def _apply_rowfn(fn, vectorized: bool, *cols):
+    if vectorized:
+        return fn(*cols)
+    return torch.func.vmap(fn)(*cols)
+
+
+def _as(x, dtype, device) -> torch.Tensor:
+    """A row fn's result as a tensor of ``dtype`` (``jnp.asarray(x,
+    dtype)``: a float cast to an int type truncates)."""
+    return torch.as_tensor(x, device=device).to(dtype)
 
 
 # -- KnnIndex (cosine scores + the top-k kernel) ----------------------------
@@ -76,12 +191,18 @@ def _masked_set_(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     what it writes; when no row is inside, every row targets ``idx[0]``
     with the value already there. Either way the redirected writes are
     no-ops. As in the JAX package, two rows inside the mask with one
-    index leave one of their values, unspecified which."""
-    first = torch.argmax(mask.to(torch.int32))
-    anchor = idx[first]
-    anchor_v = torch.where(mask[first], src[first], table[anchor])
-    tgt = torch.where(mask, idx, anchor)
+    index leave one of their values, unspecified which; ``src`` is cast
+    to the table's dtype, as a JAX ``.at[].set`` casts it."""
+    src = src.to(table.dtype)
+    # one-element index tensors throughout: indexing with a 0-d tensor
+    # would read it back to the host (an ``item`` sync per call)
+    first = torch.argmax(mask.to(torch.int32)).reshape(1)
+    anchor = idx.index_select(0, first)
     m = mask.view((-1,) + (1,) * (src.dim() - 1))
+    anchor_v = torch.where(m.index_select(0, first),
+                           src.index_select(0, first),
+                           table.index_select(0, anchor))
+    tgt = torch.where(mask, idx, anchor)
     table[tgt] = torch.where(m, src, anchor_v)
 
 
@@ -199,9 +320,310 @@ def _lower_knn(op, node: Node, state, ins, *, on_sync=None
                  "emitted": new_emitted, "em_has": new_has}
 
 
+# -- Map / Filter / GroupBy / Union ----------------------------------------
+
+def _lower_map(op, node: Node, state, ins, *, on_sync=None
+               ) -> Tuple[DeviceDelta, None]:
+    (d,) = ins
+    with span("map"):
+        vals = _apply_rowfn(op.fn, op.vectorized, d.values)
+        vals = _as(vals, torch_dtype(node.spec.value_dtype), d.values.device)
+    return DeviceDelta(d.keys, vals, d.weights), None
+
+
+def _lower_filter(op, node: Node, state, ins, *, on_sync=None
+                  ) -> Tuple[DeviceDelta, None]:
+    (d,) = ins
+    with span("filter"):
+        keep = _as(_apply_rowfn(op.pred, op.vectorized, d.values),
+                   torch.bool, d.values.device)
+        w = torch.where(keep, d.weights, 0)
+    return DeviceDelta(d.keys, d.values, w), None
+
+
+def _lower_groupby(op, node: Node, state, ins, *, on_sync=None
+                   ) -> Tuple[DeviceDelta, None]:
+    (d,) = ins
+    dev = d.keys.device
+    with span("groupby"):
+        keys = _as(_apply_rowfn(op.key_fn, op.vectorized, d.keys, d.values),
+                   torch.int32, dev)
+        # keep padding rows at key 0 so downstream scatters stay in range
+        keys = torch.where(d.weights == 0, 0, keys)
+        vals = d.values
+        if op.value_fn is not None:
+            vals = _as(_apply_rowfn(op.value_fn, op.vectorized, d.keys,
+                                    d.values),
+                       torch_dtype(node.spec.value_dtype), dev)
+    return DeviceDelta(keys, vals, d.weights), None
+
+
+def _lower_union(op, node: Node, state, ins, *, on_sync=None
+                 ) -> Tuple[DeviceDelta, None]:
+    live = [d for d in ins if d is not None]  # absent streams vanish
+    if len(live) == 1:
+        return live[0], None
+    with span("union"):
+        return DeviceDelta(
+            torch.cat([d.keys for d in live]),
+            torch.cat([d.values for d in live]),
+            torch.cat([d.weights for d in live]),
+        ), None
+
+
+# -- Reduce (linear: sum / count / mean) -----------------------------------
+
+def _agg_tables(op, wsum, wcnt, vdtype):
+    """(aggregate, exists) per key from the running linear tables.
+
+    Existence mirrors the host oracle's linear-observable rule: a group
+    exists iff Σw != 0 or Σw·v != 0. For sum with ``tol > 0`` the Σw·v
+    test is tol-guarded, so float scatter-add residue after a full
+    retraction leaves no phantom group behind.
+    """
+    if op.how == "sum":
+        agg = wsum.to(vdtype)
+        nz = torch.abs(wsum) > op.tol if op.tol > 0.0 else wsum != 0
+        if nz.dim() > 1:
+            nz = torch.any(nz.flatten(1), dim=1)
+        exists = (wcnt != 0) | nz
+    elif op.how == "count":
+        agg = wcnt.to(vdtype)
+        exists = wcnt != 0
+    elif op.how == "mean":
+        denom = torch.where(wcnt == 0, 1, wcnt)
+        agg = (wsum / _bcast_w(denom, wsum)).to(vdtype)
+        exists = wcnt != 0
+    else:  # pragma: no cover - refused at bind
+        raise NotImplementedError(op.how)
+    return agg, exists
+
+
+#: spare rows below a scatter-add table that take the rows adding nothing
+SPREAD_ROWS = 1024
+
+
+def _scatter_contribs(d: DeviceDelta, K: int):
+    """One fused scatter-add of (w·v, w) into a [K, F+1] table (one
+    scatter of the stacked columns instead of two). Rows whose key lies
+    outside the table are dropped.
+
+    Rows of weight 0 add zeros; they are sent, by row number, to
+    ``SPREAD_ROWS`` spare rows below the table (sliced off after) rather
+    than to their key. A loop pass hands the dense Reduce millions of
+    them, all at key 0 (GroupBy parks dead rows there), and their atomic
+    adds on one address would serialize."""
+    C = d.capacity
+    idx, inb = _table_index(d.keys, K)
+    w = torch.where(inb, d.weights, 0)
+    vflat = _masked_contrib(w, d.values).to(torch.float32).reshape(C, -1)
+    upd = torch.cat([vflat, w.to(torch.float32)[:, None]], dim=-1)
+    spare = K + torch.arange(C, device=idx.device) % SPREAD_ROWS
+    tgt = torch.where(w != 0, idx, spare)
+    table = torch.zeros((K + SPREAD_ROWS, upd.shape[1]), dtype=torch.float32,
+                        device=upd.device).index_add_(0, tgt, upd)[:K]
+    dws = table[:, :-1].reshape((K,) + tuple(d.values.shape[1:]))
+    # weights are ints; their float32 sum is exact below 2**24 rows/key
+    dwc = table[:, -1].to(torch.int32)
+    return dws, dwc
+
+
+def _emit(keys, old, new, ret_m, ins_m) -> DeviceDelta:
+    """Retract-old / insert-new rows for the keys whose masks are set."""
+    return DeviceDelta(
+        keys=torch.cat([keys, keys]),
+        values=torch.cat([old, new]),
+        weights=torch.cat([-ret_m.to(torch.int32), ins_m.to(torch.int32)]))
+
+
+def _lower_reduce(op, node: Node, state, ins, *, on_sync=None
+                  ) -> Tuple[DeviceDelta, dict]:
+    (d,) = ins
+    K = node.inputs[0].spec.key_space
+    C = d.capacity
+    vdtype = torch_dtype(node.spec.value_dtype)
+    dev = d.keys.device
+    emitted, em_has = state["emitted"], state["emitted_has"]
+
+    if C >= K:
+        # dense mode: diff the whole aggregate table against what was
+        # emitted — no sort, pure vector ops (the PageRank-iteration shape)
+        with span("reduce.scatter_add"):
+            dws, dwc = _scatter_contribs(d, K)
+            wsum = state["wsum"] + dws
+            wcnt = state["wcnt"] + dwc
+        with span("reduce.diff"):
+            agg, exists = _agg_tables(op, wsum, wcnt, vdtype)
+            changed = _differs(agg, emitted, op.tol)
+            ins_m = exists & (~em_has | changed)
+            ret_m = em_has & (~exists | changed)
+            out = _emit(torch.arange(K, dtype=torch.int32, device=dev),
+                        emitted, agg, ret_m, ins_m)
+            new_emitted = torch.where(_bcast_w(ins_m, agg), agg, emitted)
+            new_has = torch.where(ins_m, True,
+                                  torch.where(ret_m & ~exists, False, em_has))
+        return out, {"wsum": wsum, "wcnt": wcnt, "emitted": new_emitted,
+                     "emitted_has": new_has}
+
+    # sparse mode: O(C) end to end, never O(K) — contributions scatter-add
+    # straight into the persistent tables (in place), and aggregation and
+    # emission run only on the gathered touched rows
+    idx, inb = _table_index(d.keys, K)
+    w = torch.where(inb, d.weights, 0)
+    wsum, wcnt = state["wsum"], state["wcnt"]
+    with span("reduce.scatter_add"):
+        contrib = _masked_contrib(w, d.values).to(torch.float32)
+        # rows of weight 0 add zeros: spread them over distinct keys
+        # rather than pile their atomics on their key (padding: key 0)
+        tgt = torch.where(w != 0, idx,
+                          torch.arange(C, device=dev) % K)
+        wsum.index_add_(0, tgt, contrib.to(wsum.dtype))
+        wcnt.index_add_(0, tgt, w)
+
+    with span("reduce.sort"):
+        live = w != 0
+        skey = torch.where(live, idx, K)
+        sk = torch.sort(skey, stable=True).values
+        prev = torch.cat([torch.full((1,), -1, dtype=sk.dtype, device=dev),
+                          sk[:-1]])
+        first = (sk != prev) & (sk < K)
+        tk = torch.where(sk < K, sk, 0)
+
+    with span("reduce.diff"):
+        agg, exists = _agg_tables(op, wsum[tk], wcnt[tk], vdtype)
+        em = emitted[tk]
+        has = em_has[tk]
+        changed = _differs(agg, em, op.tol)
+        ins_m = first & exists & (~has | changed)
+        ret_m = first & has & (~exists | changed)
+        out = _emit(tk.to(torch.int32), em, agg, ret_m, ins_m)
+        _masked_set_(emitted, tk, ins_m, agg)
+        _masked_set_(em_has, tk, ins_m, torch.ones_like(ins_m))
+        gone = ret_m & ~exists
+        _masked_set_(em_has, tk, gone, torch.zeros_like(gone))
+    return out, {"wsum": wsum, "wcnt": wcnt, "emitted": emitted,
+                 "emitted_has": em_has}
+
+
+# -- Join (unique left: dense left table x right append arena) -------------
+
+def _lower_join(op, node: Node, state, ins, *, on_sync=None
+                ) -> Tuple[DeviceDelta, dict]:
+    da, db = ins
+    return join_core(op, node.inputs[0].spec.key_space, op.arena_capacity,
+                     torch_dtype(node.spec.value_dtype), state, da, db,
+                     oshape=tuple(node.spec.value_shape), on_sync=on_sync)
+
+
+def _append_arena_(state: dict, keys, vals, w, R: int, on_sync) -> dict:
+    """Append the live rows of a right delta to the arena (live rows
+    first), compacting first when the append would cross capacity.
+
+    The JAX package makes that choice on the device (``lax.cond``); here
+    it is made on the host from one scalar readback per append, reported
+    through ``on_sync``. Rows beyond capacity even after compaction are
+    dropped and set the sticky ``error`` flag. Writes the arena tensors
+    in place (or, after a compaction, the compacted copies) and returns
+    the updated state."""
+    live = w != 0
+    n_app = live.sum(dtype=torch.int32)
+    over = state["rcount"] + n_app > R
+    if on_sync is not None:
+        on_sync()
+    if bool(over.item()):
+        with span("arena.compact"):
+            state = compact_arena(state)
+    with span("arena.append"):
+        rank = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1
+        pos = (state["rcount"] + rank).long()
+        fits = live & (pos < R)
+        pos = pos.clamp(max=R - 1)
+        _masked_set_(state["rkeys"], pos, fits, keys)
+        _masked_set_(state["rvals"], pos, fits, vals)
+        _masked_set_(state["rw"], pos, fits, w)
+        state["rcount"] = state["rcount"] + n_app
+        state["error"] = state["error"] | (state["rcount"] > R)
+    return state
+
+
+def join_core(op, K: int, R: int, odtype, state,
+              da: Optional[DeviceDelta], db: Optional[DeviceDelta], *,
+              oshape=None, on_sync=None) -> Tuple[DeviceDelta, dict]:
+    """δ(A⋈B) = δA⋈B_old + (A+δA)⋈δB over the unique-left state.
+
+    A ``None`` side is absent: its product, fold and append do not run —
+    a tick that only delivers right-side deltas never sweeps the arena,
+    and a loop pass with no right deltas never appends. δA splits into
+    its retract and insert halves, scattered into dense ``[K]`` tables,
+    so the arena-side product is a pure gather over the arena.
+    """
+
+    def merge_v(keys, va, vb):
+        if op.merge is None:
+            # default merge: the flattened value pair, the device
+            # encoding of the host oracle's (va, vb) tuple
+            n = va.shape[0]
+            out = torch.cat([va.to(odtype).reshape(n, -1),
+                             vb.to(odtype).reshape(n, -1)], dim=-1)
+            return out.reshape((n,) + tuple(oshape))
+        return _as(op.merge(keys, va, vb), odtype, keys.device)
+
+    st = dict(state)
+    ak, av, aw = st["rkeys"], st["rvals"], st["rw"]
+    lval, lw = st["lval"], st["lw"]
+    outs = []
+
+    if da is not None:
+        wa = da.weights
+        didx, dinb = _table_index(da.keys, K)
+        with span("join.scatter_delta"):
+            # fresh [K + 1] tables: rows outside a half go to the extra
+            # row K, which no arena gather (indices < K) reads
+            halves = []
+            for m in (dinb & (wa < 0), dinb & (wa > 0)):
+                tgt = torch.where(m, didx, K)
+                tab = da.values.new_zeros((K + 1,)
+                                          + tuple(da.values.shape[1:]))
+                tab[tgt] = da.values
+                tw = wa.new_zeros((K + 1,))
+                tw[tgt] = wa
+                halves.append((tab, tw))
+        # δA ⋈ B_old: a pure gather over the whole arena
+        with span("join.gather"):
+            aidx, _ = _table_index(ak, K)
+            for tab, tw in halves:
+                w = tw[aidx] * aw
+                outs.append(DeviceDelta(ak, merge_v(ak, tab[aidx], av), w))
+        # fold δA into the left table
+        with span("join.scatter_delta"):
+            lw.index_add_(0, didx, torch.where(dinb, wa, 0))
+            _masked_set_(lval, didx, dinb & (wa > 0), da.values)
+
+    if db is not None:
+        # (A + δA) ⋈ δB: a gather from the left table
+        kb, vb, wb = db.keys, db.values, db.weights
+        with span("join.probe"):
+            bidx, _ = _table_index(kb, K)
+            outs.append(DeviceDelta(kb, merge_v(kb, lval[bidx], vb),
+                                    lw[bidx] * wb))
+        st = _append_arena_(st, kb, vb, wb, R, on_sync)
+
+    with span("join.concat"):
+        out = DeviceDelta(torch.cat([o.keys for o in outs]),
+                          torch.cat([o.values for o in outs]),
+                          torch.cat([o.weights for o in outs]))
+    return out, st
+
+
 # -- dispatch ---------------------------------------------------------------
 
 LOWERINGS = {
+    "map": _lower_map,
+    "filter": _lower_filter,
+    "groupby": _lower_groupby,
+    "union": _lower_union,
+    "reduce": _lower_reduce,
+    "join": _lower_join,
     "knn": _lower_knn,
 }
 

@@ -340,12 +340,16 @@ class DirtyScheduler:
             passes += 1
             ingress = {}
             for nid, batch in egress.items():
+                # one live-row count per egress batch: on a device batch
+                # it is a scalar readback (the loop's quiescence test)
+                n = len(batch)
+                if not n:
+                    continue
                 if nid in sink_ids:
-                    if len(batch):
-                        sink_deltas[sink_ids[nid].name].append(batch)
-                elif len(batch):  # loop back-edge -> next pass
+                    sink_deltas[sink_ids[nid].name].append(batch)
+                else:  # loop back-edge -> next pass
                     ingress[nid] = batch
-                    deltas_in += len(batch)
+                    deltas_in += n
 
         # readbacks the executor made inside its passes to decide a
         # branch on the host (the k-NN path choice) are forced syncs too

@@ -1,0 +1,193 @@
+"""Benchmark config 3: incremental PageRank — iterative Join + Reduce.
+
+The port's copy of ``reflow_tpu/workloads/pagerank.py``: the same graph,
+and the same host-side data — one seed gives the same web graph and the
+same churn in both packages, since both draw from numpy in the same
+order.
+
+Dataflow formulation (scaled ranks: Σrank ≈ N, avg 1.0 — keeps float32
+well-conditioned at 1M nodes)::
+
+    ranks    = loop var, unique-keyed {node: rank}
+    teleport = source {node: 1-d}                  (pushed once)
+    edges    = source {src: [dst, 1/outdeg(src)]}
+    contribs = Join(ranks, edges, merge -> [dst, rank·invdeg])   (keyed src)
+    by_dst   = GroupBy(key=dst, value=contrib)                   (keyed dst)
+    damped   = Map(v -> d·v)
+    new_rank = Reduce('sum', tol)(Union(teleport, damped))        (unique)
+    close_loop(ranks, new_rank)
+
+The teleport term flows *through* the Reduce rather than seeding the loop
+variable directly: every rank row then originates from a Reduce emission,
+so the Reduce's retract-old/insert-new discipline keeps the ranks
+collection exactly unique across iterations.
+
+Each tick re-runs the cyclic region until the Reduce's tol suppresses all
+changes; under the cuda executor the scheduler drives the passes (one
+scalar readback per pass) and the deltas stay on the device. Edge churn
+preserves out-degrees (edge rewiring), so a churned edge is exactly two
+delta rows: retract [old_dst, invdeg], insert [new_dst, invdeg].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from reflow_tpu_torch.delta import DeltaBatch, Spec
+from reflow_tpu_torch.graph import FlowGraph, Node
+
+__all__ = ["PageRankGraph", "WebGraph", "build_graph", "teleport_batch",
+           "ranks_to_array", "reference_ranks", "DAMPING"]
+
+DAMPING = 0.85
+
+
+@dataclasses.dataclass
+class PageRankGraph:
+    graph: FlowGraph
+    ranks: Node     # loop var
+    teleport: Node  # source (push teleport_batch once)
+    edges: Node     # source (push edge deltas here)
+    join: Node      # read_table -> current ranks collection (left table)
+    new_rank: Node  # the Reduce; read_table -> converged ranks
+
+
+def build_graph(n_nodes: int, *, damping: float = DAMPING, tol: float = 1e-4,
+                arena_capacity: Optional[int] = None,
+                defer_passes: Optional[int] = None) -> PageRankGraph:
+    """``defer_passes`` opts the rank loop into cross-tick residual
+    deferral, a feature of the fused loop; the cuda executor refuses it
+    at bind (not ported yet), the CPU oracle runs to quiescence."""
+    rank_spec = Spec((), np.float32, key_space=n_nodes, unique=True)
+    scalar = Spec((), np.float32, key_space=n_nodes)
+    edge_spec = Spec((2,), np.float32, key_space=n_nodes)
+    g = FlowGraph("pagerank")
+    ranks = g.loop("ranks", rank_spec)
+    teleport = g.source("teleport", scalar)
+    edges = g.source("edges", edge_spec)
+    j = g.join(
+        ranks, edges, merge=_contrib_merge, spec=edge_spec, name="contribs",
+        arena_capacity=arena_capacity or max(1 << 10, 4 * n_nodes),
+        # merge is linear in rank and the GroupBy key (dst) comes from the
+        # edge side only (declarations the fused loop reads)
+        linear_left=True,
+    )
+    by_dst = g.group_by(
+        j, key_fn=lambda k, v: v[0], value_fn=lambda k, v: v[1],
+        spec=scalar, name="by_dst",
+        # the grouping key is the edge's dst — a pure arena-value read,
+        # independent of the rank flowing on the loop
+        stable_key=True)
+    damped = g.map(by_dst, lambda v: damping * v, vectorized=True,
+                   linear=True, name="damp")
+    everything = g.union(teleport, damped, name="teleport_plus_contribs")
+    new_rank = g.reduce(everything, "sum", tol=tol, name="rank",
+                        spec=rank_spec)
+    g.close_loop(ranks, new_rank, defer_passes=defer_passes)
+    return PageRankGraph(g, ranks, teleport, edges, j, new_rank)
+
+
+def _contrib_merge(k, rank, vb):
+    """(rank, [dst, invdeg]) -> [dst, rank·invdeg].
+
+    Merge contract (ops/core.py Join): values arrive array-like — per-row
+    on the CPU oracle (``vb: f64[2]``, ``rank`` scalar), batched on the
+    device path (``vb: f32[R, 2]``, ``rank: f32[R]`` tensors); branch on
+    ndim.
+    """
+    if getattr(vb, "ndim", 1) <= 1:
+        return np.asarray([vb[0], rank * vb[1]])
+    return torch.stack([vb[:, 0], rank * vb[:, 1]], dim=-1)
+
+
+# -- host-side data + churn driver (the source boundary) -------------------
+
+@dataclasses.dataclass
+class WebGraph:
+    """Host adjacency: out-edge array per node, regenerable churn."""
+
+    n_nodes: int
+    dst: np.ndarray      # [E] int64 destination per edge
+    src: np.ndarray      # [E] int64 source per edge
+    rng: np.random.Generator
+
+    @staticmethod
+    def random(n_nodes: int, n_edges: int, seed: int = 0) -> "WebGraph":
+        rng = np.random.default_rng(seed)
+        src = rng.integers(0, n_nodes, n_edges)
+        # power-law-ish popularity for destinations (web-graph flavored)
+        dst = (n_nodes * rng.power(0.3, n_edges)).astype(np.int64) % n_nodes
+        return WebGraph(n_nodes, dst.astype(np.int64), src.astype(np.int64),
+                        rng)
+
+    def out_degree(self) -> np.ndarray:
+        deg = np.zeros(self.n_nodes, np.int64)
+        np.add.at(deg, self.src, 1)
+        return deg
+
+    def edge_rows(self, idx: np.ndarray, weight: int) -> DeltaBatch:
+        inv = 1.0 / self.out_degree()[self.src[idx]]
+        vals = np.stack([self.dst[idx].astype(np.float32),
+                         inv.astype(np.float32)], axis=-1)
+        return DeltaBatch(self.src[idx].copy(),
+                          vals,
+                          np.full(len(idx), weight, dtype=np.int64))
+
+    def initial_batch(self) -> DeltaBatch:
+        return self.edge_rows(np.arange(len(self.src)), 1)
+
+    def churn(self, fraction: float) -> DeltaBatch:
+        """Rewire a fraction of edges (out-degree preserving). Returns the
+        retract+insert delta rows."""
+        m = max(1, int(len(self.src) * fraction))
+        idx = self.rng.choice(len(self.src), size=m, replace=False)
+        retract = self.edge_rows(idx, -1)
+        self.dst[idx] = self.rng.integers(0, self.n_nodes, m)
+        insert = self.edge_rows(idx, 1)
+        return DeltaBatch.concat([retract, insert])
+
+
+def teleport_batch(n_nodes: int, damping: float = DAMPING) -> DeltaBatch:
+    """The (1-d) teleport row per node; push once to the teleport source."""
+    return DeltaBatch(
+        np.arange(n_nodes, dtype=np.int64),
+        np.full(n_nodes, 1.0 - damping, dtype=np.float32),
+        np.ones(n_nodes, dtype=np.int64),
+    )
+
+
+def ranks_to_array(table: Dict[int, float], n_nodes: int,
+                   damping: float = DAMPING) -> np.ndarray:
+    """Dense rank vector from a ``read_table`` dict.
+
+    Missing keys default to the teleport floor ``1 - damping`` — the exact
+    rank of a node with no in-edges, and the one value a key can hold
+    without ever having been (re-)emitted.
+    """
+    out = np.full(n_nodes, 1.0 - damping)
+    for k, v in table.items():
+        out[int(k)] = float(v)
+    return out
+
+
+def reference_ranks(web: WebGraph, damping: float = DAMPING,
+                    iters: int = 200, tol: float = 1e-8) -> np.ndarray:
+    """Dense NumPy power iteration in float64 — the independent
+    correctness oracle (it shares no code with the lowerings)."""
+    n = web.n_nodes
+    deg = web.out_degree()
+    inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
+    r = np.ones(n, np.float64)
+    for _ in range(iters):
+        contrib = np.zeros(n, np.float64)
+        np.add.at(contrib, web.dst, r[web.src] * inv[web.src])
+        r_new = (1.0 - damping) + damping * contrib
+        if np.abs(r_new - r).max() < tol:
+            r = r_new
+            break
+        r = r_new
+    return r

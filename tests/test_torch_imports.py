@@ -46,7 +46,11 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "reflow_tpu_torch.executors.cuda" in loaded
+    for m in ("reflow_tpu_torch.executors.cuda",
+              "reflow_tpu_torch.executors.arena",
+              "reflow_tpu_torch.executors.lowerings",
+              "reflow_tpu_torch.workloads.pagerank"):
+        assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
 

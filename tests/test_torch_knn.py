@@ -274,9 +274,9 @@ def test_entry_points_without_device_need_a_card(monkeypatch):
 def test_unported_op_refused_at_bind():
     from reflow_tpu_torch.delta import Spec
 
-    g = FlowGraph("wc")
+    g = FlowGraph("lo")
     src = g.source("s", Spec((), np.float32, key_space=8))
-    g.reduce(src, "sum", name="total")
+    g.reduce(src, "min", name="lowest")
     with pytest.raises(GraphError, match="not ported yet"):
         P.DirtyScheduler(g, P.get_executor("cuda", device="cpu"))
 

@@ -33,11 +33,12 @@ Phases, each printing its own lines:
    read just after) prove the path ran through the kernels: one ``topk``
    per incremental tick, one ``topk_merge`` per corpus chunk of a rescan
    tick.
-5. **PageRank at full width** — incremental PageRank (BASELINE.md
-   config 3: 100k nodes, 1M edges, 1% churn, tol 1e-4, seed 7) through
-   ``DirtyScheduler`` -> the ``cuda`` executor (no device argument) ->
-   the row lowerings (Join with its edge arena, GroupBy, Map, Union, the
-   linear Reduce), the scheduler driving the fixpoint passes: the full
+5. **PageRank at full width, host-driven loop** — incremental PageRank
+   (BASELINE.md config 3: 100k nodes, 1M edges, 1% churn, tol 1e-4,
+   seed 7) through ``DirtyScheduler`` -> the ``cuda`` executor (no
+   device argument, ``fixpoint=False``) -> the row lowerings (Join with
+   its edge arena, GroupBy, Map, Union, the linear Reduce), the
+   scheduler driving the fixpoint passes: the full
    initial tick, 8 timed churn ticks and one traced (device-busy share,
    top device ops, idle gaps, host op counts, and device time and ops
    by composition from the lowerings' ``reflow::`` profiler ranges).
@@ -46,8 +47,24 @@ Phases, each printing its own lines:
    peak device memory. The ranks are checked against the float64 power
    iteration over the final edge set (``max|rank - ref| / max(ref, 1)``
    <= 1e-3), and the final arena is compacted on the card and on the CPU
-   (bit-identical). This path runs no hand-written kernel; the top-k
-   counts, zeroed before it, must stay 0.
+   (bit-identical).
+6. **PageRank at full width, the fused loop** — the executor's default
+   path for this graph (``executors/linear_fixpoint.py``, asserted by
+   the program's type): the initial tick, 16 churn ticks and one traced.
+   Printed per tick: ms, passes, readbacks (held to passes + 3), the CSR
+   rebuild cause or "kept", the tail rows, the tier of every pass; the
+   rebuilds by cause (the first tick's, a tail overflow and a ``gen``
+   bump must all occur), the sticky error flag (must stay clear), peak
+   device memory, the error bound of phase 5, the traced tick's device
+   time and ops by ``reflow::linear.*`` range, and a full CSR rebuild
+   and a tail build timed alone on the final arena. Then two short legs
+   at the same width: the row program (``linear_fixpoint=False``, the
+   initial tick and 2 churn ticks, same bound) and ``defer_passes=1``
+   (8 streamed churn ticks of one pass each, the amortized tick time,
+   the mid-stream error, and the drained error, bound 1e-3).
+
+The PageRank phases run no hand-written kernel; the top-k counts,
+zeroed before them, must stay 0.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -70,6 +87,8 @@ from reflow_tpu_torch import DeltaBatch, DirtyScheduler, get_executor
 from reflow_tpu_torch.executors.arena import compact_arena
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      bucket_capacity)
+from reflow_tpu_torch.executors.fixpoint import FixpointProgram
+from reflow_tpu_torch.executors.linear_fixpoint import LinearFixpointProgram
 from reflow_tpu_torch.kernels import _build
 from reflow_tpu_torch.kernels import topk as topk_mod
 from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
@@ -103,6 +122,11 @@ FLUSH_BYTES = 64 << 20
 #: bench.py sizes it); cut: 8 measured churn ticks and one traced
 PAGERANK = dict(n_nodes=100_000, n_edges=1_000_000, churn=0.01, tol=1e-4,
                 seed=7, churn_ticks=8)
+#: phase 6, the fused loop: bench.py's 16 churn ticks, which take the
+#: arena past its tail window (163,840 rows: about the 9th tick) and its
+#: headroom (310,720 rows: the 16th compacts); the row leg: 2
+FUSED = dict(PAGERANK, churn_ticks=16)
+ROW_LEG = dict(PAGERANK, churn_ticks=2)
 #: the largest max|rank - ref| / max(ref, 1) against the float64 power
 #: iteration that phase 5 accepts (tol-suppressed emissions leave errors
 #: of order tol; a bound relative to the rank holds at scale)
@@ -710,9 +734,11 @@ def phase_serve(card: str) -> Dict[str, object]:
 # -- phase 5: PageRank ------------------------------------------------------
 
 def span_table(prof) -> Dict[str, List[float]]:
-    """``{span: [device us, device ops]}`` over the ``reflow::`` profiler
-    ranges of a trace: the device operations launched inside each range
-    (through the trace's CPU op tree), summed over its occurrences."""
+    """``{span: [device us, device ops, host us]}`` over the ``reflow::``
+    profiler ranges of a trace: the device operations launched inside
+    each range (through the trace's CPU op tree) and the host wall time
+    spent inside it (under the profiler, which slows the host), summed
+    over its occurrences."""
     def under(e):
         us, n = sum(k.duration for k in e.kernels), len(e.kernels)
         for c in e.cpu_children:
@@ -724,31 +750,60 @@ def span_table(prof) -> Dict[str, List[float]]:
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name.startswith("reflow::"):
             us, n = under(e)
-            slot = out.setdefault(e.name[len("reflow::"):], [0.0, 0])
+            slot = out.setdefault(e.name[len("reflow::"):], [0.0, 0, 0.0])
             slot[0] += us
             slot[1] += n
+            slot[2] += e.time_range.elapsed_us()
     return out
 
 
-def pagerank_slice(cfg: Dict[str, object]) -> Dict[str, object]:
-    """Incremental PageRank through ``DirtyScheduler`` on the ``cuda``
-    executor, on the current card: the teleport and the initial edge
-    batch in one full tick, then ``churn_ticks`` measured churn ticks
-    and one more under ``torch.profiler``. Each tick is
-    timed by the host clock around push -> tick -> synchronize. Returns
-    the timings, passes, syncs, the arena's counters and the ranks' error
-    against the float64 reference computed on the host from the final
-    edge set."""
+def pagerank_setup(cfg: Dict[str, object], executor_kw: Dict[str, object],
+                   defer=None):
+    """The config's graph, web graph and scheduler on the ``cuda``
+    executor of the current card (no device argument), the arena sized as
+    bench.py sizes it."""
     n, e, churn = cfg["n_nodes"], cfg["n_edges"], cfg["churn"]
     arena = (bucket_capacity(e)
              + 8 * bucket_capacity(2 * int(churn * e) + 2))
-    pg = pagerank.build_graph(n, tol=cfg["tol"], arena_capacity=arena)
+    pg = pagerank.build_graph(n, tol=cfg["tol"], arena_capacity=arena,
+                              defer_passes=defer)
     web = pagerank.WebGraph.random(n, e, seed=cfg["seed"])
-    ex = get_executor("cuda")
-    sched = DirtyScheduler(pg.graph, ex)
+    ex = get_executor("cuda", **executor_kw)
+    return pg, web, ex, DirtyScheduler(pg.graph, ex), arena
+
+
+def rank_error(sched, pg, web, n: int) -> Dict[str, object]:
+    """The ranks against the float64 power iteration over the final edge
+    set, computed on the host: ``max|rank - ref| / max(ref, 1)``."""
+    table = sched.read_table(pg.new_rank)
+    ranks = pagerank.ranks_to_array(table, n)
+    t0 = time.perf_counter()
+    ref = pagerank.reference_ranks(web)
+    ref_s = time.perf_counter() - t0
+    if ranks.shape != (n,) or not np.isfinite(ranks).all():
+        raise AssertionError(f"ranks: shape {ranks.shape}, finite "
+                             f"{bool(np.isfinite(ranks).all())}")
+    rel = np.abs(ranks - ref) / np.maximum(ref, 1.0)
+    return {"rel_err": float(rel.max()), "rel_err_at": int(rel.argmax()),
+            "abs_err": float(np.abs(ranks - ref).max()), "ref_s": ref_s,
+            "keys": len(table)}
+
+
+def pagerank_slice(cfg: Dict[str, object], executor_kw: Dict[str, object],
+                   tag: str = "pagerank") -> Dict[str, object]:
+    """Incremental PageRank through ``DirtyScheduler`` on the ``cuda``
+    executor (``executor_kw`` picks the loop), on the current card: the
+    teleport and the initial edge batch in one full tick, then
+    ``churn_ticks`` measured churn ticks and one more under
+    ``torch.profiler``. Each tick is timed by the host clock around push
+    -> tick -> synchronize. Returns the timings, passes, readbacks, the
+    fused loop's per-tick CSR and tier record, the arena's counters and
+    the ranks' error against the float64 reference."""
+    n, churn = cfg["n_nodes"], cfg["churn"]
+    pg, web, ex, sched, arena = pagerank_setup(cfg, executor_kw)
 
     def tick(pushes, trace=False) -> Dict[str, object]:
-        s0, h0 = sched.forced_syncs, ex.host_syncs
+        s0, h0, r0 = sched.forced_syncs, ex.host_syncs, ex.loop_reads
         prof = None
         if trace:
             prof = torch.profiler.profile(activities=[
@@ -767,37 +822,34 @@ def pagerank_slice(cfg: Dict[str, object]) -> Dict[str, object]:
                 prof.__exit__(None, None, None)
         if not res.quiesced:
             raise AssertionError(f"tick {res.tick} did not quiesce")
+        syncs, loop_reads = sched.forced_syncs - s0, ex.loop_reads - r0
+        last = dict(getattr(ex._fx_program, "last_tick", None) or {})
         return {"s": wall, "passes": res.passes, "delta_ops": res.delta_ops,
-                "syncs": sched.forced_syncs - s0,
-                "branch_syncs": ex.host_syncs - h0, "prof": prof}
+                "syncs": syncs, "branch_syncs": ex.host_syncs - h0,
+                # the host loop reads each pass's live count back itself
+                "readbacks": syncs + (loop_reads if ex._fx_program
+                                      is not None else res.passes),
+                "csr": last.get("csr"), "tail_rows": last.get("tail_rows"),
+                "tiers": last.get("tiers"), "prof": prof}
 
     init = tick([(pg.teleport, pagerank.teleport_batch(n)),
                  (pg.edges, web.initial_batch())])
-    log(f"[pagerank] initial tick: {init['s'] * 1e3:.3f} ms, "
+    log(f"[{tag}] initial tick: {init['s'] * 1e3:.3f} ms, "
         f"{init['passes']} passes")
     ticks = [tick([(pg.edges, web.churn(churn))])
              for _ in range(cfg["churn_ticks"])]
     traced = tick([(pg.edges, web.churn(churn))], trace=True)
     st = ex.states[pg.join.id]
-    table = sched.read_table(pg.new_rank)
     peak = torch.cuda.max_memory_allocated()
-
-    ranks = pagerank.ranks_to_array(table, n)
-    t0 = time.perf_counter()
-    ref = pagerank.reference_ranks(web)
-    ref_s = time.perf_counter() - t0
-    if ranks.shape != (n,) or not np.isfinite(ranks).all():
-        raise AssertionError(f"ranks: shape {ranks.shape}, finite "
-                             f"{bool(np.isfinite(ranks).all())}")
-    rel = np.abs(ranks - ref) / np.maximum(ref, 1.0)
-    return {"init": init, "ticks": ticks, "traced": traced,
-            "rel_err": float(rel.max()), "rel_err_at": int(rel.argmax()),
-            "abs_err": float(np.abs(ranks - ref).max()),
-            "ref_s": ref_s, "keys": len(table), "arena": arena,
-            "rcount": int(st["rcount"]), "gen": int(st["gen"]),
-            "forced_syncs": sched.forced_syncs, "peak_bytes": peak,
-            "join_state": {k: st[k] for k in ("rkeys", "rvals", "rw",
-                                              "rcount", "gen")}}
+    out = rank_error(sched, pg, web, n)
+    out.update(init=init, ticks=ticks, traced=traced, arena=arena,
+               rcount=int(st["rcount"]), gen=int(st["gen"]),
+               error_flag=bool(st["error"]),
+               forced_syncs=sched.forced_syncs, peak_bytes=peak,
+               executor=ex, pg=pg,
+               join_state={k: st[k] for k in ("rkeys", "rvals", "rw",
+                                              "rcount", "gen")})
+    return out
 
 
 def _bit_equal(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
@@ -812,7 +864,12 @@ def _bit_equal(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
 
 def phase_pagerank(card: str) -> Dict[str, object]:
     torch.cuda.reset_peak_memory_stats()
-    out = pagerank_slice(PAGERANK)
+    # the scheduler's host-driven loop, asked for explicitly: the
+    # executor's default is the fused loop (phase 6)
+    out = pagerank_slice(PAGERANK, {"fixpoint": False})
+    if out.pop("executor")._fx_program is not None:
+        raise AssertionError("phase 5 ran a fixpoint program, not the "
+                             "host-driven loop")
     cfg = PAGERANK
     init, ticks = out["init"], out["ticks"]
     ms = sorted(t["s"] * 1e3 for t in ticks)
@@ -855,12 +912,14 @@ def phase_pagerank(card: str) -> Dict[str, object]:
                                 for op, n in rep["counts"].items()))
     spans = span_table(prof)
     total = sum(b - a for a, b, _ in rep["dev"])
-    for name, (us, n) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
+    for name, (us, n, host) in sorted(spans.items(),
+                                      key=lambda kv: -kv[1][0]):
         log(f"[trace] pagerank composition {name}: device {us / 1e3:.3f} ms "
-            f"in {n} device ops ({n / traced['passes']:.1f} a pass)")
+            f"in {n} device ops ({n / traced['passes']:.1f} a pass); host "
+            f"{host / 1e3:.3f} ms")
     log(f"[trace] pagerank outside the compositions (uploads, the "
         f"scheduler's per-pass count and readback): device "
-        f"{(total - sum(us for us, _ in spans.values())) / 1e3:.3f} ms of "
+        f"{(total - sum(s[0] for s in spans.values())) / 1e3:.3f} ms of "
         f"{total / 1e3:.3f} ms")
 
     # compaction at full width: this run's arena compacted on the card and
@@ -882,14 +941,197 @@ def phase_pagerank(card: str) -> Dict[str, object]:
     return out
 
 
+# -- phase 6: PageRank through the fused delta-vector loop --------------------
+
+def _tier_str(tiers, prog) -> str:
+    """A tick's (base, tail) tier per pass: the base budget (or ``D`` for
+    the dense tier) and ``+`` the tail budget when the tail ran."""
+    def one(ix_b, ix_t):
+        b = (str(prog.tiers[ix_b]) if ix_b < len(prog.tiers) else "D")
+        return b + (f"+{prog.tail_tiers[ix_t]}" if ix_t is not None else "")
+    return " ".join(one(*p) for p in tiers or [])
+
+
+def _device_call(fn: Callable[[], object]) -> tuple:
+    """(ms by CUDA events over 3 calls, device ms and ops of one call
+    from a profiler trace) of ``fn``."""
+    ms = time_ms(fn, iters=3, warmup=1)
+    dev = _device_events(_profile(fn, 1))
+    return ms, sum(b - a for a, b, _ in dev) / 1e3, len(dev)
+
+
+def phase_fused(card: str) -> Dict[str, object]:
+    """The executor's default path for PageRank: the fused loop with its
+    persistent CSR, the initial tick and 16 churn ticks at full width
+    (the tail overflows about the 9th, the arena compacts about the
+    16th), one traced churn tick; then the CSR's full and tail builds
+    timed alone on the final arena."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = FUSED
+    out = pagerank_slice(cfg, {}, tag="fused")
+    ex, pg = out.pop("executor"), out.pop("pg")
+    prog = ex._fx_program
+    if not isinstance(prog, LinearFixpointProgram):
+        raise AssertionError(f"phase 6 ran {type(prog).__name__}, not the "
+                             f"fused loop")
+    init, ticks, traced = out["init"], out["ticks"], out["traced"]
+    ms = sorted(t["s"] * 1e3 for t in ticks)
+    med = ms[len(ms) // 2]
+    dops = sum(t["delta_ops"] for t in ticks) / sum(t["s"] for t in ticks)
+    log(f"[fused] {cfg['n_nodes']} nodes, {cfg['n_edges']} edges, churn "
+        f"{cfg['churn']:g}, tol {cfg['tol']:g}, seed {cfg['seed']}; arena "
+        f"{out['arena']} rows; base tiers {prog.tiers}, tail window "
+        f"{prog.Ft} rows, tail tiers {prog.tail_tiers} [{card}]")
+    for i, t in enumerate([init] + ticks + [traced]):
+        kind = ("initial" if i == 0 else "traced" if i == len(ticks) + 1
+                else f"churn {i}")
+        log(f"[fused] {kind} tick: {t['s'] * 1e3:.3f} ms, {t['passes']} "
+            f"passes, {t['readbacks']} readbacks, csr "
+            f"{t['csr'] or 'kept'} (tail {t['tail_rows']} rows); tiers "
+            f"{_tier_str(t['tiers'], prog)}")
+    log(f"[fused] churn ticks ms: {[round(t['s'] * 1e3, 3) for t in ticks]}"
+        f"; passes {[t['passes'] for t in ticks]}; median {med:.3f} ms; "
+        f"initial {init['s'] * 1e3:.3f} ms in {init['passes']} passes; "
+        f"incremental-vs-full {init['s'] * 1e3 / med:.3f}x; delta-ops/s "
+        f"{dops:.1f}")
+    causes = [t["csr"] for t in [init] + ticks + [traced]]
+    log(f"[fused] CSR rebuilds by cause: {dict(ex.csr_rebuilds)} (per tick "
+        f"{causes}); arena rcount {out['rcount']}, gen {out['gen']}; "
+        f"stable_key/overflow flag {out['error_flag']}; peak device memory "
+        f"{out['peak_bytes']} B; forced syncs {out['forced_syncs']}")
+    log(f"[fused] check vs the float64 reference ({out['ref_s']:.2f} s on "
+        f"the host): max|rank - ref| / max(ref, 1) = {out['rel_err']:.6g} "
+        f"at node {out['rel_err_at']} (bound {PAGERANK_MAX_REL_ERR:g}); max "
+        f"abs {out['abs_err']:.6g}")
+    if out["rel_err"] > PAGERANK_MAX_REL_ERR:
+        raise AssertionError(f"fused PageRank relative error "
+                             f"{out['rel_err']:.3g} > "
+                             f"{PAGERANK_MAX_REL_ERR:g}")
+    if causes[0] != "initial" or "tail" not in causes or "gen" not in causes:
+        raise AssertionError(f"CSR rebuilds {causes}: expected the first "
+                             f"tick's, a tail overflow and a gen bump")
+    if out["error_flag"]:
+        raise AssertionError("the join's sticky error flag is set")
+    for t in [init] + ticks + [traced]:
+        # one read a loop pass (the last sees it end), the CSR's
+        # (gen, rcount), the compact-or-append, the error check
+        if t["readbacks"] != t["passes"] + 3:
+            raise AssertionError(f"a fused tick read back {t['readbacks']} "
+                                 f"times in {t['passes']} passes")
+
+    prof = traced["prof"]
+    rep = trace_report("fused churn", traced["s"], prof, card,
+                       PAGERANK_HOST_OPS)
+    log(f"[trace] fused churn tick: {traced['passes']} passes; host op "
+        f"counts: " + ", ".join(f"{op} {n}"
+                                for op, n in rep["counts"].items()))
+    spans = span_table(prof)
+    total = sum(b - a for a, b, _ in rep["dev"])
+    for name, (us, n, host) in sorted(spans.items(),
+                                      key=lambda kv: -kv[1][0]):
+        log(f"[trace] fused composition {name}: device {us / 1e3:.3f} ms in "
+            f"{n} device ops ({n / traced['passes']:.1f} a pass); host "
+            f"{host / 1e3:.3f} ms")
+    log(f"[trace] fused outside the compositions (uploads, phase A's "
+        f"unranged ops): device "
+        f"{(total - sum(s[0] for s in spans.values())) / 1e3:.3f} ms of "
+        f"{total / 1e3:.3f} ms; {len(rep['dev']) / traced['passes']:.1f} "
+        f"device ops a pass")
+
+    # the CSR builds alone on the final arena: a full rebuild (two stable
+    # sorts over the arena) and a tail window of Ft rows
+    jst = ex.states[pg.join.id]
+    rc, gen, K = int(jst["rcount"]), int(jst["gen"]), cfg["n_nodes"]
+    b_ms, b_dev, b_n = _device_call(
+        lambda: prog._build_base(jst, K, rc, gen))
+    t_ms, t_dev, t_n = _device_call(
+        lambda: prog._build_tail(jst, K, max(rc - prog.Ft, 0), rc))
+    log(f"[fused] CSR full rebuild on {rc} arena rows: {b_ms:.3f} ms by "
+        f"events, device {b_dev:.3f} ms in {b_n} ops; tail build of "
+        f"{prog.Ft} rows: {t_ms:.3f} ms, device {t_dev:.3f} ms in {t_n} ops "
+        f"[{card}]")
+    out.update(median_ms=med, delta_ops_per_s=dops,
+               incr_vs_full=init["s"] * 1e3 / med, rebuild_ms=b_ms,
+               tail_ms=t_ms)
+    return out
+
+
+def phase_row_leg(card: str) -> Dict[str, object]:
+    """The row program (``linear_fixpoint=False``) at the same width: the
+    initial tick and 2 churn ticks, the same error bound."""
+    out = pagerank_slice(ROW_LEG, {"linear_fixpoint": False}, tag="row")
+    prog = out.pop("executor")._fx_program
+    if not isinstance(prog, FixpointProgram):
+        raise AssertionError(f"the row leg ran {type(prog).__name__}")
+    ticks = [out["init"]] + out["ticks"] + [out["traced"]]
+    log(f"[row] ticks ms {[round(t['s'] * 1e3, 3) for t in ticks]}, passes "
+        f"{[t['passes'] for t in ticks]}, readbacks "
+        f"{[t['readbacks'] for t in ticks]}; max|rank - ref| / max(ref, 1) "
+        f"= {out['rel_err']:.6g} (bound {PAGERANK_MAX_REL_ERR:g}) [{card}]")
+    if out["rel_err"] > PAGERANK_MAX_REL_ERR:
+        raise AssertionError(f"row-program relative error "
+                             f"{out['rel_err']:.3g}")
+    return out
+
+
+def phase_defer_leg(card: str) -> Dict[str, object]:
+    """``defer_passes=1`` at the same width, as bench.py's deferred child
+    runs it: the initial tick, a drain (the cold build's residue), 8
+    streamed churn ticks of one loop pass each (timed; the amortized tick
+    time), the mid-stream error, a drain, the drained error."""
+    cfg = PAGERANK
+    n, churn = cfg["n_nodes"], cfg["churn"]
+    pg, web, ex, sched, _ = pagerank_setup(cfg, {}, defer=1)
+    probe = 2 * int(churn * cfg["n_edges"])
+    sched.push(pg.teleport, pagerank.teleport_batch(n))
+    sched.push(pg.edges, web.initial_batch())
+    sched.tick(sync=False)
+    t0 = time.perf_counter()
+    settle = sched.drain(pg.edges, probe_rows=probe)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    if not isinstance(ex._fx_program, LinearFixpointProgram):
+        raise AssertionError("the deferred leg did not run the fused loop")
+    walls = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        sched.push(pg.edges, web.churn(churn))
+        r = sched.tick(sync=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.passes > 2:
+            raise AssertionError(f"a deferred tick ran {r.passes} passes")
+    mid = rank_error(sched, pg, web, n)
+    t0 = time.perf_counter()
+    drain = sched.drain(pg.edges, probe_rows=probe)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    done = rank_error(sched, pg, web, n)
+    log(f"[defer] defer_passes=1: cold-build drain {settle} ticks in "
+        f"{settle_s:.3f} s; churn ticks ms "
+        f"{[round(w * 1e3, 3) for w in walls]}, amortized "
+        f"{sum(walls) / len(walls) * 1e3:.3f} ms a tick; mid-stream "
+        f"max|rank - ref| / max(ref, 1) = {mid['rel_err']:.6g}; drain "
+        f"{drain} ticks in {drain_s:.3f} s; drained {done['rel_err']:.6g} "
+        f"(bound {PAGERANK_MAX_REL_ERR:g}) [{card}]")
+    if done["rel_err"] > PAGERANK_MAX_REL_ERR:
+        raise AssertionError(f"drained relative error {done['rel_err']:.3g}")
+    return {"amortized_ms": sum(walls) / len(walls) * 1e3,
+            "mid_rel_err": mid["rel_err"], "drained_rel_err": done["rel_err"],
+            "drain_ticks": drain}
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
     recs = phase_kernels("cuda")
     serve = phase_serve(dev["card"])
-    # the PageRank path runs no hand-written kernel: its counts stay 0
+    # the PageRank paths run no hand-written kernel: their counts stay 0
     topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
     phase_pagerank(dev["card"])
+    phase_fused(dev["card"])
+    phase_row_leg(dev["card"])
+    phase_defer_leg(dev["card"])
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
         raise AssertionError("the PageRank path launched a top-k kernel")
     for rec in recs:

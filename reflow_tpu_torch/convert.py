@@ -4,7 +4,10 @@ The state of a graph — for k-NN the query and corpus tables, their live
 masks and each query's emitted top-k; for PageRank the Reduce's linear
 tables and emitted ranks and the Join's left table and edge arena — is
 what the two packages must compute the same thing from, as a model's
-weights are for a model. The JAX executor's per-node state, handed over
+weights are for a model. A loop under ``defer_passes`` adds its
+``resid``: the fused loop's carried observables, ``[K, P+1]`` float32.
+The fused loop's sorted-arena CSR cache is derived state and is never
+carried: the receiving executor rebuilds it on its first loop tick. The JAX executor's per-node state, handed over
 as numpy arrays (bf16 arrays as float32, since numpy has no bfloat16),
 becomes the port's tensors at the dtypes the port's lowerings build, and
 back. Integer and boolean arrays (keys, weights, ``rcount``, ``gen``,
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from reflow_tpu_torch.executors.device_delta import resolve_device
+from reflow_tpu_torch.executors.linear_fixpoint import resid_state
 from reflow_tpu_torch.executors.lowerings import (join_state, knn_state,
                                                   reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError
@@ -30,6 +34,9 @@ __all__ = ["states_from_jax", "states_to_numpy"]
 def _template(graph: FlowGraph) -> Dict[int, Dict[str, torch.Tensor]]:
     out = {}
     for node in graph.nodes:
+        if node.kind == "loop" and node.defer_passes:
+            # the deferred loop's carried observables (semantic state)
+            out[node.id] = resid_state(node.spec, "meta")
         if node.kind != "op":
             continue
         op = node.op

@@ -5,18 +5,23 @@ delta buffers and operator state live on the device; host batches cross
 at graph sources (``to_device``) and sinks (``to_host``); each pass runs
 the dirty plan's lowerings in order (``executors/lowerings.py``).
 
-What it leaves out, and why the scheduler does not miss it: PyTorch runs
-eagerly, so there is no compiled-program cache; there is no on-device
-fixpoint yet, so the scheduler's ``run_tick_fixpoint`` probe gets None
-and the scheduler drives an iterative graph's passes itself, one
-``run_pass`` per pass with one scalar readback per pass for its
-quiescence test (the JAX ``TpuExecutor(fixpoint=False)`` loop); and one
-card needs no ``place``.
+Iterative graphs: as in the JAX package, ``fixpoint=True`` (the default)
+runs a whole tick in :meth:`run_tick_fixpoint` — the fused delta-vector
+loop (``executors/linear_fixpoint.py``) when the loop region is declared
+linear, else the row program (``executors/fixpoint.py``), else None and
+the scheduler drives the passes itself. ``fixpoint=False`` always gives
+the scheduler's host-driven loop; ``linear_fixpoint=False`` keeps the
+row program. PyTorch has no device-side loop, so both programs check the
+loop on the host, one packed readback a pass (``read_scalars``, counted
+in ``loop_reads``); a readback that decides a branch (the Join's
+compact-or-append, the fused loop's CSR rebuild) goes through
+``read_branch`` and counts in ``host_syncs``. PyTorch runs eagerly, so
+there is no compiled-program cache: the program objects are built once
+per bound graph. One card needs no ``place``.
 
 Refused at :meth:`bind` with "not ported yet": op kinds without a
 lowering, min/max reducers, the multiset-left Join (a left input whose
-Spec is not unique), Map ``params``, and loops with ``defer_passes``
-(their residual state belongs to the fused loop).
+Spec is not unique) and Map ``params``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do): on the CPU every kernel wrapper takes its plain PyTorch
@@ -26,6 +31,7 @@ version, because the tensors it is given lie on the CPU.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Dict, Sequence
 
 import numpy as np
@@ -37,6 +43,9 @@ from reflow_tpu_torch.executors.base import Executor
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      resolve_device,
                                                      to_device, to_host)
+from reflow_tpu_torch.executors.fixpoint import FixpointProgram, analyze
+from reflow_tpu_torch.executors.linear_fixpoint import (
+    LinearFixpointProgram, analyze_linear, resid_state)
 from reflow_tpu_torch.executors.lowerings import (LINEAR_DEVICE_REDUCERS,
                                                   LOWERINGS, join_state,
                                                   knn_state, lower_node,
@@ -51,36 +60,81 @@ _STATELESS = ("map", "filter", "groupby", "union")
 #: what a set sticky ``error`` flag means (only the Join's state has one)
 _ERROR_REASON = ("join sticky error: the arena overflowed (live rows + "
                  "appends exceeded capacity even after compaction — raise "
-                 "arena_capacity); this tick's state is invalid")
+                 "arena_capacity); or a downstream GroupBy's "
+                 "stable_key=True declaration was violated (its key_fn "
+                 "read the loop value — the fused fixpoint's dense tier "
+                 "caught a precomputed/runtime destination mismatch); "
+                 "this tick's state is invalid")
 
 
 class CudaExecutor(Executor):
     name = "cuda"
 
-    def __init__(self, *, device=None):
+    def __init__(self, *, device=None, fixpoint: bool = True,
+                 linear_fixpoint: bool = True):
         super().__init__()
         #: where state, uploads and every lowering run
         self.device = resolve_device(device)
-        #: device->host scalar readbacks the lowerings made to decide a
-        #: branch on the host (the k-NN full-vs-incremental choice, the
-        #: Join's compact-before-append check); the scheduler folds them
-        #: into its ``forced_syncs``
+        #: device->host scalar readbacks made to decide a branch on the
+        #: host (the k-NN full-vs-incremental choice, the Join's
+        #: compact-before-append check, the fused loop's CSR rebuild);
+        #: the scheduler folds them into its ``forced_syncs``
         self.host_syncs = 0
+        #: the fixpoint programs' per-pass quiescence readbacks
+        self.loop_reads = 0
+        #: run whole ticks of iterative graphs in one call (False forces
+        #: the scheduler's host-driven per-pass loop)
+        self.fixpoint = fixpoint
+        #: allow the fused delta-vector loop for declared-linear regions
+        #: (False forces the row program)
+        self.linear_fixpoint = linear_fixpoint
+        self._reset_fixpoint()
+        #: ONE persistent sorted-arena CSR cache per join node (derived
+        #: state: dropped on bind and restore)
+        self._csr_cache: Dict[int, dict] = {}
+        #: full CSR rebuilds by cause: initial, gen (a compaction), shrunk
+        #: (rcount below the cache's count), tail (the tail overflowed)
+        self.csr_rebuilds: Counter = Counter()
+
+    def _reset_fixpoint(self) -> None:
+        self._fx_structure = None
+        self._fx_unsupported = not self.fixpoint
+        self._linear_fixpoint = self.linear_fixpoint
+        self._linear_structure = None
+        self._fx_program = None
 
     def _note_sync(self) -> None:
         self.host_syncs += 1
 
+    def read_branch(self, t: torch.Tensor) -> list:
+        """Read a small tensor back to decide a host branch (counted in
+        ``host_syncs``, so in the scheduler's ``forced_syncs``)."""
+        self._note_sync()
+        return t.tolist()
+
+    def read_scalars(self, t: torch.Tensor) -> list:
+        """A fixpoint loop's one packed readback of a pass."""
+        self.loop_reads += 1
+        return t.tolist()
+
     # -- bind: validate lowerability, build device state -------------------
 
     def bind(self, graph: FlowGraph) -> None:
+        if graph is not self.graph:
+            self._reset_fixpoint()
+        # state is reset below: any sorted-arena cache is now stale
+        self._csr_cache.clear()
         self.graph = graph
         self.states = {}
         for loop in graph.loops:
             if loop.defer_passes:
-                raise GraphError(
-                    f"{loop}: defer_passes (cross-tick residual deferral "
-                    f"in the fused loop) is not ported yet to the cuda "
-                    f"executor")
+                # cross-tick residual deferral: the loop carries its
+                # un-propagated emission deltas as dense observables —
+                # semantic state, unlike the derived CSR cache
+                if loop.spec.key_space <= 0:
+                    raise GraphError(
+                        f"{loop}: defer_passes needs key_space > 0")
+                self.states[loop.id] = resid_state(loop.spec, self.device)
         for node in graph.nodes:
             if node.kind != "op":
                 continue
@@ -174,6 +228,83 @@ class CudaExecutor(Executor):
         # everything stays device-resident: sink batches are materialized
         # by the scheduler once per tick
         return egress
+
+    # -- whole-tick fixpoint -------------------------------------------------
+
+    def run_tick_fixpoint(self, plan: Sequence[Node],
+                          ingress: Dict[int, DeltaBatch], max_iters: int,
+                          *, sync: bool = True):
+        """Run an entire tick (phase A pass, the loop, the exit pass) in
+        one call. Returns ``(sink_batches, passes, loop_rows, quiesced,
+        extra_dirty, leftover)`` or None when the graph doesn't fit the
+        fixpoint structure (the scheduler then drives the passes).
+
+        The loop is checked on the host, so the tick's scalars are host
+        values whatever ``sync`` says; ``leftover`` holds the row
+        program's live carry after a ``max_iters`` halt (the scheduler
+        stashes it, and the next tick resumes)."""
+        if self._fx_unsupported:
+            return None
+        if self._fx_structure is None:
+            self._fx_structure = analyze(self.graph)
+            if self._fx_structure is None:
+                self._fx_unsupported = True
+                return None
+        if self._fx_program is None:
+            self._fx_program = self._build_fixpoint()
+            if self._fx_program is None:
+                return None
+
+        t0 = time.perf_counter() if _trace.ENABLED else 0.0
+        dev_ingress = self._to_device_ingress(ingress)
+        st = self._fx_structure
+        self._track_arena(plan, {nid: d.capacity
+                                 for nid, d in dev_ingress.items()})
+        if st.exit_plan:
+            self._track_arena(
+                list(st.exit_plan),
+                {n.id: 2 * n.inputs[0].spec.key_space for n in st.boundary})
+        states, sink_egress, carry, iters, rows, converged = \
+            self._fx_program(self.states, plan, dev_ingress, max_iters)
+        self.states = states
+        if _trace.ENABLED:
+            _trace.evt("device_dispatch", t0, time.perf_counter() - t0,
+                       args={"kind": "fixpoint", "device": str(self.device)})
+        passes = 1 + iters + (1 if st.exit_plan else 0)
+        # nodes the loop and exit passes ran beyond the phase-A plan (the
+        # scheduler's dirty-set report), only if the loop iterated
+        extra_dirty = (set(st.region_ids) | {n.id for n in st.exit_plan}
+                       if iters > 0 else set())
+        leftover = dict(carry) if carry and not converged else {}
+        return ({sid: list(b) for sid, b in sink_egress.items()}, passes,
+                rows, converged, extra_dirty, leftover)
+
+    def _build_fixpoint(self):
+        """The fused delta-vector program when the region's operator chain
+        is declared linear, otherwise the row program."""
+        if self._linear_fixpoint:
+            if self._linear_structure is None:
+                self._linear_structure = analyze_linear(self.graph,
+                                                        self._fx_structure)
+                if self._linear_structure is None:
+                    self._linear_fixpoint = False
+            if self._linear_structure is not None:
+                try:
+                    return LinearFixpointProgram(
+                        self, structure=self._fx_structure,
+                        linear=self._linear_structure)
+                except ValueError:
+                    # shapes don't fit the fused-f32 representation; use
+                    # the row program below
+                    self._linear_fixpoint = False
+                    self._linear_structure = None
+        return FixpointProgram(self, structure=self._fx_structure)
+
+    def on_states_replaced(self) -> None:
+        """The state tree was swapped wholesale (a restore): drop the
+        sorted-arena CSR caches. Their (gen, rcount) validity test cannot
+        tell two histories apart whose counters line up."""
+        self._csr_cache.clear()
 
     def build_pass_fn(self, plan: Sequence[Node]):
         """The pass over ``plan``: ``(states, ingress) -> (states',
@@ -275,3 +406,4 @@ class CudaExecutor(Executor):
         self.states = {nid: {k: t.to(self.device, copy=True)
                              for k, t in st.items()}
                        for nid, st in snapshot.items()}
+        self.on_states_replaced()

@@ -23,8 +23,10 @@ so the Reduce's retract-old/insert-new discipline keeps the ranks
 collection exactly unique across iterations.
 
 Each tick re-runs the cyclic region until the Reduce's tol suppresses all
-changes; under the cuda executor the scheduler drives the passes (one
-scalar readback per pass) and the deltas stay on the device. Edge churn
+changes. The region is declared linear, so the cuda executor runs it
+through the fused delta-vector loop by default (``fixpoint=False``: the
+scheduler drives the row passes itself); either way one scalar readback
+a pass, and the deltas stay on the device. Edge churn
 preserves out-degrees (edge rewiring), so a churned edge is exactly two
 delta rows: retract [old_dst, invdeg], insert [new_dst, invdeg].
 """
@@ -60,8 +62,8 @@ def build_graph(n_nodes: int, *, damping: float = DAMPING, tol: float = 1e-4,
                 arena_capacity: Optional[int] = None,
                 defer_passes: Optional[int] = None) -> PageRankGraph:
     """``defer_passes`` opts the rank loop into cross-tick residual
-    deferral, a feature of the fused loop; the cuda executor refuses it
-    at bind (not ported yet), the CPU oracle runs to quiescence."""
+    deferral, a feature of the fused loop (the cuda executor's default
+    program for this graph); the CPU oracle runs to quiescence."""
     rank_spec = Spec((), np.float32, key_space=n_nodes, unique=True)
     scalar = Spec((), np.float32, key_space=n_nodes)
     edge_spec = Spec((2,), np.float32, key_space=n_nodes)

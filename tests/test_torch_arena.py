@@ -245,7 +245,8 @@ def test_long_churn_constant_arena():
         web = mod.WebGraph.random(N, E, seed=4)
         pg = mod.build_graph(N, tol=1e-5, arena_capacity=arena)
         if pkg == "port":
-            ex = P.get_executor("cuda", device="cpu")
+            # the host-driven loop, as the JAX run below
+            ex = P.get_executor("cuda", device="cpu", fixpoint=False)
             sched = P.DirtyScheduler(pg.graph, ex, max_loop_iters=500)
         else:
             ex = TpuExecutor(fixpoint=False)

@@ -47,6 +47,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for m in ("reflow_tpu_torch.executors.cuda",
+              "reflow_tpu_torch.executors.fixpoint",
+              "reflow_tpu_torch.executors.linear_fixpoint",
               "reflow_tpu_torch.executors.arena",
               "reflow_tpu_torch.executors.lowerings",
               "reflow_tpu_torch.workloads.pagerank"):

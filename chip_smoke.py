@@ -63,8 +63,39 @@ Phases, each printing its own lines:
    (8 streamed churn ticks of one pass each, the amortized tick time,
    the mid-stream error, and the drained error, bound 1e-3).
 
-The PageRank phases run no hand-written kernel; the top-k counts,
-zeroed before them, must stay 0.
+7. **Word-count at full width** (BASELINE.md config 1): 100,000 lines
+   from 5,000 words (``default_rng(0)``, 5-14 words a line) as vocabulary
+   keys into a key space of 8192, ten ticks of 10,000 lines and a
+   retraction tick of the first 10,000, then one traced tick putting them
+   back; the sink's view and the Reduce's table equal a host ``Counter``
+   exactly after both. Printed: tick ms and median, delta-ops/s, the
+   traced tick's device-busy share and compositions.
+8. **Streaming TF-IDF at full width** (config 2): 4,096 docs, 2^20 terms
+   and pairs, a 250,000-word vocabulary (``default_rng(1)``); 2,048 docs
+   loaded, 512 single edits padded to 256 rows through ``tick_many``,
+   32 ticks of 64 edits padded to 8,192 rows, one traced batched tick.
+   The ``tf``/``df``/``ndocs`` tables equal the counts recomputed from
+   the corpus exactly, and the combined TF-IDF is within 1e-5 relative
+   of ``Corpus.reference_tfidf``. Printed: amortized tick ms and
+   delta-ops/s (pad rows left out) of both phases.
+9. **Incremental SSSP** (100,000 nodes, 1,000,000 uniform edges, weights
+   1-9, ``default_rng(7)``, source 0, 32 candidates a key): the initial
+   tick, 4 insertion and 4 deletion ticks of 10,000 edges (the last
+   traced), each table equal to Bellman-Ford exactly with the sticky
+   flags clear and readbacks held to the row program's count; a tick
+   that reaches the 256-pass cap is repaired through ``affected_set`` and
+   ``repair``; then ``refresh_minmax`` over 1,024 keys from a host replay
+   of their live candidates must leave the table and the error flag as
+   they were. Printed: ms, passes and readbacks a tick, peak memory.
+10. **The multiset-left Join**: two multiset sources over 2^20 keys, the
+   default merge, a sink; 1,048,576 rows a side in batches of 65,536,
+   then 8 churn ticks of 8,192 retractions and 8,192 inserts a side (the
+   last traced). Each arena compacts once; the sink's view equals a numpy
+   join of the final collections exactly; a tick reads back once a side
+   appended. Printed: tick ms, pairs a tick.
+
+The phases after the serving slice run no hand-written kernel; the top-k
+counts, zeroed before them, must stay 0.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -77,13 +108,15 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from typing import Callable, Dict, FrozenSet, List, Set
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-from reflow_tpu_torch import DeltaBatch, DirtyScheduler, get_executor
+from reflow_tpu_torch import (DeltaBatch, DirtyScheduler, FlowGraph, Spec,
+                              get_executor)
 from reflow_tpu_torch.executors.arena import compact_arena
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      bucket_capacity)
@@ -94,7 +127,8 @@ from reflow_tpu_torch.kernels import topk as topk_mod
 from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
                                            topk_merge_plain, topk_plain)
 from reflow_tpu_torch.serve import APPLIED, CoalesceWindow, IngestFrontend
-from reflow_tpu_torch.workloads import knn, pagerank
+from reflow_tpu_torch.workloads import (knn, pagerank, sssp, tfidf,
+                                        wordcount)
 
 #: H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 outside
 #: the tensor cores, for the kernels' least-time bounds
@@ -116,6 +150,11 @@ MAIN_Q, MAIN_N, MAIN_K = 256, 16 + 8192, 16
 MAIN_CHUNK = 8192
 #: bytes written between calls to time a kernel with a cold L2 (50 MB)
 FLUSH_BYTES = 64 << 20
+#: traced runs of one step at most: now and then torch.profiler returns a
+#: trace that holds none of the window's device operations (the host ops
+#: and launches are there), so a step traced without any is run and traced
+#: again, a fresh step where the step changes state
+TRACE_TRIES = 3
 
 #: BASELINE.md config 3 at full width (bench.py's setting: 100k nodes,
 #: 1M edges, 1% edge churn a tick, tol 1e-4, seed 7; the arena sized as
@@ -194,13 +233,18 @@ def time_ms(fn: Callable[[], object], iters: int, warmup: int = 5) -> float:
 
 
 def _profile(fn: Callable[[], object], iters: int):
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return prof
+    """``iters`` calls of ``fn`` under ``torch.profiler`` (CPU + CUDA),
+    profiled again while the trace holds no device operation (at most
+    ``TRACE_TRIES`` times; ``fn`` must not change state)."""
+    for i in range(TRACE_TRIES):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        if i == TRACE_TRIES - 1 or not trace_lost(prof, "a timed call"):
+            return prof
 
 
 def device_names(fn: Callable[[], object]) -> Set[str]:
@@ -542,18 +586,30 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
         qupdate_s = tick("query update", kg.queries, DeltaBatch(
             np.arange(nq, dtype=np.int64), qvecs[:nq]))
         if cfg.get("trace"):
-            # one more of each tick kind, traced (not among the timed)
-            ids = np.arange(next_id, next_id + cfg["per_tick"],
-                            dtype=np.int64)
-            next_id += cfg["per_tick"]
-            tick("insert", kg.docs, DeltaBatch(ids, knn.quantize_int8(
-                rng.standard_normal((len(ids), dim), dtype=np.float32))),
-                trace=True)
-            gone = np.arange(cfg["retract"], 2 * cfg["retract"],
-                             dtype=np.int64)
-            tick("retract", kg.docs, DeltaBatch(
-                gone, np.zeros((len(gone), dim), np.int8),
-                -np.ones(len(gone), np.int64)), trace=True)
+            # one more of each tick kind, traced (not among the timed);
+            # a tick whose trace was lost is followed by a fresh one
+            next_gone = cfg["retract"]
+            for kind in ("insert", "retract"):
+                for i in range(TRACE_TRIES):
+                    if kind == "insert":
+                        ids = np.arange(next_id, next_id + cfg["per_tick"],
+                                        dtype=np.int64)
+                        next_id += cfg["per_tick"]
+                        batch = DeltaBatch(ids, knn.quantize_int8(
+                            rng.standard_normal((len(ids), dim),
+                                                dtype=np.float32)))
+                    else:
+                        gone = np.arange(next_gone, next_gone + cfg["retract"],
+                                         dtype=np.int64)
+                        next_gone += cfg["retract"]
+                        batch = DeltaBatch(
+                            gone, np.zeros((len(gone), dim), np.int8),
+                            -np.ones(len(gone), np.int64))
+                    tick(kind, kg.docs, batch, trace=True)
+                    if i == TRACE_TRIES - 1 or not trace_lost(
+                            traces[-1][2], f"k-NN {kind} tick"):
+                        break
+                    traces.pop()
         fe.flush()
         table = sched.read_table(kg.index)
     finally:
@@ -606,6 +662,16 @@ def _device_events(prof) -> List[tuple]:
                   for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not e.name.startswith("reflow::"))
+
+
+def trace_lost(prof, what: str) -> bool:
+    """Whether the profiler lost the device side of a trace (no device
+    operation in it; see ``TRACE_TRIES``), logged when it did."""
+    if _device_events(prof):
+        return False
+    log(f"[trace] {what}: the trace holds no device operation; tracing "
+        f"again")
+    return True
 
 
 def trace_report(kind: str, wall_s: float, prof, card: str,
@@ -733,23 +799,25 @@ def phase_serve(card: str) -> Dict[str, object]:
 
 # -- phase 5: PageRank ------------------------------------------------------
 
+def _under(e) -> tuple:
+    """(device us, device ops) launched inside a CPU event of a trace."""
+    us, n = sum(k.duration for k in e.kernels), len(e.kernels)
+    for c in e.cpu_children:
+        cu, cn = _under(c)
+        us, n = us + cu, n + cn
+    return us, n
+
+
 def span_table(prof) -> Dict[str, List[float]]:
     """``{span: [device us, device ops, host us]}`` over the ``reflow::``
     profiler ranges of a trace: the device operations launched inside
     each range (through the trace's CPU op tree) and the host wall time
     spent inside it (under the profiler, which slows the host), summed
     over its occurrences."""
-    def under(e):
-        us, n = sum(k.duration for k in e.kernels), len(e.kernels)
-        for c in e.cpu_children:
-            cu, cn = under(c)
-            us, n = us + cu, n + cn
-        return us, n
-
     out: Dict[str, List[float]] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name.startswith("reflow::"):
-            us, n = under(e)
+            us, n = _under(e)
             slot = out.setdefault(e.name[len("reflow::"):], [0.0, 0, 0.0])
             slot[0] += us
             slot[1] += n
@@ -838,11 +906,17 @@ def pagerank_slice(cfg: Dict[str, object], executor_kw: Dict[str, object],
         f"{init['passes']} passes")
     ticks = [tick([(pg.edges, web.churn(churn))])
              for _ in range(cfg["churn_ticks"])]
-    traced = tick([(pg.edges, web.churn(churn))], trace=True)
+    lost = []                   # churn ticks whose trace was lost
+    for i in range(TRACE_TRIES):
+        traced = tick([(pg.edges, web.churn(churn))], trace=True)
+        if i == TRACE_TRIES - 1 or not trace_lost(traced["prof"],
+                                                  f"{tag} churn tick"):
+            break
+        lost.append(traced)
     st = ex.states[pg.join.id]
     peak = torch.cuda.max_memory_allocated()
     out = rank_error(sched, pg, web, n)
-    out.update(init=init, ticks=ticks, traced=traced, arena=arena,
+    out.update(init=init, ticks=ticks, lost=lost, traced=traced, arena=arena,
                rcount=int(st["rcount"]), gen=int(st["gen"]),
                error_flag=bool(st["error"]),
                forced_syncs=sched.forced_syncs, peak_bytes=peak,
@@ -975,6 +1049,8 @@ def phase_fused(card: str) -> Dict[str, object]:
         raise AssertionError(f"phase 6 ran {type(prog).__name__}, not the "
                              f"fused loop")
     init, ticks, traced = out["init"], out["ticks"], out["traced"]
+    # every tick that ran, in order, for the per-tick lines and checks
+    ran = [init] + ticks + out["lost"] + [traced]
     ms = sorted(t["s"] * 1e3 for t in ticks)
     med = ms[len(ms) // 2]
     dops = sum(t["delta_ops"] for t in ticks) / sum(t["s"] for t in ticks)
@@ -982,9 +1058,10 @@ def phase_fused(card: str) -> Dict[str, object]:
         f"{cfg['churn']:g}, tol {cfg['tol']:g}, seed {cfg['seed']}; arena "
         f"{out['arena']} rows; base tiers {prog.tiers}, tail window "
         f"{prog.Ft} rows, tail tiers {prog.tail_tiers} [{card}]")
-    for i, t in enumerate([init] + ticks + [traced]):
-        kind = ("initial" if i == 0 else "traced" if i == len(ticks) + 1
-                else f"churn {i}")
+    for i, t in enumerate(ran):
+        kind = ("initial" if i == 0 else "traced" if i == len(ran) - 1
+                else f"churn {i}" if i <= len(ticks)
+                else f"churn {i} (trace lost)")
         log(f"[fused] {kind} tick: {t['s'] * 1e3:.3f} ms, {t['passes']} "
             f"passes, {t['readbacks']} readbacks, csr "
             f"{t['csr'] or 'kept'} (tail {t['tail_rows']} rows); tiers "
@@ -994,7 +1071,7 @@ def phase_fused(card: str) -> Dict[str, object]:
         f"initial {init['s'] * 1e3:.3f} ms in {init['passes']} passes; "
         f"incremental-vs-full {init['s'] * 1e3 / med:.3f}x; delta-ops/s "
         f"{dops:.1f}")
-    causes = [t["csr"] for t in [init] + ticks + [traced]]
+    causes = [t["csr"] for t in ran]
     log(f"[fused] CSR rebuilds by cause: {dict(ex.csr_rebuilds)} (per tick "
         f"{causes}); arena rcount {out['rcount']}, gen {out['gen']}; "
         f"stable_key/overflow flag {out['error_flag']}; peak device memory "
@@ -1012,7 +1089,7 @@ def phase_fused(card: str) -> Dict[str, object]:
                              f"tick's, a tail overflow and a gen bump")
     if out["error_flag"]:
         raise AssertionError("the join's sticky error flag is set")
-    for t in [init] + ticks + [traced]:
+    for t in ran:
         # one read a loop pass (the last sees it end), the CSR's
         # (gen, rcount), the compact-or-append, the error check
         if t["readbacks"] != t["passes"] + 3:
@@ -1063,7 +1140,7 @@ def phase_row_leg(card: str) -> Dict[str, object]:
     prog = out.pop("executor")._fx_program
     if not isinstance(prog, FixpointProgram):
         raise AssertionError(f"the row leg ran {type(prog).__name__}")
-    ticks = [out["init"]] + out["ticks"] + [out["traced"]]
+    ticks = [out["init"]] + out["ticks"] + out["lost"] + [out["traced"]]
     log(f"[row] ticks ms {[round(t['s'] * 1e3, 3) for t in ticks]}, passes "
         f"{[t['passes'] for t in ticks]}, readbacks "
         f"{[t['readbacks'] for t in ticks]}; max|rank - ref| / max(ref, 1) "
@@ -1121,19 +1198,634 @@ def phase_defer_leg(card: str) -> Dict[str, object]:
             "drain_ticks": drain}
 
 
+def traced(fn: Callable[[], object]) -> tuple:
+    """``fn()`` under ``torch.profiler`` (CPU + CUDA), the card synchronized
+    inside: -> (result, wall seconds, profile)."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res, wall, prof
+
+
+def traced_step(prepare: Callable[[], Callable[[], object]],
+                what: str) -> tuple:
+    """:func:`traced` of the step that ``prepare()`` returns (its inputs
+    made outside the trace), prepared and traced anew while the trace holds
+    no device operation, at most ``TRACE_TRIES`` times: -> (result, wall
+    seconds, profile) of the last."""
+    for i in range(TRACE_TRIES):
+        res, wall, prof = traced(prepare())
+        if i == TRACE_TRIES - 1 or not trace_lost(prof, what):
+            return res, wall, prof
+
+
+def compositions(tag: str, kind: str, wall: float, prof, card: str,
+                 passes: int = 1) -> Dict[str, object]:
+    """:func:`trace_report` of one traced tick, then its device time,
+    device ops and host time by ``reflow::`` range (a nested range, such
+    as ``arena.append`` inside ``join.append_left``, counts in its parent
+    too), and the device time outside every range."""
+    rep = trace_report(f"{tag} {kind}", wall, prof, card, PAGERANK_HOST_OPS)
+    spans = span_table(prof)
+    total = sum(b - a for a, b, _ in rep["dev"])
+    for name, (us, n, host) in sorted(spans.items(),
+                                      key=lambda kv: -kv[1][0]):
+        log(f"[trace] {tag} composition {name}: device {us / 1e3:.3f} ms in "
+            f"{n} device ops ({n / passes:.1f} a pass); host "
+            f"{host / 1e3:.3f} ms")
+    top = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("reflow::"):
+            p = e.cpu_parent
+            while p is not None and not p.name.startswith("reflow::"):
+                p = p.cpu_parent
+            if p is None:            # not nested in another range
+                top += _under(e)[0]
+    log(f"[trace] {tag} outside the compositions (uploads, readbacks, "
+        f"unranged ops): device {(total - top) / 1e3:.3f} ms of "
+        f"{total / 1e3:.3f} ms; host op counts: "
+        + ", ".join(f"{op} {n}" for op, n in rep["counts"].items()))
+    rep["spans"] = spans
+    return rep
+
+
+def _median(xs: List[float]) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+# -- phase 7: word-count --------------------------------------------------
+
+#: BASELINE.md config 1 at full width (bench_configs.py's setting: 100,000
+#: lines drawn with default_rng(0) from 5,000 words, 5-14 words a line,
+#: 10 ticks of 10,000 lines, one retraction tick of the first 10,000);
+#: integer keys from the vocabulary into a key space of 8192
+WORDCOUNT = dict(lines=100_000, words=5_000, per_tick=10_000,
+                 key_space=8192, seed=0)
+
+
+def phase_wordcount(card: str) -> Dict[str, object]:
+    """Word-count through ``DirtyScheduler`` on the ``cuda`` executor: ten
+    insert ticks and a retraction tick, timed from push to the card
+    finishing (host tokenization outside), the sink view held exactly to
+    a host ``Counter``; then one traced tick re-inserting the retracted
+    lines, checked again."""
+    cfg = WORDCOUNT
+    rng = np.random.default_rng(cfg["seed"])
+    # an array, not a list: rng.choice draws the same ids from either,
+    # and converts a list anew on every call
+    vocab_words = np.array([f"w{i}" for i in range(cfg["words"])])
+    t0 = time.perf_counter()
+    lines = [" ".join(rng.choice(vocab_words, size=rng.integers(5, 15)))
+             for _ in range(cfg["lines"])]
+    gen_s = time.perf_counter() - t0
+    g, src, sink = wordcount.build_graph(cfg["key_space"])
+    counts = next(n for n in g.nodes if n.kind == "op"
+                  and n.op.kind == "reduce")
+    sched = DirtyScheduler(g, get_executor("cuda"))
+    vocab: Dict[str, int] = {}
+    want: Counter = Counter()
+    n = cfg["per_tick"]
+
+    def check(label):
+        words = {i: w for w, i in vocab.items()}
+        got = {words[k]: v for k, v in sched.view_dict(sink).items()}
+        table = {words[k]: v for k, v in sched.read_table(counts).items()}
+        exp = {w: float(c) for w, c in want.items() if c}
+        if got != exp or table != exp:
+            raise AssertionError(f"word-count {label}: the view differs from "
+                                 f"the host Counter at "
+                                 f"{len(set(got.items()) ^ set(exp.items()))}"
+                                 f" words")
+        return len(exp)
+
+    walls, dops, ingest = [], [], []
+    ticks = [(lines[i:i + n], 1) for i in range(0, cfg["lines"], n)]
+    ticks.append((lines[:n], -1))
+    for chunk, weight in ticks:
+        t0 = time.perf_counter()
+        batch = wordcount.ingest_lines(chunk, weight, vocab=vocab)
+        ingest.append(time.perf_counter() - t0)
+        for line in chunk:
+            for tok in wordcount.tokenize(line):
+                want[tok] += weight
+        t0 = time.perf_counter()
+        sched.push(src, batch)
+        r = sched.tick()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        dops.append(r.delta_ops)
+    words = check("after the retraction tick")
+    batch = wordcount.ingest_lines(lines[:n], 1, vocab=vocab)
+
+    def one():
+        sched.push(src, batch)
+        return sched.tick()
+
+    def prepare():
+        # each step inserts the retracted lines once more
+        for line in lines[:n]:
+            for tok in wordcount.tokenize(line):
+                want[tok] += 1
+        return one
+
+    r, wall, prof = traced_step(prepare, "wordcount insert tick")
+    check("after the traced tick")
+    rep = compositions("wordcount", "insert", wall, prof, card)
+    med = _median(walls)
+    log(f"[wordcount] {cfg['lines']} lines from {cfg['words']} words "
+        f"(made in {gen_s:.2f} s), {len(vocab)} keys of {cfg['key_space']}; "
+        f"tick ms {[round(w * 1e3, 3) for w in walls]} (last: the "
+        f"retraction); median {med * 1e3:.3f} ms; delta-ops/s "
+        f"{sum(dops) / sum(walls):.1f}; host tokenization median "
+        f"{_median(ingest) * 1e3:.3f} ms a tick (outside the tick); the "
+        f"view == the host Counter exactly ({words} words); traced tick "
+        f"{r.delta_ops} delta-ops, device busy "
+        f"{rep['busy_share'] * 100:.1f}% [{card}]")
+    return {"median_ms": med * 1e3, "delta_ops_per_s": sum(dops) / sum(walls),
+            "busy_share": rep["busy_share"]}
+
+
+# -- phase 8: streaming TF-IDF ----------------------------------------------
+
+#: BASELINE.md config 2 at full width (bench_configs.py's setting: 4,096
+#: docs, 2^20 terms and pairs, a 250,000-word vocabulary, default_rng(1);
+#: 2,048 docs loaded, then 512 single edits padded to 256 rows through
+#: tick_many, then 32 ticks of 64 edits padded to 8,192 rows)
+TFIDF = dict(docs=4096, n_terms=1 << 20, n_pairs=1 << 20, vocab=250_000,
+             seed=1, edits=512, edit_rows=256, group=64, group_ticks=32,
+             group_rows=8192, warm=16)
+
+
+def _pad(batch: DeltaBatch, rows: int) -> DeltaBatch:
+    """``batch`` padded with weight-0 rows to ``rows`` (one capacity
+    bucket for every tick), as bench_configs.py pads it."""
+    pad = rows - len(batch)
+    if pad <= 0:
+        return batch
+    return DeltaBatch(
+        np.concatenate([batch.keys, np.zeros(pad, np.int64)]),
+        np.concatenate([batch.values, np.zeros((pad,) + batch.values.shape[1:],
+                                               batch.values.dtype)]),
+        np.concatenate([batch.weights, np.zeros(pad, np.int64)]))
+
+
+def phase_tfidf(card: str) -> Dict[str, object]:
+    """Streaming TF-IDF through ``DirtyScheduler`` on the ``cuda``
+    executor: the initial load, the single-edit phase and the batched
+    phase (amortized tick ms, delta-ops/s with pad rows left out), one
+    traced batched tick; the ``tf``/``df``/``ndocs`` tables held exactly
+    to counts recomputed from the corpus, and the combined TF-IDF to
+    ``Corpus.reference_tfidf`` within 1e-5 relative."""
+    cfg = TFIDF
+    rng = np.random.default_rng(cfg["seed"])
+    words = np.array([f"t{i}" for i in range(cfg["vocab"])])
+    corpus = tfidf.Corpus(cfg["n_pairs"], cfg["n_terms"])
+    tg = tfidf.build_graph(cfg["n_pairs"], cfg["n_terms"], cfg["docs"])
+    ex = get_executor("cuda")
+    sched = DirtyScheduler(tg.graph, ex)
+
+    def text():
+        return " ".join(rng.choice(words, size=rng.integers(20, 60)))
+
+    def edit():
+        return corpus.edit(int(rng.integers(0, cfg["docs"])), text())
+
+    t0 = time.perf_counter()
+    sched.push(tg.tokens, DeltaBatch.concat(
+        [corpus.edit(d, text()) for d in range(cfg["docs"] // 2)]))
+    r = sched.tick()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[tfidf] initial load: {cfg['docs'] // 2} docs, {r.deltas_in} rows, "
+        f"{load_s * 1e3:.3f} ms (host text and edits included)")
+
+    def window(n_ticks, per_tick, rows):
+        feeds, pads = [], 0
+        for _ in range(n_ticks):
+            b = DeltaBatch.concat([edit() for _ in range(per_tick)])
+            if len(b) > rows:
+                raise AssertionError(f"an edit tick of {len(b)} rows > {rows}")
+            pads += rows - len(b)
+            feeds.append({tg.tokens: _pad(b, rows)})
+        t0 = time.perf_counter()
+        agg = sched.tick_many(feeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        agg.block()
+        return wall, agg.delta_ops - pads
+
+    window(cfg["warm"], 1, cfg["edit_rows"])
+    s_wall, s_ops = window(cfg["edits"], 1, cfg["edit_rows"])
+    b_wall, b_ops = window(cfg["group_ticks"], cfg["group"],
+                           cfg["group_rows"])
+
+    def prepare():
+        b = _pad(DeltaBatch.concat([edit() for _ in range(cfg["group"])]),
+                 cfg["group_rows"])
+        return lambda: sched.tick_many([{tg.tokens: b}])
+
+    _, t_wall, prof = traced_step(prepare, "tfidf batched tick")
+    rep = compositions("tfidf", "batched", t_wall, prof, card)
+
+    # exact tables against counts from the corpus, then the combine
+    t0 = time.perf_counter()
+    tf_want = {corpus.pairs[(d, t)]: float(c)
+               for d, cnt in corpus.docs.items() for t, c in cnt.items()}
+    df_want: Counter = Counter()
+    for cnt in corpus.docs.values():
+        df_want.update(set(cnt))
+    tables = [sched.read_table(n) for n in (tg.tf, tg.df, tg.ndocs)]
+    for name, got, want in zip(
+            ("tf", "df", "ndocs"), tables,
+            (tf_want, {t: float(c) for t, c in df_want.items()},
+             {0: float(len(corpus.docs))})):
+        if {int(k): float(v) for k, v in got.items()} != want:
+            raise AssertionError(f"tfidf {name} table != the corpus's counts")
+    got = tfidf.tfidf_view(sched, tg, corpus)
+    ref = corpus.reference_tfidf()
+    if set(got) != set(ref):
+        raise AssertionError("tfidf view keys != the reference's")
+    rel = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in ref
+              if ref[k] != 0.0)
+    zero_ok = all(got[k] == 0.0 for k in ref if ref[k] == 0.0)
+    if rel > 1e-5 or not zero_ok:
+        raise AssertionError(f"tfidf view vs reference: relative {rel:.3g}")
+    check_s = time.perf_counter() - t0
+    n_edits = cfg["edits"]
+    log(f"[tfidf] {cfg['docs']} docs, {cfg['n_terms']} terms, "
+        f"{cfg['n_pairs']} pairs, {len(corpus.terms)} terms and "
+        f"{len(corpus.pairs)} pairs interned [{card}]")
+    log(f"[tfidf] single edits: {n_edits} ticks of {cfg['edit_rows']} "
+        f"rows in {s_wall * 1e3:.3f} ms = {s_wall / n_edits * 1e3:.4f} ms a "
+        f"tick amortized, {s_ops / s_wall:.1f} delta-ops/s (pad rows out)")
+    log(f"[tfidf] batched: {cfg['group_ticks']} ticks of {cfg['group']} "
+        f"edits ({cfg['group_rows']} rows) in {b_wall * 1e3:.3f} ms = "
+        f"{b_wall / cfg['group_ticks'] * 1e3:.4f} ms a tick amortized, "
+        f"{b_ops / b_wall:.1f} delta-ops/s, "
+        f"{cfg['group'] * cfg['group_ticks'] / b_wall:.1f} edits/s")
+    log(f"[tfidf] tf ({len(tables[0])} pairs), df ({len(tables[1])} terms) "
+        f"and ndocs ({len(corpus.docs)}) == the corpus's counts exactly; "
+        f"tfidf view max relative error {rel:.3g} (bound 1e-5) over "
+        f"{len(ref)} pairs; check {check_s:.2f} s on the host; traced "
+        f"batched tick device busy {rep['busy_share'] * 100:.1f}%; forced "
+        f"syncs {sched.forced_syncs} [{card}]")
+    return {"single_ms": s_wall / n_edits * 1e3,
+            "single_dops": s_ops / s_wall,
+            "batched_ms": b_wall / cfg["group_ticks"] * 1e3,
+            "batched_dops": b_ops / b_wall, "rel_err": rel}
+
+
+# -- phase 9: incremental SSSP ----------------------------------------------
+
+#: 100,000 nodes and 1,000,000 uniform edges with integer weights 1-9
+#: (default_rng(7)), source node 0; 32 candidates a key (above the
+#: distinct candidate distances a node sees at mean in-degree 10); 4
+#: insertion ticks and 4 deletion ticks of 10,000 edges; a loop cap of 256
+#: passes a tick (a tick that reaches it is repaired through affected_set
+#: and repair); a refresh of 1,024 keys
+SSSP = dict(n_nodes=100_000, n_edges=1_000_000, seed=7, candidates=32,
+            churn=10_000, insert_ticks=4, delete_ticks=4, max_iters=256,
+            refresh_keys=1024)
+
+
+def phase_sssp(card: str) -> Dict[str, object]:
+    """Incremental SSSP through ``DirtyScheduler`` on the ``cuda``
+    executor (the row fixpoint program: the loop is a min, not linear):
+    the initial tick, insertion and deletion ticks, each table held to
+    Bellman-Ford exactly with the sticky flags clear; a halted tick goes
+    through ``affected_set`` + ``repair``; then ``refresh_minmax`` over
+    1,024 keys from a host replay of their live candidates."""
+    cfg = SSSP
+    n, e = cfg["n_nodes"], cfg["n_edges"]
+    rng = np.random.default_rng(cfg["seed"])
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    w = rng.integers(1, 10, e).astype(np.float32)
+    # the edges, then every churn tick's live appends
+    arena = (bucket_capacity(e) + (cfg["insert_ticks"] + cfg["delete_ticks"])
+             * bucket_capacity(cfg["churn"]))
+    sg = sssp.build_graph(n, arena_capacity=arena,
+                          candidates=cfg["candidates"])
+    torch.cuda.reset_peak_memory_stats()
+    ex = get_executor("cuda")
+    sched = DirtyScheduler(sg.graph, ex, max_loop_iters=cfg["max_iters"])
+    best = sg.best
+    join = next(nd for nd in sg.graph.nodes
+                if nd.kind == "op" and nd.op.kind == "join")
+    ticks: List[Dict[str, object]] = []
+    repairs = 0
+
+    def tick(kind, pushes, trace=False):
+        s0, r0, h0 = sched.forced_syncs, ex.loop_reads, ex.host_syncs
+
+        def run():
+            for node, b in pushes:
+                sched.push(node, b)
+            return sched.tick()
+
+        if trace:
+            r, wall, prof = traced(run)
+        else:
+            t0 = time.perf_counter()
+            r = run()
+            torch.cuda.synchronize()
+            wall, prof = time.perf_counter() - t0, None
+        rec = {"kind": kind, "s": wall, "passes": r.passes,
+               "quiesced": r.quiesced, "loop_reads": ex.loop_reads - r0,
+               "syncs": sched.forced_syncs - s0,
+               "branch": ex.host_syncs - h0, "prof": prof,
+               "delta_ops": r.block().delta_ops}
+        ticks.append(rec)
+        return rec
+
+    def check(label):
+        table = sched.read_table(best)
+        t0 = time.perf_counter()
+        ref = sssp.reference_distances(n, src, dst, w, 0)
+        ref_s = time.perf_counter() - t0
+        got = {int(k): float(v) for k, v in table.items()}
+        if got != ref:
+            bad = set(got.items()) ^ set(ref.items())
+            raise AssertionError(f"sssp {label}: {len(bad)} distances differ "
+                                 f"from Bellman-Ford")
+        if bool(ex.states[best.id]["error"]) or \
+                bool(ex.states[join.id]["error"]):
+            raise AssertionError(f"sssp {label}: a sticky flag is set")
+        return got, ref_s
+
+    init = tick("initial", [(sg.seeds, sssp.seed_batch(0)),
+                            (sg.edges, sssp.edge_batch(src, dst, w))])
+    table, ref_s = check("initial")
+    for i in range(cfg["insert_ticks"]):
+        ns, nd = rng.integers(0, n, cfg["churn"]), rng.integers(0, n,
+                                                                cfg["churn"])
+        nw = rng.integers(1, 10, cfg["churn"]).astype(np.float32)
+        src, dst, w = (np.concatenate([src, ns]), np.concatenate([dst, nd]),
+                       np.concatenate([w, nw]))
+        tick("insert", [(sg.edges, sssp.edge_batch(ns, nd, nw))])
+        table, _ = check(f"insert tick {i + 1}")
+    i = 0
+    while True:
+        last = i >= cfg["delete_ticks"] - 1      # the traced tick
+        ix = rng.choice(len(src), cfg["churn"], replace=False)
+        keep = np.setdiff1d(np.arange(len(src)), ix)
+        rec = tick("delete", [(sg.edges, sssp.edge_batch(
+            src[ix], dst[ix], w[ix], weight=-1))], trace=last)
+        prev, (ds, dd, dw) = table, (src[ix], dst[ix], w[ix])
+        src, dst, w = src[keep], dst[keep], w[keep]
+        if not rec["quiesced"]:
+            aff = sssp.affected_set(n, src, dst, w, prev, ds, dd, dw)
+            t0 = time.perf_counter()
+            r1, r2 = sssp.repair(sched, sg, src, dst, w, aff)
+            torch.cuda.synchronize()
+            repairs += 1
+            log(f"[sssp] delete tick {i + 1} halted at {rec['passes']} "
+                f"passes; repaired {len(aff)} affected nodes in "
+                f"{(time.perf_counter() - t0) * 1e3:.3f} ms ({r1.passes} + "
+                f"{r2.passes} passes)")
+        table, _ = check(f"delete tick {i + 1}")
+        i += 1
+        # a traced tick whose trace was lost is followed by another
+        if last and (i == cfg["delete_ticks"] - 1 + TRACE_TRIES
+                     or not trace_lost(rec["prof"], "sssp delete tick")):
+            break
+    peak = torch.cuda.max_memory_allocated()
+
+    # refresh: 1,024 keys' full live candidate multisets from the host
+    keys = rng.choice(np.array(sorted(table), np.int64),
+                      cfg["refresh_keys"], replace=False)
+    dist = np.full(n, np.nan, np.float32)
+    for k, v in table.items():
+        dist[k] = v
+    m = np.isin(dst, keys) & ~np.isnan(dist[src])
+    rk = np.concatenate([dst[m], [0] if 0 in keys else []]).astype(np.int64)
+    rv = np.concatenate([dist[src[m]] + w[m],
+                         [0.0] if 0 in keys else []]).astype(np.float32)
+    st = ex.states[best.id]
+    latched = int(st["over_maybe_pos"][torch.from_numpy(keys).cuda()].sum())
+    t0 = time.perf_counter()
+    sched.refresh_minmax(best, DeltaBatch(rk, rv, np.ones(len(rk), np.int64)))
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    st = ex.states[best.id]
+    after = int(st["over_maybe_pos"][torch.from_numpy(keys).cuda()].sum())
+    if {int(k): float(v) for k, v in sched.read_table(best).items()} != table:
+        raise AssertionError("refresh_minmax changed the table")
+    if bool(st["error"]):
+        raise AssertionError("refresh_minmax set the sticky error")
+
+    for t in ticks:
+        # the row program reads once a loop pass and once more to see the
+        # loop end (= passes: phase A's pass reads nothing); the tick's
+        # forced syncs are the compact-or-append of its edge append and
+        # the error check
+        if t["loop_reads"] != t["passes"] or t["syncs"] != 1 + t["branch"] \
+                or t["branch"] != 1:
+            raise AssertionError(f"sssp {t['kind']} tick read back "
+                                 f"{t['loop_reads']} + {t['syncs']} times in "
+                                 f"{t['passes']} passes")
+    churn = [t for t in ticks[1:] if t["prof"] is None]
+    log(f"[sssp] {n} nodes, {e} edges (uniform, weights 1-9, seed "
+        f"{cfg['seed']}), source 0, {cfg['candidates']} candidates, arena "
+        f"{arena} rows, loop cap {cfg['max_iters']} passes [{card}]")
+    log(f"[sssp] initial tick {init['s'] * 1e3:.3f} ms in {init['passes']} "
+        f"passes; Bellman-Ford {ref_s:.2f} s on the host; {len(table)} "
+        f"nodes reached")
+    for t in ticks[1:]:
+        log(f"[sssp] {t['kind']} tick: {t['s'] * 1e3:.3f} ms, "
+            f"{t['passes']} passes, readbacks {t['loop_reads']} loop + "
+            f"{t['syncs']} forced ({t['branch']} compact-or-append) = "
+            f"passes + {t['loop_reads'] + t['syncs'] - t['passes']}, "
+            f"quiesced {t['quiesced']}, {t['delta_ops']} delta-ops")
+    log(f"[sssp] churn tick median {_median([t['s'] for t in churn]) * 1e3:.3f}"
+        f" ms; every table == Bellman-Ford exactly, sticky flags clear; "
+        f"ticks repaired {repairs}; peak device memory {peak} B; forced "
+        f"syncs {sched.forced_syncs}")
+    log(f"[sssp] refresh_minmax of {cfg['refresh_keys']} keys ({len(rk)} "
+        f"replay rows): {refresh_ms:.3f} ms; latched keys {latched} -> "
+        f"{after}; table unchanged, error flag clear [{card}]")
+    traced_del = ticks[-1]
+    compositions("sssp", "delete", traced_del["s"], traced_del["prof"],
+                 card, passes=traced_del["passes"])
+    return {"init_ms": init["s"] * 1e3, "init_passes": init["passes"],
+            "churn_median_ms": _median([t["s"] for t in churn]) * 1e3,
+            "repairs": repairs, "peak_bytes": peak,
+            "refresh_ms": refresh_ms}
+
+
+# -- phase 10: the multiset-left Join ---------------------------------------
+
+#: two multiset sources over 2^20 keys, the default merge, a sink;
+#: 1,048,576 rows into each side in batches of 65,536, then 8 churn ticks
+#: that retract 8,192 live rows and insert 8,192 new ones on each side.
+#: Each arena holds the load plus four churn ticks' appends (65,536
+#: rows), so each compacts once during churn; product_slack 4 gives each
+#: delta 4 x its capacity in pair slots, against about 1 x at this
+#: density (1 row a key a side)
+MULTISET = dict(keys=1 << 20, rows=1 << 20, batch=1 << 16, churn_ticks=8,
+                churn=8192, product_slack=4, seed=11)
+
+
+def phase_multiset(card: str) -> Dict[str, object]:
+    """A multiset-left Join at full width: load, churn, one traced churn
+    tick; the sink's accumulated view held exactly to a numpy join of the
+    final collections, the sticky flag clear, readbacks a tick equal to
+    the sides appended."""
+    cfg = MULTISET
+    K = cfg["keys"]
+    rng = np.random.default_rng(cfg["seed"])
+    arena = cfg["rows"] + 4 * 2 * cfg["churn"]
+    g = FlowGraph("multiset_join")
+    spec = Spec((), np.float32, key_space=K)
+    a = g.source("a", spec)
+    b = g.source("b", spec)
+    j = g.join(a, b, spec=Spec((2,), np.float32, key_space=K),
+               arena_capacity=arena, left_arena_capacity=arena,
+               product_slack=cfg["product_slack"], name="mj")
+    sink = g.sink(j, "out")
+    ex = get_executor("cuda")
+    sched = DirtyScheduler(g, ex)
+    sides = {"a": [np.empty(0, np.int64), np.empty(0, np.float32)],
+             "b": [np.empty(0, np.int64), np.empty(0, np.float32)]}
+
+    def fresh(m):
+        return (rng.integers(0, K, m).astype(np.int64),
+                rng.integers(0, 1000, m).astype(np.float32))
+
+    recs = []
+
+    def tick(pushes, trace=False):
+        h0 = ex.host_syncs
+
+        def run():
+            for node, bt in pushes:
+                sched.push(node, bt)
+            return sched.tick()
+
+        if trace:
+            r, wall, prof = traced(run)
+        else:
+            t0 = time.perf_counter()
+            r = run()
+            torch.cuda.synchronize()
+            wall, prof = time.perf_counter() - t0, None
+        if ex.host_syncs - h0 != len(pushes):
+            raise AssertionError(f"a tick appending {len(pushes)} sides read "
+                                 f"back {ex.host_syncs - h0} times")
+        out = r.sink_deltas.get("out")
+        recs.append({"s": wall, "pairs": len(out) if out is not None else 0,
+                     "prof": prof})
+        return recs[-1]
+
+    for _ in range(cfg["rows"] // cfg["batch"]):
+        pushes = []
+        for name, node in (("a", a), ("b", b)):
+            k, v = fresh(cfg["batch"])
+            sides[name] = [np.concatenate([sides[name][0], k]),
+                           np.concatenate([sides[name][1], v])]
+            pushes.append((node, DeltaBatch(k, v)))
+        tick(pushes)
+    load = list(recs)
+    t = 0
+    while True:
+        last = t >= cfg["churn_ticks"] - 1       # the traced tick
+        pushes = []
+        for name, node in (("a", a), ("b", b)):
+            keys, vals = sides[name]
+            gone = rng.choice(len(keys), cfg["churn"], replace=False)
+            k, v = fresh(cfg["churn"])
+            bt = DeltaBatch(np.concatenate([keys[gone], k]),
+                            np.concatenate([vals[gone], v]),
+                            np.concatenate([-np.ones(cfg["churn"], np.int64),
+                                            np.ones(cfg["churn"], np.int64)]))
+            stay = np.ones(len(keys), bool)
+            stay[gone] = False
+            sides[name] = [np.concatenate([keys[stay], k]),
+                           np.concatenate([vals[stay], v])]
+            pushes.append((node, bt))
+        rec = tick(pushes, trace=last)
+        t += 1
+        # a traced tick whose trace was lost is followed by another
+        if last and (t == cfg["churn_ticks"] - 1 + TRACE_TRIES
+                     or not trace_lost(rec["prof"], "multiset churn tick")):
+            break
+    # the traced ticks left out
+    churn = [r for r in recs[len(load):] if r["prof"] is None]
+    st = ex.states[j.id]
+    gens = (int(st["lgen"]), int(st["gen"]))
+    if bool(st["error"]):
+        raise AssertionError("multiset join: the sticky flag is set")
+    if min(gens) < 1:
+        raise AssertionError(f"multiset join: arenas compacted {gens} times, "
+                             f"expected at least once each")
+
+    # the numpy join of the final collections against the sink's view
+    t0 = time.perf_counter()
+    (ka, va), (kb, vb) = sides["a"], sides["b"]
+    oa, ob = np.argsort(ka, kind="stable"), np.argsort(kb, kind="stable")
+    ka, va, kb, vb = ka[oa], va[oa], kb[ob], vb[ob]
+    cb = np.bincount(kb, minlength=K)
+    sb = np.cumsum(cb) - cb
+    # each left row pairs with the cb[k] right rows of its key
+    per = cb[ka]
+    li = np.repeat(np.arange(len(ka)), per)
+    within = np.arange(per.sum()) - np.repeat(np.cumsum(per) - per, per)
+    ri = sb[ka[li]] + within
+    want = np.stack([ka[li].astype(np.float64), va[li], vb[ri]], axis=1)
+    rows = []
+    for (k, v), wt in sched.view(sink).items():
+        if wt < 0:
+            raise AssertionError("multiset join view: a negative weight")
+        rows.extend([(float(k), float(v[0]), float(v[1]))] * wt)
+    got = np.array(rows, np.float64).reshape(-1, 3)
+    want = want[np.lexsort(want.T[::-1])]
+    got = got[np.lexsort(got.T[::-1])]
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"multiset join view ({len(got)} pairs) != the "
+                             f"numpy join ({len(want)} pairs)")
+    check_s = time.perf_counter() - t0
+    log(f"[multiset] {K} keys, {cfg['rows']} rows a side in batches of "
+        f"{cfg['batch']}, {cfg['churn_ticks']} churn ticks of "
+        f"{cfg['churn']} retracts + {cfg['churn']} inserts a side; arenas "
+        f"{arena} rows each, product_slack {cfg['product_slack']} "
+        f"[{card}]")
+    log(f"[multiset] load ticks ms {[round(r['s'] * 1e3, 1) for r in load]}"
+        f"; pairs {[r['pairs'] for r in load]}")
+    log(f"[multiset] churn ticks ms {[round(r['s'] * 1e3, 3) for r in churn]}"
+        f", median {_median([r['s'] for r in churn]) * 1e3:.3f} ms; pairs a "
+        f"tick {[r['pairs'] for r in churn]}; compactions (left, right) "
+        f"{gens}; readbacks a tick = sides appended; sticky flag clear")
+    log(f"[multiset] the sink's view == the numpy join exactly ({len(want)} "
+        f"pairs; check {check_s:.2f} s on the host) [{card}]")
+    tr = recs[-1]
+    compositions("multiset", "churn", tr["s"], tr["prof"], card)
+    return {"churn_median_ms": _median([r["s"] for r in churn]) * 1e3,
+            "pairs": len(want), "compactions": gens}
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
     recs = phase_kernels("cuda")
     serve = phase_serve(dev["card"])
-    # the PageRank paths run no hand-written kernel: their counts stay 0
+    # the other paths run no hand-written kernel: their counts stay 0
     topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
     phase_pagerank(dev["card"])
     phase_fused(dev["card"])
     phase_row_leg(dev["card"])
     phase_defer_leg(dev["card"])
+    phase_wordcount(dev["card"])
+    phase_tfidf(dev["card"])
+    phase_sssp(dev["card"])
+    phase_multiset(dev["card"])
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
-        raise AssertionError("the PageRank path launched a top-k kernel")
+        raise AssertionError("a phase after the serving slice launched a "
+                             "top-k kernel")
     for rec in recs:
         rec["launches"] = serve["total_launches" if rec["name"] == "topk"
                                 else "total_merge_launches"]

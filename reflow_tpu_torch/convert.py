@@ -2,12 +2,16 @@
 
 The state of a graph — for k-NN the query and corpus tables, their live
 masks and each query's emitted top-k; for PageRank the Reduce's linear
-tables and emitted ranks and the Join's left table and edge arena — is
+tables and emitted ranks and the Join's left table and edge arena; for a
+min/max Reduce its candidate buffer and latches (``cand_v``, ``cand_w``,
+``over_lo``, ``over_maybe_pos``, ``emitted``, ``emitted_has``,
+``error``); for a multiset-left Join both arenas — is
 what the two packages must compute the same thing from, as a model's
 weights are for a model. A loop under ``defer_passes`` adds its
 ``resid``: the fused loop's carried observables, ``[K, P+1]`` float32.
 The fused loop's sorted-arena CSR cache is derived state and is never
-carried: the receiving executor rebuilds it on its first loop tick. The JAX executor's per-node state, handed over
+carried: the receiving executor rebuilds it on its first loop tick. The
+JAX executor's per-node state, handed over
 as numpy arrays (bf16 arrays as float32, since numpy has no bfloat16),
 becomes the port's tensors at the dtypes the port's lowerings build, and
 back. Integer and boolean arrays (keys, weights, ``rcount``, ``gen``,
@@ -47,8 +51,10 @@ def _template(graph: FlowGraph) -> Dict[int, Dict[str, torch.Tensor]]:
         if op.kind == "knn":
             out[node.id] = knn_state(op, *specs, "meta")
         elif op.kind == "reduce":
-            out[node.id] = reduce_state(specs[0], node.spec, "meta")
-        elif op.kind == "join" and specs[0].unique:
+            # linear tables, or a min/max Reduce's candidate buffer
+            out[node.id] = reduce_state(specs[0], node.spec, "meta", op)
+        elif op.kind == "join":
+            # the dense left table, or the multiset-left arena pair
             out[node.id] = join_state(op, specs[0], specs[1], "meta")
         else:
             raise GraphError(f"{node}: state conversion for this "

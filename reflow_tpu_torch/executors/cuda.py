@@ -20,8 +20,10 @@ there is no compiled-program cache: the program objects are built once
 per bound graph. One card needs no ``place``.
 
 Refused at :meth:`bind` with "not ported yet": op kinds without a
-lowering, min/max reducers, the multiset-left Join (a left input whose
-Spec is not unique) and Map ``params``.
+lowering and Map ``params``. A min/max Reduce binds the bounded candidate
+buffer (``lowerings.minmax_core``; :meth:`refresh_minmax` resets its
+latches from a replay), and a Join whose left Spec is not unique binds
+the two-arena multiset form.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do): on the CPU every kernel wrapper takes its plain PyTorch
@@ -37,7 +39,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from reflow_tpu_torch.delta import DeltaBatch
+from reflow_tpu_torch.delta import DeltaBatch, torch_dtype
 from reflow_tpu_torch.executors.arena import propagate_plan_caps
 from reflow_tpu_torch.executors.base import Executor
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
@@ -46,9 +48,9 @@ from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
 from reflow_tpu_torch.executors.fixpoint import FixpointProgram, analyze
 from reflow_tpu_torch.executors.linear_fixpoint import (
     LinearFixpointProgram, analyze_linear, resid_state)
-from reflow_tpu_torch.executors.lowerings import (LINEAR_DEVICE_REDUCERS,
-                                                  LOWERINGS, join_state,
+from reflow_tpu_torch.executors.lowerings import (LOWERINGS, join_state,
                                                   knn_state, lower_node,
+                                                  minmax_refresh_core,
                                                   reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
@@ -57,14 +59,32 @@ __all__ = ["CudaExecutor"]
 
 #: op kinds whose lowering keeps no state
 _STATELESS = ("map", "filter", "groupby", "union")
-#: what a set sticky ``error`` flag means (only the Join's state has one)
-_ERROR_REASON = ("join sticky error: the arena overflowed (live rows + "
-                 "appends exceeded capacity even after compaction — raise "
-                 "arena_capacity); or a downstream GroupBy's "
-                 "stable_key=True declaration was violated (its key_fn "
-                 "read the loop value — the fused fixpoint's dense tier "
-                 "caught a precomputed/runtime destination mismatch); "
-                 "this tick's state is invalid")
+
+
+def _error_reason(node: Node) -> str:
+    """What a set sticky ``error`` flag means on ``node`` (only a min/max
+    Reduce's state and a Join's carry one): the Reduce's buffer was
+    exhausted, or one of the Join's causes."""
+    if node.op.kind == "reduce":
+        return ("device min/max error: retraction churn exhausted a key's "
+                "candidate buffer (the bounded exactness window — raise "
+                "Reduce(candidates=...)), or a value's net weight passed "
+                "2**30; this tick's state is invalid — re-run on the cpu "
+                "executor or widen the buffer")
+    if not node.inputs[0].spec.unique:
+        return ("multiset join sticky error: an arena overflowed (live "
+                "rows + appends exceeded capacity even after compaction — "
+                "raise arena_capacity / left_arena_capacity), or a delta's "
+                "key-matched pairs exceeded the product budget of "
+                "product_slack x its capacity (raise product_slack); this "
+                "tick's state is invalid")
+    return ("join sticky error: the arena overflowed (live rows + "
+            "appends exceeded capacity even after compaction — raise "
+            "arena_capacity); or a downstream GroupBy's "
+            "stable_key=True declaration was violated (its key_fn "
+            "read the loop value — the fused fixpoint's dense tier "
+            "caught a precomputed/runtime destination mismatch); "
+            "this tick's state is invalid")
 
 
 class CudaExecutor(Executor):
@@ -159,18 +179,10 @@ class CudaExecutor(Executor):
                     f"{node}: the device lowering needs key_space > 0 "
                     f"on every keyed-op input Spec")
         if op.kind == "reduce":
-            if op.how not in LINEAR_DEVICE_REDUCERS:
-                raise GraphError(
-                    f"{node}: reducer {op.how!r} is not ported yet to the "
-                    f"cuda executor (ported: {LINEAR_DEVICE_REDUCERS}); run "
-                    f"it on the cpu executor")
+            # every reducer Reduce accepts has a device lowering
             self.states[node.id] = reduce_state(in_specs[0], node.spec,
-                                                self.device)
+                                                self.device, op)
         elif op.kind == "join":
-            if not in_specs[0].unique:
-                raise GraphError(
-                    f"{node}: the multiset-left join (left Spec not "
-                    f"unique) is not ported yet to the cuda executor")
             if op.merge is None:
                 # the default merge lowers to the flattened concatenation
                 # of (va, vb); the out Spec must size it
@@ -349,9 +361,23 @@ class CudaExecutor(Executor):
             return to_host(batch)
         return batch
 
+    def refresh_minmax(self, node: Node, batch: DeltaBatch) -> None:
+        """Latch refresh of a min/max Reduce (``lowerings.
+        minmax_refresh_core``): ``batch`` replays the full live multiset
+        of every key it mentions; those keys' candidate buffers rebuild
+        from it and their overflow latches reset, in place. The aggregate
+        cannot change (a contradicting replay sets the sticky error).
+        Call between ticks; the scheduler's wrapper checks the node."""
+        d = to_device(batch, node.inputs[0].spec, device=self.device)
+        self.states[node.id] = minmax_refresh_core(
+            node.op, node.inputs[0].spec.key_space,
+            tuple(node.spec.value_shape),
+            torch_dtype(node.spec.value_dtype), self.states[node.id], d)
+
     def check_errors(self) -> None:
-        """Raise if a state's sticky ``error`` flag is set (the Join's arena
-        overflow). All flags come back in one readback."""
+        """Raise if a state's sticky ``error`` flag is set (a Join's arena
+        or product budget, a min/max Reduce's buffer), naming the node
+        kind's own cause. All flags come back in one readback."""
         flagged = [(nid, st["error"]) for nid, st in self.states.items()
                    if "error" in st]
         if not flagged:
@@ -359,7 +385,8 @@ class CudaExecutor(Executor):
         vals = torch.stack([e for _, e in flagged]).cpu().tolist()
         for (nid, _), v in zip(flagged, vals):
             if v:
-                raise RuntimeError(f"{self.graph.nodes[nid]}: {_ERROR_REASON}")
+                node = self.graph.nodes[nid]
+                raise RuntimeError(f"{node}: {_error_reason(node)}")
 
     def _track_arena(self, plan, ingress_caps: Dict[int, int]) -> None:
         """Static per-pass capacity sanity for Join arenas: reject one
@@ -374,7 +401,11 @@ class CudaExecutor(Executor):
             raise KeyError(f"{node} holds no materialized state")
         if node.op.kind in ("reduce", "join"):
             if "error" in st and bool(st["error"]):
-                raise RuntimeError(f"{node}: {_ERROR_REASON}")
+                raise RuntimeError(f"{node}: {_error_reason(node)}")
+            if "lkeys" in st:
+                raise KeyError(
+                    f"{node}: a multiset-left join has no unique left "
+                    f"table to read; attach a sink to observe its output")
             if node.op.kind == "reduce":
                 keys = st["emitted_has"].cpu().numpy().nonzero()[0]
                 vals = st["emitted"]

@@ -51,8 +51,9 @@ class Map(Op):
     """Pure per-row value transform; key and weight preserved.
 
     ``fn(value) -> value'``. If ``vectorized``, ``fn`` is applied to the
-    whole values column at once; otherwise it is applied per row (the
-    device lowering of Map is not ported yet).
+    whole values column at once; otherwise it is applied per row (under
+    ``torch.func.vmap`` on the device, where a constant result broadcasts
+    to every row).
 
     ``params`` (optional) is a pytree of ARRAYS the transform closes over
     logically but receives as an explicit first argument: ``fn(params,

@@ -51,7 +51,10 @@ def test_importing_the_port_loads_no_jax():
               "reflow_tpu_torch.executors.linear_fixpoint",
               "reflow_tpu_torch.executors.arena",
               "reflow_tpu_torch.executors.lowerings",
-              "reflow_tpu_torch.workloads.pagerank"):
+              "reflow_tpu_torch.workloads.pagerank",
+              "reflow_tpu_torch.workloads.sssp",
+              "reflow_tpu_torch.workloads.tfidf",
+              "reflow_tpu_torch.workloads.wordcount"):
         assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"

@@ -272,11 +272,12 @@ def test_entry_points_without_device_need_a_card(monkeypatch):
 
 
 def test_unported_op_refused_at_bind():
+    """Map ``params`` is what the cuda executor still refuses."""
     from reflow_tpu_torch.delta import Spec
 
     g = FlowGraph("lo")
     src = g.source("s", Spec((), np.float32, key_space=8))
-    g.reduce(src, "min", name="lowest")
+    g.map(src, lambda p, v: p["w"] * v, params={"w": torch.ones(())})
     with pytest.raises(GraphError, match="not ported yet"):
         P.DirtyScheduler(g, P.get_executor("cuda", device="cpu"))
 

@@ -127,6 +127,54 @@ def test_per_row_fns_take_vmap():
     ]), {3: 4.0, 21: 2.0, 15: 16.0})
 
 
+def _const(kind, pkg, x):
+    """``x`` as a row function's constant result: a Python float or int,
+    or a 0-d array of the package (a torch or a jax.numpy one)."""
+    if kind == "float":
+        return float(x)
+    if kind == "int":
+        return int(x)
+    if pkg == "jax":
+        import jax.numpy as jnp
+        return jnp.asarray(x)
+    return torch.tensor(x)
+
+
+@pytest.mark.parametrize("kind", ["float", "int", "0d_tensor"])
+def test_constant_row_functions_broadcast(kind):
+    """Per-row Map / Filter / GroupBy key and value functions that return
+    a constant, independent of the row: ``jax.vmap`` broadcasts such a
+    result to every row, and so must the port (``torch.func.vmap``
+    refuses a non-tensor result by itself). Views equal exactly."""
+    def build(pkg):
+        def b(FG, SP):
+            g = FG()
+            src = g.source("in", SP((), np.float32, key_space=K_SPARSE))
+            m = g.map(src, lambda v: _const(kind, pkg, 2))
+            f = g.filter(m, lambda v: _const(kind, pkg, 1))
+            gb = g.group_by(f, key_fn=lambda k_, v: _const(kind, pkg, 3),
+                            value_fn=lambda k_, v: _const(kind, pkg, 5))
+            by_key = g.group_by(m, key_fn=lambda k_, v: _const(kind, pkg, 0))
+            return g, (g.sink(g.reduce(gb, "sum", name="sum"), "out"),
+                       g.sink(g.reduce(by_key, "sum", name="s2"), "out2"))
+        return b
+
+    ticks = [[(1, 7.0, 1), (4, -2.0, 1), (9, 0.5, 2)], [(4, -2.0, -1)]]
+    views = {}
+    for pkg in ("port", "jax"):
+        FG, SP, DB = _ns(pkg)
+        g, sinks = build(pkg)(FG, SP)
+        sched = _sched(pkg, g)
+        for rows in ticks:
+            sched.push(g.sources[0], _batch(DB, rows))
+            sched.tick()
+        views[pkg] = [{int(k): float(v) for k, v in sched.view_dict(s)
+                       .items()} for s in sinks]
+    # 4 live rows (weights 1, 2, ...), each -> key 3 with value 5, and
+    # Map's 2 summed at key 0
+    assert views["port"] == views["jax"] == [{3: 15.0}, {0: 6.0}]
+
+
 @pytest.mark.parametrize("how,expect", [("count", {2: 3.0}),
                                         ("mean", {2: 2.0})])
 @pytest.mark.parametrize("k", [K, K_SPARSE])

@@ -84,15 +84,40 @@ Phases, each printing its own lines:
    traced), each table equal to Bellman-Ford exactly with the sticky
    flags clear and readbacks held to the row program's count; a tick
    that reaches the 256-pass cap is repaired through ``affected_set`` and
-   ``repair``; then ``refresh_minmax`` over 1,024 keys from a host replay
-   of their live candidates must leave the table and the error flag as
-   they were. Printed: ms, passes and readbacks a tick, peak memory.
+   ``repair``. Then the repair leg: a deletion tick of 1,024 edges under
+   a loop cap of 1 pass must halt, and ``affected_set`` + ``repair``
+   (the cap back at 256) bring the table back to Bellman-Ford exactly
+   (at least one repair). Then ``refresh_minmax`` over 1,024 keys from a
+   host replay of their live candidates must leave the table and the
+   error flag as they were. Printed: ms, passes and readbacks a tick,
+   the repair's ms and passes, peak memory.
 10. **The multiset-left Join**: two multiset sources over 2^20 keys, the
    default merge, a sink; 1,048,576 rows a side in batches of 65,536,
    then 8 churn ticks of 8,192 retractions and 8,192 inserts a side (the
    last traced). Each arena compacts once; the sink's view equals a numpy
    join of the final collections exactly; a tick reads back once a side
    appended. Printed: tick ms, pairs a tick.
+11. **Image-embed ETL at full width** (BASELINE.md config 5): ViT-B/16
+   with ``init_vit(0)`` weights as the embed Map's ``params``, 256
+   images a tick, 2^14 image ids, 64 groups, ``ImageStream`` seed 5,
+   through ``DirtyScheduler`` -> the ``cuda`` executor -> the Map
+   ``params`` lowering (the ViT forward: cuBLAS bf16 GEMMs with float32
+   output, float32 attention) -> GroupBy -> the ``mean`` Reduce. First
+   ``_dot`` and ``vit_forward`` are held to their plain versions on the
+   card (the real weights, 32 images). Then a warm-up tick, 4 upload
+   ticks (host images, feeds built before the clock), 4 ticks of images
+   made on the card and pushed as a ``DeviceDelta``, a group move (image
+   0 to group 2), an ``update_params`` swap to ``init_vit(1)`` and a tick
+   (the centroids must change; no rebind), one traced tick of each leg
+   (device-busy share, top device ops, the bf16 GEMMs, the float32
+   attention products and the elementwise rest apart, device time by the
+   launching op, idle gaps, host op counts). The
+   centroid table is held to float64 group means of the plain forward's
+   features for every live image, each under the weights it was
+   embedded with. Printed: median tick ms and images/s of each leg, MB
+   uploaded a tick, model TFLOP/s (``vit_flops`` x images/s), MFU against
+   the H100's dense bf16 peak, peak device memory. Ticks run one at a
+   time: the window path is not ported.
 
 The phases after the serving slice run no hand-written kernel; the top-k
 counts, zeroed before them, must stay 0.
@@ -119,16 +144,18 @@ from reflow_tpu_torch import (DeltaBatch, DirtyScheduler, FlowGraph, Spec,
                               get_executor)
 from reflow_tpu_torch.executors.arena import compact_arena
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
-                                                     bucket_capacity)
+                                                     bucket_capacity,
+                                                     to_device)
 from reflow_tpu_torch.executors.fixpoint import FixpointProgram
 from reflow_tpu_torch.executors.linear_fixpoint import LinearFixpointProgram
 from reflow_tpu_torch.kernels import _build
 from reflow_tpu_torch.kernels import topk as topk_mod
 from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
                                            topk_merge_plain, topk_plain)
+from reflow_tpu_torch.models import vit
 from reflow_tpu_torch.serve import APPLIED, CoalesceWindow, IngestFrontend
-from reflow_tpu_torch.workloads import (knn, pagerank, sssp, tfidf,
-                                        wordcount)
+from reflow_tpu_torch.workloads import (image_embed, knn, pagerank, sssp,
+                                        tfidf, wordcount)
 
 #: H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 outside
 #: the tensor cores, for the kernels' least-time bounds
@@ -1225,12 +1252,13 @@ def traced_step(prepare: Callable[[], Callable[[], object]],
 
 
 def compositions(tag: str, kind: str, wall: float, prof, card: str,
-                 passes: int = 1) -> Dict[str, object]:
+                 passes: int = 1, host_ops=PAGERANK_HOST_OPS
+                 ) -> Dict[str, object]:
     """:func:`trace_report` of one traced tick, then its device time,
     device ops and host time by ``reflow::`` range (a nested range, such
     as ``arena.append`` inside ``join.append_left``, counts in its parent
     too), and the device time outside every range."""
-    rep = trace_report(f"{tag} {kind}", wall, prof, card, PAGERANK_HOST_OPS)
+    rep = trace_report(f"{tag} {kind}", wall, prof, card, host_ops)
     spans = span_table(prof)
     total = sum(b - a for a, b, _ in rep["dev"])
     for name, (us, n, host) in sorted(spans.items(),
@@ -1487,10 +1515,13 @@ def phase_tfidf(card: str) -> Dict[str, object]:
 #: distinct candidate distances a node sees at mean in-degree 10); 4
 #: insertion ticks and 4 deletion ticks of 10,000 edges; a loop cap of 256
 #: passes a tick (a tick that reaches it is repaired through affected_set
-#: and repair); a refresh of 1,024 keys
+#: and repair); the repair leg's deletion tick of 1,024 edges under a cap
+#: of one loop pass (its affected set is small enough for the arena's
+#: headroom: about 460 nodes and 4,400 in-edges at this size); a refresh
+#: of 1,024 keys
 SSSP = dict(n_nodes=100_000, n_edges=1_000_000, seed=7, candidates=32,
             churn=10_000, insert_ticks=4, delete_ticks=4, max_iters=256,
-            refresh_keys=1024)
+            refresh_keys=1024, repair_churn=1024, repair_cap=1)
 
 
 def phase_sssp(card: str) -> Dict[str, object]:
@@ -1498,8 +1529,10 @@ def phase_sssp(card: str) -> Dict[str, object]:
     executor (the row fixpoint program: the loop is a min, not linear):
     the initial tick, insertion and deletion ticks, each table held to
     Bellman-Ford exactly with the sticky flags clear; a halted tick goes
-    through ``affected_set`` + ``repair``; then ``refresh_minmax`` over
-    1,024 keys from a host replay of their live candidates."""
+    through ``affected_set`` + ``repair``; the repair leg (a deletion tick
+    halted by a loop cap of one pass, then repaired); then
+    ``refresh_minmax`` over 1,024 keys from a host replay of their live
+    candidates."""
     cfg = SSSP
     n, e = cfg["n_nodes"], cfg["n_edges"]
     rng = np.random.default_rng(cfg["seed"])
@@ -1594,6 +1627,37 @@ def phase_sssp(card: str) -> Dict[str, object]:
         if last and (i == cfg["delete_ticks"] - 1 + TRACE_TRIES
                      or not trace_lost(rec["prof"], "sssp delete tick")):
             break
+
+    # the repair leg: a deletion tick under a loop cap it cannot meet
+    # halts with its carry pending; affected_set + repair, the cap
+    # restored, re-derive the affected region in place (the repair's
+    # retract tick resumes the paused carry)
+    sched.max_loop_iters = cfg["repair_cap"]
+    ix = rng.choice(len(src), cfg["repair_churn"], replace=False)
+    keep = np.setdiff1d(np.arange(len(src)), ix)
+    t0 = time.perf_counter()
+    sched.push(sg.edges, sssp.edge_batch(src[ix], dst[ix], w[ix], weight=-1))
+    halted = sched.tick()
+    torch.cuda.synchronize()
+    halt_ms = (time.perf_counter() - t0) * 1e3
+    sched.max_loop_iters = cfg["max_iters"]
+    if halted.quiesced:
+        raise AssertionError(f"sssp: a deletion tick of {len(ix)} edges "
+                             f"under max_loop_iters={cfg['repair_cap']} "
+                             f"quiesced; the repair leg needs a halt")
+    prev, (ds, dd, dw) = table, (src[ix], dst[ix], w[ix])
+    src, dst, w = src[keep], dst[keep], w[keep]
+    t0 = time.perf_counter()
+    aff = sssp.affected_set(n, src, dst, w, prev, ds, dd, dw)
+    aff_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r1, r2 = sssp.repair(sched, sg, src, dst, w, aff)
+    torch.cuda.synchronize()
+    repair_ms = (time.perf_counter() - t0) * 1e3
+    repairs += 1
+    if not (r1.quiesced and r2.quiesced):
+        raise AssertionError("sssp: a repair tick did not quiesce")
+    table, _ = check("after the repair leg")
     peak = torch.cuda.max_memory_allocated()
 
     # refresh: 1,024 keys' full live candidate multisets from the host
@@ -1646,15 +1710,24 @@ def phase_sssp(card: str) -> Dict[str, object]:
         f" ms; every table == Bellman-Ford exactly, sticky flags clear; "
         f"ticks repaired {repairs}; peak device memory {peak} B; forced "
         f"syncs {sched.forced_syncs}")
+    log(f"[sssp] repair leg: a deletion tick of {cfg['repair_churn']} "
+        f"edges under max_loop_iters={cfg['repair_cap']} halted "
+        f"(quiesced {halted.quiesced}, {halted.passes} passes, "
+        f"{halt_ms:.3f} ms); affected_set {len(aff)} nodes in "
+        f"{aff_ms:.3f} ms on the host; repair ({r1.passes} + {r2.passes} "
+        f"passes, {r1.block().delta_ops + r2.block().delta_ops} delta-ops) "
+        f"{repair_ms:.3f} ms; the table == Bellman-Ford exactly [{card}]")
     log(f"[sssp] refresh_minmax of {cfg['refresh_keys']} keys ({len(rk)} "
         f"replay rows): {refresh_ms:.3f} ms; latched keys {latched} -> "
         f"{after}; table unchanged, error flag clear [{card}]")
     traced_del = ticks[-1]
     compositions("sssp", "delete", traced_del["s"], traced_del["prof"],
                  card, passes=traced_del["passes"])
+    if repairs < 1:
+        raise AssertionError("sssp: no tick was repaired")
     return {"init_ms": init["s"] * 1e3, "init_passes": init["passes"],
             "churn_median_ms": _median([t["s"] for t in churn]) * 1e3,
-            "repairs": repairs, "peak_bytes": peak,
+            "repairs": repairs, "repair_ms": repair_ms, "peak_bytes": peak,
             "refresh_ms": refresh_ms}
 
 
@@ -1808,6 +1881,298 @@ def phase_multiset(card: str) -> Dict[str, object]:
             "pairs": len(want), "compactions": gens}
 
 
+# -- phase 11: image-embed ETL (config 5) -----------------------------------
+
+#: BASELINE.md config 5 at full width (bench_configs.py:565-740): ViT-B/16
+#: with init_vit(0) weights, 256 images a tick, 2^14 image ids, 64 groups
+#: (id % 64), ImageStream seed 5; cut: ticks run one at a time (the
+#: window path is not ported), 4 upload ticks and 4 on-card ticks
+IMAGE_EMBED = dict(per_tick=256, n_images=1 << 14, n_groups=64, seed=5,
+                   ticks=4, check_images=32, check_batch=256)
+#: H100 SXM dense bf16 peak (NVIDIA's data sheet): the MFU denominator
+BF16_OPS_PER_S = 989.4e12
+#: the card's ViT against its plain version on the same tensors. _dot:
+#: max |card - plain| over the product's largest magnitude (the same
+#: exact products, summed in another order by the tensor cores); the
+#: forward: max abs over features of magnitude 1-2.5 (a summation-order
+#: difference can flip a bf16 rounding at the next product, and twelve
+#: blocks compound it); the centroids: max abs against float64 group
+#: means of the plain forward's features
+VIT_DOT_REL_BOUND = 1e-4
+VIT_FORWARD_BOUND = 2e-2
+VIT_CENTROID_BOUND = 5e-3
+#: host ops whose counts the traced image-embed tick reports
+VIT_HOST_OPS = ("aten::mm", "aten::bmm", "aten::matmul", "aten::item",
+                "aten::copy_")
+
+
+def _weights(params: Dict) -> Dict:
+    return {k: v for k, v in params.items() if k != "_cfg"}
+
+
+def vit_checks(params: Dict, flat: int, seed: int, card: str
+               ) -> Dict[str, float]:
+    """``_dot`` and ``vit_forward`` on the card against their plain
+    versions on the same tensors: the real weights at the main path's
+    product shapes, and 32 images through the whole forward."""
+    n = IMAGE_EMBED["check_images"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = n * params["pos"].shape[0]          # images x patches
+    blk = params["blocks"][0]
+    dot_err = 0.0
+    for label, b in [("patch projection", params["proj_w"]),
+                     ("wq", blk["wq"]), ("w1", blk["w1"]),
+                     ("w2", blk["w2"])]:
+        a = torch.randn((rows, b.shape[0]), generator=g, device="cuda")
+        got, want = vit._dot(a, b), vit._dot_plain(a, b)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or got.shape != want.shape:
+            raise AssertionError(f"_dot {label}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if torch.equal(got, got.bfloat16().float()):
+            raise AssertionError(f"_dot {label}: the output is rounded to "
+                                 f"bf16")
+        rel = float((got - want).abs().max() / want.abs().max())
+        dot_err = max(dot_err, rel)
+        log(f"[image_embed] _dot {label} [{rows}, {a.shape[1]}] x "
+            f"{list(b.shape)}: max |card - plain| / max |plain| = "
+            f"{rel:.3g} (bound {VIT_DOT_REL_BOUND:g}); output float32, "
+            f"not bf16-rounded [{card}]")
+    if dot_err > VIT_DOT_REL_BOUND:
+        raise AssertionError(f"_dot vs plain: {dot_err:.3g}")
+    px = torch.randint(0, 256, (n, flat), generator=g, device="cuda",
+                       dtype=torch.uint8)
+    x = image_embed.pixels_to_input(px)
+    feats, plain = vit.vit_forward(params, x), vit.vit_forward_plain(params,
+                                                                     x)
+    fwd_err = float((feats - plain).abs().max())
+    finite = bool(torch.isfinite(feats).all())
+    log(f"[image_embed] vit_forward on {n} images: features "
+        f"{list(feats.shape)} {feats.dtype}, finite {finite}, max |feature| "
+        f"{float(plain.abs().max()):.4f}; max |card - plain| = "
+        f"{fwd_err:.3g} (bound {VIT_FORWARD_BOUND:g}) [{card}]")
+    if not finite or tuple(feats.shape) != (n, params["pos"].shape[1]) or \
+            fwd_err > VIT_FORWARD_BOUND:
+        raise AssertionError(f"vit_forward vs plain: {fwd_err:.3g}")
+    return {"dot_rel_err": dot_err, "forward_err": fwd_err}
+
+
+def launched_by_op(prof) -> List[tuple]:
+    """``[(op, (device us, kernels))]`` over a trace, by the ``aten::`` op
+    whose own launches they are (each kernel counted once, under the
+    innermost op), largest first."""
+    out: Dict[str, List[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::") \
+                and e.kernels:
+            slot = out.setdefault(e.name, [0.0, 0])
+            slot[0] += sum(k.duration for k in e.kernels)
+            slot[1] += len(e.kernels)
+    return sorted(((k, tuple(v)) for k, v in out.items()),
+                  key=lambda kv: -kv[1][0])
+
+
+def centroid_error(table: Dict[int, np.ndarray], stream, version: Dict,
+                   weights: List[Dict]) -> float:
+    """The centroid table against float64 group means of the plain
+    forward's features (on the card, in batches) of every live image, each
+    under the weights it was embedded with."""
+    feats: Dict[int, List[np.ndarray]] = {}
+    b = IMAGE_EMBED["check_batch"]
+    for v, params in enumerate(weights):
+        ids = sorted(i for i in stream.images if version[i] == v)
+        for lo in range(0, len(ids), b):
+            chunk = ids[lo:lo + b]
+            px = torch.from_numpy(np.stack([stream.images[i]
+                                            for i in chunk])).cuda()
+            f = vit.vit_forward_plain(params, image_embed.pixels_to_input(
+                px)).double().cpu().numpy()
+            for i, row in zip(chunk, f):
+                feats.setdefault(stream.groups[i], []).append(row)
+    ref = {g: np.mean(rows, axis=0) for g, rows in feats.items()}
+    if set(table) != set(ref):
+        raise AssertionError(f"centroids: groups {sorted(table)} != "
+                             f"{sorted(ref)}")
+    return max(float(np.abs(np.asarray(table[g], np.float64) - ref[g]).max())
+               for g in ref)
+
+
+def phase_image_embed(card: str) -> Dict[str, object]:
+    """Config 5 through ``DirtyScheduler`` on the ``cuda`` executor: the
+    checks of the ViT against its plain version, a warm-up tick, the
+    upload leg, the on-card leg, a group move, an ``update_params`` swap
+    and a tick, one traced tick of each leg; the centroid table held to
+    the plain forward's float64 group means."""
+    cfg = IMAGE_EMBED
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = vit.init_vit(0, **vit.VIT_B_16)
+    params1 = vit.init_vit(1, **vit.VIT_B_16)
+    init_s = time.perf_counter() - t0
+    mcfg = params["_cfg"]
+    flat = mcfg["img"] * mcfg["img"] * mcfg["chans"]
+    n, G, N = cfg["per_tick"], cfg["n_groups"], cfg["n_images"]
+    checks = vit_checks(params, flat, cfg["seed"], card)
+
+    ig = image_embed.build_graph(N, G, params)
+    ex = get_executor("cuda")
+    sched = DirtyScheduler(ig.graph, ex)
+    stream = image_embed.ImageStream(params, seed=cfg["seed"])
+    version: Dict[int, int] = {}        # image id -> the weights it used
+    state = {"next": 0, "weights": 0}
+
+    def host_batch() -> DeltaBatch:
+        ids = np.arange(state["next"], state["next"] + n, dtype=np.int64)
+        state["next"] += n
+        for i in ids:
+            version[int(i)] = state["weights"]
+        return stream.insert(ids, ids % G)
+
+    gen = torch.Generator(device="cuda").manual_seed(cfg["seed"] + 1)
+    made: List[tuple] = []                   # (DeviceDelta, weights)
+
+    def device_batch() -> DeviceDelta:
+        base = state["next"]
+        state["next"] += n
+        ids = torch.arange(base, base + n, device="cuda")
+        pix = torch.randint(0, 256, (n, flat), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+        vals = torch.cat([(ids % G).to(torch.uint8)[:, None], pix], dim=1)
+        d = DeviceDelta((ids % N).to(torch.int32), vals,
+                        torch.ones(n, dtype=torch.int32, device="cuda"))
+        made.append((d, state["weights"]))
+        return d
+
+    def tick(make) -> float:
+        """One tick of the batch ``make()`` returns, timed from the call
+        (host batches are built before it; the on-card leg makes its
+        pixels inside the clock, as bench_configs.py's does)."""
+        t0 = time.perf_counter()
+        sched.push(ig.images, make())
+        sched.tick()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def built(batch):
+        return lambda: batch
+
+    warm_s = tick(built(host_batch()))       # cuBLAS picks its heuristics
+    t0 = time.perf_counter()
+    feeds = [host_batch() for _ in range(cfg["ticks"])]
+    feed_s = time.perf_counter() - t0
+    upload = [tick(built(b)) for b in feeds]
+    on_card = [tick(device_batch) for _ in range(cfg["ticks"])]
+    # the upload leg's host boundary alone: the scheduler's concat of the
+    # pending batch, and to_device (the padded host copy and the
+    # pageable host-to-card copy)
+    t0 = time.perf_counter()
+    merged = DeltaBatch.concat([feeds[0]])
+    concat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    to_device(merged, ig.images.spec)
+    torch.cuda.synchronize()
+    to_device_s = time.perf_counter() - t0
+    del merged
+    move_s = tick(built(stream.move(0, 2)))
+    before = {g: np.asarray(v) for g, v in
+              sched.read_table(ig.centroids).items()}
+
+    # the swap: same scheduler, same executor, the next tick's features
+    # under the new weights
+    ex.update_params(ig.embed, _weights(params1))
+    state["weights"] = 1
+    swap_s = tick(built(host_batch()))
+    after = sched.read_table(ig.centroids)
+    changed = sum(not np.allclose(after[g], before[g]) for g in before)
+    if sched.executor is not ex or changed != len(before):
+        raise AssertionError(f"update_params: {changed} of {len(before)} "
+                             f"centroids changed")
+
+    # one traced tick of each leg: host images (the upload path in the
+    # trace) and images made on the card
+    reps = {}
+    for kind, make in (("upload", host_batch), ("on-card", device_batch)):
+        def prepare(make=make):
+            b = make()
+
+            def one():
+                sched.push(ig.images, b)
+                return sched.tick()
+            return one
+
+        _, t_wall, prof = traced_step(prepare, f"image_embed {kind} tick")
+        rep = compositions("image_embed", kind, t_wall, prof, card,
+                           host_ops=VIT_HOST_OPS)
+        spans = rep["spans"]
+        total = sum(b - a for a, b, _ in rep["dev"])
+        gemm = spans.get("vit.gemm", [0.0, 0])
+        attn = spans.get("vit.attn_products", [0.0, 0])
+        fwd = spans.get("map", [0.0, 0])
+        elem = [fwd[0] - gemm[0] - attn[0], fwd[1] - gemm[1] - attn[1]]
+        log(f"[trace] image_embed {kind} split of the device time: bf16 "
+            f"GEMMs {gemm[0] / 1e3:.3f} ms in {gemm[1]} ops; float32 "
+            f"attention products {attn[0] / 1e3:.3f} ms in {attn[1]} ops; "
+            f"elementwise (LN, bias, GELU, softmax, casts, layout copies) "
+            f"{elem[0] / 1e3:.3f} ms in {elem[1]} ops; outside the forward "
+            f"(upload, GroupBy, Reduce) {(total - fwd[0]) / 1e3:.3f} ms; "
+            f"all {total / 1e3:.3f} ms [{card}]")
+        log(f"[trace] image_embed {kind} device time by the op that "
+            f"launched it: " + "; ".join(
+                f"{name} {us / 1e3:.3f} ms in {k}"
+                for name, (us, k) in launched_by_op(prof)[:12]))
+        reps[kind] = rep
+    peak = torch.cuda.max_memory_allocated()
+
+    for d, v in made:                        # the check's host mirror
+        for i, row in zip(d.keys.cpu().numpy(), d.values.cpu().numpy()):
+            stream.images[int(i)] = row[1:]
+            stream.groups[int(i)] = int(row[0])
+            version[int(i)] = v
+    ex.check_errors()
+    t0 = time.perf_counter()
+    err = centroid_error(sched.read_table(ig.centroids), stream, version,
+                         [params, params1])
+    check_s = time.perf_counter() - t0
+    if err > VIT_CENTROID_BOUND:
+        raise AssertionError(f"centroids vs the plain forward: {err:.3g}")
+
+    flops = vit.vit_flops(**mcfg)
+    up_mb = sum(t.numel() * t.element_size() for t in made[0][0]) / 1e6
+    out = {"init_s": init_s, "warm_ms": warm_s * 1e3,
+           "centroid_err": err, "peak_bytes": peak,
+           "busy_share": {k: r["busy_share"] for k, r in reps.items()},
+           **checks}
+    for leg, walls in (("upload", upload), ("on-card", on_card)):
+        med = _median(walls)
+        ips = n / med
+        tflops = ips * flops / 1e12
+        log(f"[image_embed] {leg} leg: tick ms "
+            f"{[round(w * 1e3, 3) for w in walls]}, median {med * 1e3:.3f} "
+            f"ms, {ips:.1f} images/s, model {tflops:.2f} TFLOP/s, MFU "
+            f"{tflops * 1e12 / BF16_OPS_PER_S * 100:.2f}% of the dense bf16 "
+            f"peak {BF16_OPS_PER_S / 1e12:.1f} TFLOP/s [{card}]")
+        out[leg] = {"median_ms": med * 1e3, "images_per_s": ips,
+                    "tflops": tflops}
+    log(f"[image_embed] ViT-B/16 ({flops / 1e9:.2f} GFLOP an image), {n} "
+        f"images a tick, {N} ids, {G} groups; weights {init_s:.2f} s on "
+        f"the host for two sets; feeds {feed_s:.3f} s (outside the clock); "
+        f"warm-up tick {warm_s * 1e3:.3f} ms; {up_mb:.3f} MB uploaded a "
+        f"tick (keys, uint8 rows, weights), of which the host boundary "
+        f"alone: concat {concat_s * 1e3:.3f} ms, to_device "
+        f"{to_device_s * 1e3:.3f} ms; group move tick "
+        f"{move_s * 1e3:.3f} ms; swap tick {swap_s * 1e3:.3f} ms, "
+        f"{changed} of {len(before)} centroids changed, no rebind; peak "
+        f"device memory {peak} B [{card}]")
+    log(f"[image_embed] centroids ({len(after)} groups, {len(stream.images)} "
+        f"live images, image 0 in group {stream.groups[0]}) vs float64 "
+        f"means of the plain forward: max abs {err:.3g} (bound "
+        f"{VIT_CENTROID_BOUND:g}; check {check_s:.2f} s); sticky flags "
+        f"clear; traced ticks device busy "
+        + ", ".join(f"{k} {r['busy_share'] * 100:.1f}%"
+                    for k, r in reps.items()) + f" [{card}]")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -1823,6 +2188,7 @@ def main() -> int:
     phase_tfidf(dev["card"])
     phase_sssp(dev["card"])
     phase_multiset(dev["card"])
+    phase_image_embed(dev["card"])
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
         raise AssertionError("a phase after the serving slice launched a "
                              "top-k kernel")

@@ -10,7 +10,10 @@ run its plain PyTorch path on the CPU) runs the ported lowerings.
 
 Ported so far: the k-NN re-index workload served end to end
 (``IngestFrontend`` -> ``DirtyScheduler`` -> ``CudaExecutor`` -> the
-KnnIndex lowering -> the top-k kernel).
+KnnIndex lowering -> the top-k kernel), every row lowering with
+PageRank, word-count, TF-IDF and SSSP, and the ViT-B/16 image-embed ETL
+(``models``, ``workloads.image_embed``: a Map whose ``params`` are the
+model's weights).
 """
 
 from reflow_tpu_torch.delta import DeltaBatch, Spec

@@ -9,6 +9,10 @@ min/max Reduce its candidate buffer and latches (``cand_v``, ``cand_w``,
 what the two packages must compute the same thing from, as a model's
 weights are for a model. A loop under ``defer_passes`` adds its
 ``resid``: the fused loop's carried observables, ``[K, P+1]`` float32.
+A Map with ``params`` carries ``{"params": tree}``, the weights as a
+nested tree (a ViT's ``blocks`` is a list of dicts), each leaf checked
+against the shape of the op's own ``params`` and kept at its dtype
+(float32 stays exact).
 The fused loop's sorted-arena CSR cache is derived state and is never
 carried: the receiving executor rebuilds it on its first loop tick. The
 JAX executor's per-node state, handed over
@@ -31,6 +35,7 @@ from reflow_tpu_torch.executors.linear_fixpoint import resid_state
 from reflow_tpu_torch.executors.lowerings import (join_state, knn_state,
                                                   reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError
+from reflow_tpu_torch.utils.tree import tree_map
 
 __all__ = ["states_from_jax", "states_to_numpy"]
 
@@ -48,7 +53,9 @@ def _template(graph: FlowGraph) -> Dict[int, Dict[str, torch.Tensor]]:
         if op.kind in ("filter", "groupby", "union") or (
                 op.kind == "map" and op.params is None):
             continue
-        if op.kind == "knn":
+        if op.kind == "map":
+            out[node.id] = {"params": tree_map(_meta_like, op.params)}
+        elif op.kind == "knn":
             out[node.id] = knn_state(op, *specs, "meta")
         elif op.kind == "reduce":
             # linear tables, or a min/max Reduce's candidate buffer
@@ -60,6 +67,14 @@ def _template(graph: FlowGraph) -> Dict[int, Dict[str, torch.Tensor]]:
             raise GraphError(f"{node}: state conversion for this "
                              f"{op.kind!r} op is not ported yet")
     return out
+
+
+def _meta_like(x) -> torch.Tensor:
+    """A meta tensor of a params leaf's shape and dtype (what ``bind``
+    makes of it)."""
+    dtype = x.dtype if isinstance(x, torch.Tensor) else \
+        torch.from_numpy(np.zeros(0, np.asarray(x).dtype)).dtype
+    return torch.empty(tuple(x.shape), dtype=dtype, device="meta")
 
 
 def states_from_jax(np_states: Mapping[int, Mapping[str, np.ndarray]],
@@ -77,24 +92,28 @@ def states_from_jax(np_states: Mapping[int, Mapping[str, np.ndarray]],
         if nid not in np_states:
             raise KeyError(f"{graph.nodes[nid]}: no state given")
         src = np_states[nid]
+        node = graph.nodes[nid]
         st = {}
         for name, t in tmpl.items():
             if name not in src:
-                raise KeyError(f"{graph.nodes[nid]}: state {name!r} "
-                               f"missing")
-            a = np.asarray(src[name])
-            if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(
-                    f"{graph.nodes[nid]}: state {name!r} has shape "
-                    f"{a.shape}, the port's is {tuple(t.shape)}")
-            if not t.dtype.is_floating_point and \
-                    torch.from_numpy(np.zeros(0, a.dtype)).dtype != t.dtype:
-                raise ValueError(
-                    f"{graph.nodes[nid]}: state {name!r} is {a.dtype}, the "
-                    f"port's is {t.dtype}")
-            # np.array copies: the tensor owns writable memory
-            st[name] = torch.from_numpy(np.array(a)).to(device=device,
+                raise KeyError(f"{node}: state {name!r} missing")
+
+            def leaf(a, t, name=name):
+                a = np.asarray(a)
+                if tuple(a.shape) != tuple(t.shape):
+                    raise ValueError(
+                        f"{node}: state {name!r} has shape {a.shape}, the "
+                        f"port's is {tuple(t.shape)}")
+                if not t.dtype.is_floating_point and \
+                        torch.from_numpy(np.zeros(0, a.dtype)).dtype \
+                        != t.dtype:
+                    raise ValueError(f"{node}: state {name!r} is {a.dtype}, "
+                                     f"the port's is {t.dtype}")
+                # np.array copies: the tensor owns writable memory
+                return torch.from_numpy(np.array(a)).to(device=device,
                                                         dtype=t.dtype)
+
+            st[name] = tree_map(leaf, src[name], t)
         out[nid] = st
     return out
 
@@ -102,13 +121,10 @@ def states_from_jax(np_states: Mapping[int, Mapping[str, np.ndarray]],
 def states_to_numpy(states: Mapping[int, Mapping[str, torch.Tensor]]
                     ) -> Dict[int, Dict[str, np.ndarray]]:
     """The port's state dict -> ``{node_id: {name: numpy array}}`` on the
-    host (bf16 tensors come back as float32)."""
-    out = {}
-    for nid, st in states.items():
-        out[nid] = {}
-        for name, t in st.items():
-            t = t.detach().cpu()
-            if t.dtype == torch.bfloat16:
-                t = t.float()
-            out[nid][name] = t.numpy()
-    return out
+    host (bf16 tensors come back as float32; a params tree keeps its
+    structure)."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {nid: tree_map(host, st) for nid, st in states.items()}

@@ -20,10 +20,12 @@ there is no compiled-program cache: the program objects are built once
 per bound graph. One card needs no ``place``.
 
 Refused at :meth:`bind` with "not ported yet": op kinds without a
-lowering and Map ``params``. A min/max Reduce binds the bounded candidate
-buffer (``lowerings.minmax_core``; :meth:`refresh_minmax` resets its
-latches from a replay), and a Join whose left Spec is not unique binds
-the two-arena multiset form.
+lowering. A Map with ``params`` binds them as its state, a copy of the
+tree on the executor's device (:meth:`update_params` swaps it with no
+rebind). A min/max Reduce binds the bounded candidate buffer
+(``lowerings.minmax_core``; :meth:`refresh_minmax` resets its latches
+from a replay), and a Join whose left Spec is not unique binds the
+two-arena multiset form.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do): on the CPU every kernel wrapper takes its plain PyTorch
@@ -54,6 +56,7 @@ from reflow_tpu_torch.executors.lowerings import (LOWERINGS, join_state,
                                                   reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
+from reflow_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["CudaExecutor"]
 
@@ -168,8 +171,9 @@ class CudaExecutor(Executor):
                 f"cuda executor (ported: {sorted(LOWERINGS)}); run it "
                 f"on the cpu executor")
         if op.kind == "map" and op.params is not None:
-            raise GraphError(f"{node}: Map params are not ported yet to "
-                             f"the cuda executor")
+            self.states[node.id] = {"params": self._copy_params(node,
+                                                                op.params)}
+            return
         if op.kind in _STATELESS:
             return
         in_specs = [i.spec for i in node.inputs]
@@ -208,6 +212,35 @@ class CudaExecutor(Executor):
                     f"{node}: corpus key_space {D} must be a multiple "
                     f"of scan_chunk {op.scan_chunk}")
             self.states[node.id] = knn_state(op, *in_specs, self.device)
+
+    def _copy_params(self, node: Node, params):
+        """A Map's params tree copied onto this executor's device, leaf
+        dtypes kept (lowerings update no params in place, but the caller's
+        tensors stay the caller's). Numpy or torch leaves."""
+        for leaf in tree_leaves(params):
+            if not hasattr(leaf, "shape"):
+                raise GraphError(
+                    f"{node}: Map params leaves must be arrays, got "
+                    f"{type(leaf).__name__}; close fn over static "
+                    f"(shape-driving) config instead of passing it "
+                    f"in params")
+
+        def copy(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().to(self.device, copy=True)
+            # np.array copies: the tensor owns writable memory
+            return torch.from_numpy(np.array(x)).to(self.device)
+
+        return tree_map(copy, params)
+
+    def update_params(self, node: Node, params) -> None:
+        """Swap a params-bearing Map's parameter tree for a copy of
+        ``params`` on this executor's device. Nothing is rebound: the
+        next tick runs with the new values."""
+        st = self.states.get(node.id)
+        if st is None or "params" not in st:
+            raise GraphError(f"{node} holds no params state")
+        self.states[node.id] = {"params": self._copy_params(node, params)}
 
     # -- one pass ----------------------------------------------------------
 
@@ -427,14 +460,14 @@ class CudaExecutor(Executor):
     def state_snapshot(self) -> Dict[int, object]:
         """A copy of every node's state tensors, on the device (lowerings
         update some tables in place, so a reference would be overwritten
-        by the next tick)."""
-        return {nid: {k: t.clone() for k, t in st.items()}
+        by the next tick); a Map's params tree is copied leaf by leaf."""
+        return {nid: tree_map(torch.clone, st)
                 for nid, st in self.states.items()}
 
     def state_restore(self, snapshot: Dict[int, object]) -> None:
         """Adopt a snapshot (cloned onto this executor's device, so the
         snapshot stays valid for another restore)."""
-        self.states = {nid: {k: t.to(self.device, copy=True)
-                             for k, t in st.items()}
+        self.states = {nid: tree_map(lambda t: t.to(self.device, copy=True),
+                                     st)
                        for nid, st in snapshot.items()}
         self.on_states_replaced()

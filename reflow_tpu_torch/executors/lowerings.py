@@ -27,8 +27,10 @@ Keyed-state representations (as in the JAX package):
   δ-products are key-matched pair enumerations at a fixed budget
   (:func:`_keyed_product`).
 
-Every lowering of the JAX package's module has its counterpart here but
-Map's ``params`` branch, which the executor refuses at ``bind``.
+Every lowering of the JAX package's module has its counterpart here. A
+Map with ``params`` holds them as its state (``{"params": tree}``, built
+by the executor's ``bind``) and passes them to ``fn`` as its first
+argument; the state passes through unchanged.
 
 Out-of-range keys: the JAX package's scatters drop them and its gathers
 clamp them (``mode="drop"`` and the default gather). PyTorch raises on
@@ -373,12 +375,21 @@ def _lower_knn(op, node: Node, state, ins, *, on_sync=None
 # -- Map / Filter / GroupBy / Union ----------------------------------------
 
 def _lower_map(op, node: Node, state, ins, *, on_sync=None
-               ) -> Tuple[DeviceDelta, None]:
+               ) -> Tuple[DeviceDelta, Optional[dict]]:
     (d,) = ins
     with span("map"):
-        vals = _apply_rowfn(op.fn, op.vectorized, d.values)
+        if op.params is not None:
+            # the params are op state, passed as fn's first argument; a
+            # row-wise fn maps over the rows with the params held fixed
+            p = state["params"]
+            if op.vectorized:
+                vals = op.fn(p, d.values)
+            else:
+                vals = torch.func.vmap(op.fn, in_dims=(None, 0))(p, d.values)
+        else:
+            vals = _apply_rowfn(op.fn, op.vectorized, d.values)
         vals = _as(vals, torch_dtype(node.spec.value_dtype), d.values.device)
-    return DeviceDelta(d.keys, vals, d.weights), None
+    return DeviceDelta(d.keys, vals, d.weights), state
 
 
 def _lower_filter(op, node: Node, state, ins, *, on_sync=None

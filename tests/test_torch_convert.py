@@ -1,5 +1,6 @@
-"""``states_from_jax`` carries a min/max Reduce and a multiset-left Join
-from the JAX package into the port mid-stream, on the CPU.
+"""``states_from_jax`` carries a min/max Reduce, a multiset-left Join and
+a Map's nested params tree (image-embed's ViT weights) from the JAX
+package into the port mid-stream, on the CPU.
 
 The JAX ``TpuExecutor`` runs the first ticks; its state, as numpy, is
 carried into the port's ``cuda`` executor (``device="cpu"``) through
@@ -9,6 +10,7 @@ bit-equal (the port's ``states_to_numpy`` against the JAX arrays).
 """
 
 import numpy as np
+import pytest
 
 import reflow_tpu_torch as P
 from reflow_tpu import DirtyScheduler as JDirtyScheduler
@@ -135,3 +137,94 @@ def test_multiset_join_state_carried_from_jax_mid_stream():
         st = ps.executor.states[pg.nodes[2].id]
         gens.append((int(st["lgen"]), int(st["gen"])))
     assert gens[-1][0] >= 1 and gens[-1][1] >= 1
+
+
+def test_params_map_state_carried_from_jax():
+    """Image-embed (a Map with a nested params tree, the mean Reduce): two
+    ticks in JAX, carried over; ``states_to_numpy`` gives back the JAX
+    arrays bit for bit, tree structure included; then one more tick in
+    both, whose centroids agree within the image-embed tests' 2e-3 (the
+    two forwards differ only in summation order) and whose params stay
+    bit-equal."""
+    import jax
+
+    from reflow_tpu.delta import DeltaBatch as JDeltaBatch
+    from reflow_tpu.models import VIT_TINY, init_vit as jinit_vit
+    from reflow_tpu.workloads import image_embed as jie
+    from reflow_tpu_torch.models import init_vit
+    from reflow_tpu_torch.utils.tree import tree_leaves, tree_map
+    from reflow_tpu_torch.workloads import image_embed as pie
+
+    jp, pp = jinit_vit(0, **VIT_TINY), init_vit(0, **VIT_TINY, device="cpu")
+    jig, pig = jie.build_graph(32, 4, jp), pie.build_graph(32, 4, pp)
+    js = JDirtyScheduler(jig.graph, jget_executor("tpu"))
+    stream = jie.ImageStream(jp, seed=6)
+    rng = np.random.default_rng(8)
+    js.push(jig.images, stream.insert(np.arange(10), rng.integers(0, 4, 10)))
+    js.tick()
+    js.push(jig.images, JDeltaBatch.concat([
+        stream.insert(np.arange(10, 16), rng.integers(0, 4, 6)),
+        stream.move(2, (stream.groups[2] + 1) % 4)]))
+    js.tick()
+    jstates = {nid: jax.tree.map(np.asarray, st)
+               for nid, st in js.executor.states.items()}
+    emb = pig.embed.id
+    assert isinstance(jstates[emb]["params"]["blocks"], list)
+
+    ps = P.DirtyScheduler(pig.graph, P.get_executor("cuda", device="cpu"))
+    ps.executor.state_restore(states_from_jax(jstates, pig.graph,
+                                              device="cpu"))
+
+    def bit_equal(a, b):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == np.float32:
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        return np.array_equal(a, b)
+
+    back = states_to_numpy(ps.executor.states)
+    assert set(back) == set(jstates)
+    eq = tree_map(bit_equal, back, jstates)
+    assert all(tree_leaves(eq)) and len(tree_leaves(eq)) == 29 + 4
+
+    batch = stream.insert(np.arange(16, 22), rng.integers(0, 4, 6))
+    js.push(jig.images, batch)
+    ps.push(pig.images, P.DeltaBatch(batch.keys, batch.values,
+                                     batch.weights))
+    js.tick()
+    ps.tick()
+    jc, pc = js.read_table(jig.centroids), ps.read_table(pig.centroids)
+    assert set(jc) == set(pc)
+    for g in jc:
+        np.testing.assert_allclose(pc[g], np.asarray(jc[g]), rtol=0,
+                                   atol=2e-3)
+    after = states_to_numpy(ps.executor.states)
+    assert all(tree_leaves(tree_map(bit_equal, after[emb],
+                                    jax.tree.map(np.asarray,
+                                                 js.executor.states[emb]))))
+
+
+def test_params_state_shape_is_checked():
+    """A params leaf whose shape differs from the op's own is refused."""
+    from reflow_tpu_torch.models import VIT_TINY, init_vit
+    from reflow_tpu_torch.utils.tree import tree_map
+    from reflow_tpu_torch.workloads import image_embed as pie
+
+    pp = init_vit(0, **VIT_TINY, device="cpu")
+    pig = pie.build_graph(32, 4, pp)
+    ex = P.get_executor("cuda", device="cpu")
+    P.DirtyScheduler(pig.graph, ex)
+    states = states_to_numpy(ex.states)
+    states[pig.embed.id]["params"]["blocks"][1]["w1"] = np.zeros((3, 3),
+                                                                np.float32)
+    with pytest.raises(ValueError, match="has shape"):
+        states_from_jax(states, pig.graph, device="cpu")
+    states = states_to_numpy(ex.states)
+    states[pig.embed.id]["params"]["blocks"].pop()
+    with pytest.raises(ValueError, match="tree structure differs"):
+        states_from_jax(states, pig.graph, device="cpu")
+    # the round trip itself is exact
+    got = states_from_jax(states_to_numpy(ex.states), pig.graph,
+                          device="cpu")
+    tree_map(lambda a, b: np.testing.assert_array_equal(a.numpy(),
+                                                        b.numpy()),
+             got, ex.states)

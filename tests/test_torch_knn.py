@@ -272,12 +272,18 @@ def test_entry_points_without_device_need_a_card(monkeypatch):
 
 
 def test_unported_op_refused_at_bind():
-    """Map ``params`` is what the cuda executor still refuses."""
+    """Every op kind of the port has a device lowering, Map ``params``
+    included; an op kind without one is what the cuda executor
+    refuses."""
     from reflow_tpu_torch.delta import Spec
+    from reflow_tpu_torch.ops.core import Op
+
+    class Custom(Op):
+        kind = "custom"
 
     g = FlowGraph("lo")
     src = g.source("s", Spec((), np.float32, key_space=8))
-    g.map(src, lambda p, v: p["w"] * v, params={"w": torch.ones(())})
+    g.add_op(Custom(), [src])
     with pytest.raises(GraphError, match="not ported yet"):
         P.DirtyScheduler(g, P.get_executor("cuda", device="cpu"))
 

@@ -224,14 +224,15 @@ def _refused_graphs():
 
 
 #: kinds that bind now, with the state key their lowering keeps
-_BOUND_NOW = {"min": "cand_v", "max": "cand_v", "multiset_join": "lkeys"}
+_BOUND_NOW = {"min": "cand_v", "max": "cand_v", "multiset_join": "lkeys",
+              "map_params": "params"}
 
 
 @pytest.mark.parametrize("kind", sorted(_refused_graphs()))
 def test_unported_kinds_refused_at_bind(kind):
-    """Map ``params`` and a mis-sized default-merge spec are refused at
-    ``bind``; the min/max reducers and the multiset-left join, once
-    refused as not ported, now bind and build their device state."""
+    """A mis-sized default-merge spec is refused at ``bind``; the min/max
+    reducers, the multiset-left join and Map ``params``, once refused as
+    not ported, now bind and build their device state."""
     g = _refused_graphs()[kind]()
     if kind in _BOUND_NOW:
         ex = P.get_executor("cuda", device="cpu")

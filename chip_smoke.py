@@ -32,7 +32,12 @@ Phases, each printing its own lines:
    corpus, and the kernel launch counts (zeroed just before the path,
    read just after) prove the path ran through the kernels: one ``topk``
    per incremental tick, one ``topk_merge`` per corpus chunk of a rescan
-   tick.
+   tick. The frontend runs at its default depth 2 with device-keyed
+   admission: every host-batch tick is one window staged through the
+   ingress queue (``stage_window``/``dispatch_staged``/``retire_staged``),
+   the device-made preload runs tick by tick; printed: the
+   window counters, the queues' generations and bytes, and the forced
+   syncs of each window (one: the lowering's path choice).
 5. **PageRank at full width, host-driven loop** — incremental PageRank
    (BASELINE.md config 3: 100k nodes, 1M edges, 1% churn, tol 1e-4,
    seed 7) through ``DirtyScheduler`` -> the ``cuda`` executor (no
@@ -72,12 +77,16 @@ Phases, each printing its own lines:
    traced tick's device-busy share and compositions.
 8. **Streaming TF-IDF at full width** (config 2): 4,096 docs, 2^20 terms
    and pairs, a 250,000-word vocabulary (``default_rng(1)``); 2,048 docs
-   loaded, 512 single edits padded to 256 rows through ``tick_many``,
-   32 ticks of 64 edits padded to 8,192 rows, one traced batched tick.
-   The ``tf``/``df``/``ndocs`` tables equal the counts recomputed from
-   the corpus exactly, and the combined TF-IDF is within 1e-5 relative
-   of ``Corpus.reference_tfidf``. Printed: amortized tick ms and
-   delta-ops/s (pad rows left out) of both phases.
+   loaded, 512 single edits padded to 256 rows in one ``tick_many``
+   window, 32 ticks of 64 edits padded to 8,192 rows in another, one
+   traced batched tick; every call one window (no fallback) with no
+   forced sync or loop read between the stage and ``block()``. A twin
+   scheduler takes the same feeds through per-tick ``tick()``s and its
+   tables equal the window's exactly. The ``tf``/``df``/``ndocs`` tables
+   equal the counts recomputed from the corpus exactly, and the combined
+   TF-IDF is within 1e-5 relative of ``Corpus.reference_tfidf``.
+   Printed: amortized tick ms of both paths and delta-ops/s (pad rows
+   left out) of both phases.
 9. **Incremental SSSP** (100,000 nodes, 1,000,000 uniform edges, weights
    1-9, ``default_rng(7)``, source 0, 32 candidates a key): the initial
    tick, 4 insertion and 4 deletion ticks of 10,000 edges (the last
@@ -116,8 +125,23 @@ Phases, each printing its own lines:
    features for every live image, each under the weights it was
    embedded with. Printed: median tick ms and images/s of each leg, MB
    uploaded a tick, model TFLOP/s (``vit_flops`` x images/s), MFU against
-   the H100's dense bf16 peak, peak device memory. Ticks run one at a
-   time: the window path is not ported.
+   the H100's dense bf16 peak, peak device memory. Then the window leg:
+   ``tick_many`` windows of 4 ticks x 256 host images (one warm, two
+   timed, one traced), and the pump leg: 8 batches through
+   ``IngestFrontend`` at depth 2 (two windows, the second staged while
+   the first runs), printed beside the per-tick legs: the amortized
+   tick, images/s, MFU and the MB staged a window.
+12. **Window parity on the card**: the reference's depth-fuzz graph
+   (source -> map -> sum Reduce, small-integer values: every sum exact)
+   with 16 batches of 8,192 different rows through ``IngestFrontend`` at
+   depths 1, 2 and 4 and windows of 2 and 4 ticks, three rounds with the
+   depth order reversed every other round and the median time of each
+   depth printed (the window counts, ``windows_pipelined`` and the tables
+   checked; every table equals the CPU oracle's); then 4 churn ticks of
+   PageRank at config 3's width in one ``tick_many`` on the fused loop,
+   the per-tick iters and converged flags as [4] device stacks (host
+   values re-uploaded, read back at ``block()``), readbacks held to
+   iters + 3 a tick, the ranks within 1e-3 of the float64 reference.
 
 The phases after the serving slice run no hand-written kernel; the top-k
 counts, zeroed before them, must stay 0.
@@ -140,8 +164,8 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-from reflow_tpu_torch import (DeltaBatch, DirtyScheduler, FlowGraph, Spec,
-                              get_executor)
+from reflow_tpu_torch import (CpuExecutor, DeltaBatch, DirtyScheduler,
+                              FlowGraph, Spec, get_executor)
 from reflow_tpu_torch.executors.arena import compact_arena
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      bucket_capacity,
@@ -550,6 +574,7 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
     rng = np.random.default_rng(seed)
     tickets = []
     launches: List[tuple] = []
+    syncs: List[int] = []
     traces: List[tuple] = []
 
     def tick(kind: str, source, batch, trace: bool = False) -> float:
@@ -557,6 +582,7 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
         wall seconds from submit to the device finishing. ``trace`` runs
         it under ``torch.profiler`` and keeps the trace."""
         l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        s0 = sched.forced_syncs
         prof = None
         if trace:
             prof = tick_profiler()
@@ -576,6 +602,7 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
         tickets.append(res)
         launches.append((kind, topk_mod.TOPK_LAUNCHES - l0[0],
                          topk_mod.TOPK_MERGE_LAUNCHES - l0[1]))
+        syncs.append(sched.forced_syncs - s0)
         if prof is not None:
             traces.append((kind, wall, prof))
         return wall
@@ -641,6 +668,20 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
         table = sched.read_table(kg.index)
     finally:
         fe.close()
+    queues = [q for key, q in ex._window_cache.items()
+              if key[0] == "ingress_q"]
+    window = {"megatick_windows": sched.megatick_windows,
+              "megatick_fallbacks": sched.megatick_fallbacks,
+              "window_dispatches": ex.window_dispatches,
+              "depth": fe.depth, "admission": fe.admission,
+              "windows_staged": fe.windows_staged,
+              "windows_pipelined": fe.windows_pipelined,
+              "stage_overlap_frac": fe.stage_overlap_frac,
+              "queues": len(queues),
+              "generations": sum(q.generations for q in queues),
+              "queue_nbytes": sum(q.nbytes for q in queues),
+              "queue_host_nbytes": sum(q.host_nbytes for q in queues),
+              "syncs": syncs}
     # the serving path's peak, before the check below allocates its own
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else None)
@@ -663,6 +704,7 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
     return {"preload_s": preload_s, "insert_s": insert_s,
             "insert_ops": insert_ops, "rescan_s": rescan_s,
             "query_update_s": qupdate_s, "launches": launches,
+            "window": window,
             "traces": traces,
             "tickets": len(tickets), "recall": recall,
             "score_max_abs_diff": score_diff,
@@ -683,12 +725,13 @@ def _short(name: str, width: int = 72) -> str:
 
 def _device_events(prof) -> List[tuple]:
     """(start us, end us, name) of every device operation in a trace,
-    sorted; the device-side copies of ``reflow::`` profiler ranges are
-    spans, not operations, and are left out."""
+    sorted; the device-side copies of ``reflow::`` profiler ranges and of
+    the window label ``reflow.window[K]`` are spans, not operations, and
+    are left out."""
     return sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events()
                   if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith("reflow::"))
+                  and not e.name.startswith(("reflow::", "reflow.window")))
 
 
 def trace_lost(prof, what: str) -> bool:
@@ -801,6 +844,29 @@ def phase_serve(card: str) -> Dict[str, object]:
             f"table vs brute force: recall {out['recall']:.4f} (need "
             f">= 0.99), score max_abs_diff {out['score_max_abs_diff']:.3g} "
             f"(need <= 1e-2)")
+    win = out["window"]
+    kinds = [kind for kind, _, _ in out["launches"]]
+    staged = sum(kind != "preload" for kind in kinds)
+    # every host-batch tick is one staged window at depth 2; the preload's
+    # device-resident batches run tick by tick
+    if (win["depth"] != 2 or win["admission"] != "device"
+            or win["megatick_windows"] != staged
+            or win["windows_staged"] != staged
+            or win["megatick_fallbacks"] != 0):
+        raise AssertionError(f"serving windows: {win} over {staged} host "
+                             f"ticks")
+    if any(n != 1 for n in win["syncs"]):
+        raise AssertionError(f"forced syncs a window {win['syncs']}, "
+                             f"expected one a tick (the path choice)")
+    log(f"[serve] window path: depth {win['depth']}, admission "
+        f"{win['admission']}; megatick_windows {win['megatick_windows']}, "
+        f"megatick_fallbacks {win['megatick_fallbacks']}, windows_staged "
+        f"{win['windows_staged']}, windows_pipelined "
+        f"{win['windows_pipelined']}, stage_overlap_frac "
+        f"{win['stage_overlap_frac']:.3f}; {win['queues']} ingress queues, "
+        f"{win['generations']} generations, {win['queue_nbytes']} B on the "
+        f"card and {win['queue_host_nbytes']} B pinned; forced syncs a "
+        f"window {win['syncs']} [{card}]")
     ins = sorted(out["insert_s"])
     med = ins[len(ins) // 2]
     dops = sum(out["insert_ops"]) / sum(out["insert_s"])
@@ -1405,10 +1471,13 @@ def _pad(batch: DeltaBatch, rows: int) -> DeltaBatch:
 def phase_tfidf(card: str) -> Dict[str, object]:
     """Streaming TF-IDF through ``DirtyScheduler`` on the ``cuda``
     executor: the initial load, the single-edit phase and the batched
-    phase (amortized tick ms, delta-ops/s with pad rows left out), one
-    traced batched tick; the ``tf``/``df``/``ndocs`` tables held exactly
-    to counts recomputed from the corpus, and the combined TF-IDF to
-    ``Corpus.reference_tfidf`` within 1e-5 relative."""
+    phase through ``tick_many`` windows (the ingress queue; no fallback,
+    no forced sync between the stage and ``block()``), the same feeds
+    through per-tick ``tick()``s on a twin scheduler (amortized tick ms of
+    both, delta-ops/s with pad rows left out; the twin's tables equal the
+    window's exactly), one traced batched tick; the ``tf``/``df``/``ndocs``
+    tables held exactly to counts recomputed from the corpus, and the
+    combined TF-IDF to ``Corpus.reference_tfidf`` within 1e-5 relative."""
     cfg = TFIDF
     rng = np.random.default_rng(cfg["seed"])
     words = np.array([f"t{i}" for i in range(cfg["vocab"])])
@@ -1416,6 +1485,10 @@ def phase_tfidf(card: str) -> Dict[str, object]:
     tg = tfidf.build_graph(cfg["n_pairs"], cfg["n_terms"], cfg["docs"])
     ex = get_executor("cuda")
     sched = DirtyScheduler(tg.graph, ex)
+    # the per-tick twin: the same graph on its own executor, fed the same
+    # deltas one tick at a time
+    tg2 = tfidf.build_graph(cfg["n_pairs"], cfg["n_terms"], cfg["docs"])
+    twin = DirtyScheduler(tg2.graph, get_executor("cuda"))
 
     def text():
         return " ".join(rng.choice(words, size=rng.integers(20, 60)))
@@ -1424,41 +1497,81 @@ def phase_tfidf(card: str) -> Dict[str, object]:
         return corpus.edit(int(rng.integers(0, cfg["docs"])), text())
 
     t0 = time.perf_counter()
-    sched.push(tg.tokens, DeltaBatch.concat(
-        [corpus.edit(d, text()) for d in range(cfg["docs"] // 2)]))
+    load = DeltaBatch.concat(
+        [corpus.edit(d, text()) for d in range(cfg["docs"] // 2)])
+    sched.push(tg.tokens, load)
     r = sched.tick()
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    twin.push(tg2.tokens, load)
+    twin.tick()
     log(f"[tfidf] initial load: {cfg['docs'] // 2} docs, {r.deltas_in} rows, "
         f"{load_s * 1e3:.3f} ms (host text and edits included)")
 
-    def window(n_ticks, per_tick, rows):
-        feeds, pads = [], 0
+    def make(n_ticks, per_tick, rows):
+        batches, pads = [], 0
         for _ in range(n_ticks):
             b = DeltaBatch.concat([edit() for _ in range(per_tick)])
             if len(b) > rows:
                 raise AssertionError(f"an edit tick of {len(b)} rows > {rows}")
             pads += rows - len(b)
-            feeds.append({tg.tokens: _pad(b, rows)})
+            batches.append(_pad(b, rows))
+        return batches, pads
+
+    windows = {"calls": 0, "syncs": 0, "reads": 0, "traced": 0}
+
+    def window(batches, pads):
+        w0, f0 = sched.megatick_windows, sched.megatick_fallbacks
+        s0, r0 = sched.forced_syncs, ex.loop_reads
         t0 = time.perf_counter()
-        agg = sched.tick_many(feeds)
+        agg = sched.tick_many([{tg.tokens: b} for b in batches])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        # between stage_window and block(): no forced sync, no loop read
+        windows["syncs"] += sched.forced_syncs - s0
+        windows["reads"] += ex.loop_reads - r0
         agg.block()
+        windows["calls"] += 1
+        if (sched.megatick_windows - w0, sched.megatick_fallbacks - f0) \
+                != (1, 0):
+            raise AssertionError("a tfidf tick_many call did not take "
+                                 "one window")
         return wall, agg.delta_ops - pads
 
-    window(cfg["warm"], 1, cfg["edit_rows"])
-    s_wall, s_ops = window(cfg["edits"], 1, cfg["edit_rows"])
-    b_wall, b_ops = window(cfg["group_ticks"], cfg["group"],
-                           cfg["group_rows"])
+    def per_tick(batches):
+        t0 = time.perf_counter()
+        for b in batches:
+            twin.push(tg2.tokens, b)
+            twin.tick(sync=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    warm = make(cfg["warm"], 1, cfg["edit_rows"])
+    window(*warm)
+    per_tick(warm[0])
+    single = make(cfg["edits"], 1, cfg["edit_rows"])
+    s_wall, s_ops = window(*single)
+    s_tick = per_tick(single[0])
+    grouped = make(cfg["group_ticks"], cfg["group"], cfg["group_rows"])
+    b_wall, b_ops = window(*grouped)
+    b_tick = per_tick(grouped[0])
 
     def prepare():
         b = _pad(DeltaBatch.concat([edit() for _ in range(cfg["group"])]),
                  cfg["group_rows"])
+        twin.push(tg2.tokens, b)
+        twin.tick()
+        windows["traced"] += 1
         return lambda: sched.tick_many([{tg.tokens: b}])
 
     _, t_wall, prof = traced_step(prepare, "tfidf batched tick")
     rep = compositions("tfidf", "batched", t_wall, prof, card)
+    if windows["syncs"] or windows["reads"] or \
+            sched.megatick_fallbacks or \
+            sched.megatick_windows != windows["calls"] + windows["traced"]:
+        raise AssertionError(f"tfidf windows: {windows}, megatick_windows "
+                             f"{sched.megatick_windows}, fallbacks "
+                             f"{sched.megatick_fallbacks}")
 
     # exact tables against counts from the corpus, then the combine
     t0 = time.perf_counter()
@@ -1474,6 +1587,12 @@ def phase_tfidf(card: str) -> Dict[str, object]:
              {0: float(len(corpus.docs))})):
         if {int(k): float(v) for k, v in got.items()} != want:
             raise AssertionError(f"tfidf {name} table != the corpus's counts")
+    twin_tables = [twin.read_table(n) for n in (tg2.tf, tg2.df, tg2.ndocs)]
+    for name, got, want in zip(("tf", "df", "ndocs"), twin_tables, tables):
+        if {int(k): float(v) for k, v in got.items()} != \
+                {int(k): float(v) for k, v in want.items()}:
+            raise AssertionError(f"tfidf {name}: the per-tick twin's table "
+                                 f"!= the window path's")
     got = tfidf.tfidf_view(sched, tg, corpus)
     ref = corpus.reference_tfidf()
     if set(got) != set(ref):
@@ -1485,26 +1604,42 @@ def phase_tfidf(card: str) -> Dict[str, object]:
         raise AssertionError(f"tfidf view vs reference: relative {rel:.3g}")
     check_s = time.perf_counter() - t0
     n_edits = cfg["edits"]
+    queues = [q for key, q in ex._window_cache.items()
+              if key[0] == "ingress_q"]
     log(f"[tfidf] {cfg['docs']} docs, {cfg['n_terms']} terms, "
         f"{cfg['n_pairs']} pairs, {len(corpus.terms)} terms and "
         f"{len(corpus.pairs)} pairs interned [{card}]")
     log(f"[tfidf] single edits: {n_edits} ticks of {cfg['edit_rows']} "
-        f"rows in {s_wall * 1e3:.3f} ms = {s_wall / n_edits * 1e3:.4f} ms a "
-        f"tick amortized, {s_ops / s_wall:.1f} delta-ops/s (pad rows out)")
+        f"rows, one window: {s_wall * 1e3:.3f} ms = "
+        f"{s_wall / n_edits * 1e3:.4f} ms a tick amortized, "
+        f"{s_ops / s_wall:.1f} delta-ops/s (pad rows out); per-tick tick()s "
+        f"of the same feeds: {s_tick * 1e3:.3f} ms = "
+        f"{s_tick / n_edits * 1e3:.4f} ms a tick [{card}]")
     log(f"[tfidf] batched: {cfg['group_ticks']} ticks of {cfg['group']} "
-        f"edits ({cfg['group_rows']} rows) in {b_wall * 1e3:.3f} ms = "
+        f"edits ({cfg['group_rows']} rows), one window: "
+        f"{b_wall * 1e3:.3f} ms = "
         f"{b_wall / cfg['group_ticks'] * 1e3:.4f} ms a tick amortized, "
         f"{b_ops / b_wall:.1f} delta-ops/s, "
-        f"{cfg['group'] * cfg['group_ticks'] / b_wall:.1f} edits/s")
+        f"{cfg['group'] * cfg['group_ticks'] / b_wall:.1f} edits/s; "
+        f"per-tick tick()s of the same feeds: {b_tick * 1e3:.3f} ms = "
+        f"{b_tick / cfg['group_ticks'] * 1e3:.4f} ms a tick [{card}]")
+    log(f"[tfidf] window path: megatick_windows {sched.megatick_windows}, "
+        f"megatick_fallbacks {sched.megatick_fallbacks}, forced syncs and "
+        f"loop reads between stage and block() {windows['syncs']} and "
+        f"{windows['reads']}; {len(queues)} ingress queues, "
+        f"{sum(q.nbytes for q in queues)} B on the card")
     log(f"[tfidf] tf ({len(tables[0])} pairs), df ({len(tables[1])} terms) "
-        f"and ndocs ({len(corpus.docs)}) == the corpus's counts exactly; "
+        f"and ndocs ({len(corpus.docs)}) == the corpus's counts exactly "
+        f"and == the per-tick twin's; "
         f"tfidf view max relative error {rel:.3g} (bound 1e-5) over "
         f"{len(ref)} pairs; check {check_s:.2f} s on the host; traced "
         f"batched tick device busy {rep['busy_share'] * 100:.1f}%; forced "
         f"syncs {sched.forced_syncs} [{card}]")
     return {"single_ms": s_wall / n_edits * 1e3,
             "single_dops": s_ops / s_wall,
+            "single_tick_ms": s_tick / n_edits * 1e3,
             "batched_ms": b_wall / cfg["group_ticks"] * 1e3,
+            "batched_tick_ms": b_tick / cfg["group_ticks"] * 1e3,
             "batched_dops": b_ops / b_wall, "rel_err": rel}
 
 
@@ -1885,10 +2020,12 @@ def phase_multiset(card: str) -> Dict[str, object]:
 
 #: BASELINE.md config 5 at full width (bench_configs.py:565-740): ViT-B/16
 #: with init_vit(0) weights, 256 images a tick, 2^14 image ids, 64 groups
-#: (id % 64), ImageStream seed 5; cut: ticks run one at a time (the
-#: window path is not ported), 4 upload ticks and 4 on-card ticks
+#: (id % 64), ImageStream seed 5; cut: 4 upload ticks and 4 on-card ticks
+#: one at a time, then the window leg: tick_many windows of 4 ticks of
+#: host images (bench_configs.py:586-630's shape), one warm and 2 timed
 IMAGE_EMBED = dict(per_tick=256, n_images=1 << 14, n_groups=64, seed=5,
-                   ticks=4, check_images=32, check_batch=256)
+                   ticks=4, window_ticks=4, windows=2, check_images=32,
+                   check_batch=256)
 #: H100 SXM dense bf16 peak (NVIDIA's data sheet): the MFU denominator
 BF16_OPS_PER_S = 989.4e12
 #: the card's ViT against its plain version on the same tensors. _dot:
@@ -2062,6 +2199,53 @@ def phase_image_embed(card: str) -> Dict[str, object]:
     feed_s = time.perf_counter() - t0
     upload = [tick(built(b)) for b in feeds]
     on_card = [tick(device_batch) for _ in range(cfg["ticks"])]
+
+    # the window leg: tick_many windows of host images through the
+    # ingress queue (pinned staging, asynchronous slot copies), feeds
+    # built before the clock; the first window allocates the queue
+    K = cfg["window_ticks"]
+    win_walls: List[float] = []
+    for w in range(1 + cfg["windows"]):
+        wfeeds = [{ig.images: host_batch()} for _ in range(K)]
+        w0 = sched.megatick_windows
+        t0 = time.perf_counter()
+        sched.tick_many(wfeeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sched.megatick_windows != w0 + 1 or sched.megatick_fallbacks:
+            raise AssertionError("an image_embed tick_many call did not "
+                                 "take one window")
+        if w:
+            win_walls.append(wall)
+    staged_mb = sum(len(f[ig.images]) * (4 + 4 + f[ig.images].values[0].size
+                                          * f[ig.images].values.itemsize)
+                    for f in wfeeds) / 1e6
+    (queue,) = [q for key, q in ex._window_cache.items()
+                if key[0] == "ingress_q"]
+    # the same windows through the serving pump at depth 2: every batch
+    # submitted while paused, then one backlog of 2 windows, the second
+    # staged while the first runs on the card
+    pump_batches = [host_batch() for _ in range(2 * K)]
+    fe = IngestFrontend(sched, window=CoalesceWindow(
+        max_rows=n, max_ticks=K, max_latency_s=0.001), max_bytes=1 << 32)
+    try:
+        fe.pause()
+        tks = [fe.submit(ig.images, b) for b in pump_batches]
+        t0 = time.perf_counter()
+        fe.resume()
+        fe.flush(timeout=120)
+        torch.cuda.synchronize()
+        pump_wall = time.perf_counter() - t0
+        if not all(t.result(timeout=60).applied for t in tks):
+            raise AssertionError("an image_embed pump ticket was not "
+                                 "applied")
+    finally:
+        fe.close()
+    if (fe.depth, fe.windows_staged, fe.windows_pipelined) != (2, 2, 1):
+        raise AssertionError(f"image_embed pump: depth {fe.depth}, staged "
+                             f"{fe.windows_staged}, pipelined "
+                             f"{fe.windows_pipelined}")
+    pump_overlap = fe.stage_overlap_frac
     # the upload leg's host boundary alone: the scheduler's concat of the
     # pending batch, and to_device (the padded host copy and the
     # pageable host-to-card copy)
@@ -2091,8 +2275,12 @@ def phase_image_embed(card: str) -> Dict[str, object]:
     # one traced tick of each leg: host images (the upload path in the
     # trace) and images made on the card
     reps = {}
-    for kind, make in (("upload", host_batch), ("on-card", device_batch)):
+    for kind, make in (("upload", host_batch), ("on-card", device_batch),
+                       ("window", None)):
         def prepare(make=make):
+            if make is None:
+                wf = [{ig.images: host_batch()} for _ in range(K)]
+                return lambda: sched.tick_many(wf)
             b = make()
 
             def one():
@@ -2101,25 +2289,47 @@ def phase_image_embed(card: str) -> Dict[str, object]:
             return one
 
         _, t_wall, prof = traced_step(prepare, f"image_embed {kind} tick")
-        rep = compositions("image_embed", kind, t_wall, prof, card,
-                           host_ops=VIT_HOST_OPS)
-        spans = rep["spans"]
-        total = sum(b - a for a, b, _ in rep["dev"])
-        gemm = spans.get("vit.gemm", [0.0, 0])
-        attn = spans.get("vit.attn_products", [0.0, 0])
-        fwd = spans.get("map", [0.0, 0])
-        elem = [fwd[0] - gemm[0] - attn[0], fwd[1] - gemm[1] - attn[1]]
-        log(f"[trace] image_embed {kind} split of the device time: bf16 "
-            f"GEMMs {gemm[0] / 1e3:.3f} ms in {gemm[1]} ops; float32 "
-            f"attention products {attn[0] / 1e3:.3f} ms in {attn[1]} ops; "
-            f"elementwise (LN, bias, GELU, softmax, casts, layout copies) "
-            f"{elem[0] / 1e3:.3f} ms in {elem[1]} ops; outside the forward "
-            f"(upload, GroupBy, Reduce) {(total - fwd[0]) / 1e3:.3f} ms; "
-            f"all {total / 1e3:.3f} ms [{card}]")
+        by_op = launched_by_op(prof)
+        if make is None:
+            # a K-tick trace: the profiler's range tree (the composition
+            # table) counts some kernels of this long trace under two
+            # ranges, so the split comes from the launching ops, each
+            # kernel counted once: aten::mm the bf16 GEMMs, aten::bmm the
+            # float32 attention products
+            rep = trace_report(f"image_embed {kind}", t_wall, prof, card,
+                               VIT_HOST_OPS)
+            ops = dict(by_op)
+            total = sum(b - a for a, b, _ in rep["dev"])
+            gemm = list(ops.get("aten::mm", (0.0, 0)))
+            attn = list(ops.get("aten::bmm", (0.0, 0)))
+            log(f"[trace] image_embed {kind} ({K} ticks) split of the "
+                f"device time by launching op: bf16 GEMMs "
+                f"{gemm[0] / 1e3:.3f} ms in {gemm[1]} ops; float32 "
+                f"attention products {attn[0] / 1e3:.3f} ms in {attn[1]} "
+                f"ops; the rest (elementwise, slot copies, GroupBy, "
+                f"Reduce) {(total - gemm[0] - attn[0]) / 1e3:.3f} ms; all "
+                f"{total / 1e3:.3f} ms [{card}]")
+        else:
+            rep = compositions("image_embed", kind, t_wall, prof, card,
+                               host_ops=VIT_HOST_OPS)
+            spans = rep["spans"]
+            total = sum(b - a for a, b, _ in rep["dev"])
+            gemm = spans.get("vit.gemm", [0.0, 0])
+            attn = spans.get("vit.attn_products", [0.0, 0])
+            fwd = spans.get("map", [0.0, 0])
+            elem = [fwd[0] - gemm[0] - attn[0], fwd[1] - gemm[1] - attn[1]]
+            log(f"[trace] image_embed {kind} split of the device time: bf16 "
+                f"GEMMs {gemm[0] / 1e3:.3f} ms in {gemm[1]} ops; float32 "
+                f"attention products {attn[0] / 1e3:.3f} ms in {attn[1]} "
+                f"ops; elementwise (LN, bias, GELU, softmax, casts, layout "
+                f"copies) {elem[0] / 1e3:.3f} ms in {elem[1]} ops; outside "
+                f"the forward (upload, GroupBy, Reduce) "
+                f"{(total - fwd[0]) / 1e3:.3f} ms; all {total / 1e3:.3f} ms "
+                f"[{card}]")
         log(f"[trace] image_embed {kind} device time by the op that "
             f"launched it: " + "; ".join(
                 f"{name} {us / 1e3:.3f} ms in {k}"
-                for name, (us, k) in launched_by_op(prof)[:12]))
+                for name, (us, k) in by_op[:12]))
         reps[kind] = rep
     peak = torch.cuda.max_memory_allocated()
 
@@ -2142,17 +2352,29 @@ def phase_image_embed(card: str) -> Dict[str, object]:
            "centroid_err": err, "peak_bytes": peak,
            "busy_share": {k: r["busy_share"] for k, r in reps.items()},
            **checks}
-    for leg, walls in (("upload", upload), ("on-card", on_card)):
-        med = _median(walls)
+    for leg, walls, per in (("upload", upload, 1), ("on-card", on_card, 1),
+                            ("window", win_walls, K),
+                            ("pump", [pump_wall], 2 * K)):
+        med = _median(walls) / per
         ips = n / med
         tflops = ips * flops / 1e12
-        log(f"[image_embed] {leg} leg: tick ms "
-            f"{[round(w * 1e3, 3) for w in walls]}, median {med * 1e3:.3f} "
-            f"ms, {ips:.1f} images/s, model {tflops:.2f} TFLOP/s, MFU "
+        log(f"[image_embed] {leg} leg: "
+            f"{'wall' if per > 1 else 'tick'} ms "
+            f"{[round(w * 1e3, 3) for w in walls]}, median tick "
+            f"{med * 1e3:.3f} ms{' amortized' if per > 1 else ''}, "
+            f"{ips:.1f} images/s, model {tflops:.2f} TFLOP/s, MFU "
             f"{tflops * 1e12 / BF16_OPS_PER_S * 100:.2f}% of the dense bf16 "
             f"peak {BF16_OPS_PER_S / 1e12:.1f} TFLOP/s [{card}]")
         out[leg] = {"median_ms": med * 1e3, "images_per_s": ips,
                     "tflops": tflops}
+    log(f"[image_embed] window leg: {K} ticks x {n} host images a window, "
+        f"{staged_mb:.3f} MB staged a window (int32 keys, uint8 rows, "
+        f"int32 weights); the queue: {queue.generations} generation(s), "
+        f"{queue.nbytes} B on the card, {queue.host_nbytes} B pinned; "
+        f"megatick_windows {sched.megatick_windows}, megatick_fallbacks "
+        f"{sched.megatick_fallbacks}; the pump leg: {2 * K} batches in 2 "
+        f"windows at depth 2 from resume to flushed, stage_overlap_frac "
+        f"{pump_overlap:.3f} [{card}]")
     log(f"[image_embed] ViT-B/16 ({flops / 1e9:.2f} GFLOP an image), {n} "
         f"images a tick, {N} ids, {G} groups; weights {init_s:.2f} s on "
         f"the host for two sets; feeds {feed_s:.3f} s (outside the clock); "
@@ -2173,22 +2395,235 @@ def phase_image_embed(card: str) -> Dict[str, object]:
     return out
 
 
+# -- phase 12: window parity on the card -------------------------------------
+
+#: the reference's depth-fuzz graph (tests/test_pipeline.py: source -> map
+#: -> sum Reduce, small-integer values so every sum is exact in float32 in
+#: any order) at a size where the asynchronous slot copies matter: 16
+#: batches of 8192 rows a K-tick window, every slot holding different rows
+WINDOW_PARITY = dict(key_space=1 << 16, rows=8192, batches=16, seed=12,
+                     depths=(1, 2, 4), ks=(2, 4), rounds=3)
+#: the PageRank window leg: config 3's width, 4 churn ticks in one window
+PAGERANK_WINDOW = dict(PAGERANK, churn_ticks=4)
+
+
+def _fuzz_graph(key_space: int):
+    g = FlowGraph("window_parity")
+    s = g.source("s", Spec((), np.float32, key_space=key_space))
+    m = g.map(s, lambda v: v * np.float32(2), vectorized=True)
+    return g, s, g.reduce(m, "sum", tol=0.0)
+
+
+def _table_array(sched, node, key_space: int) -> np.ndarray:
+    """A Reduce's table as a dense float64 array (absent keys NaN)."""
+    out = np.full(key_space, np.nan)
+    for k, v in sched.read_table(node).items():
+        out[int(k)] = float(np.asarray(v).reshape(()))
+    return out
+
+
+def phase_window_parity(card: str) -> Dict[str, object]:
+    """The depth-fuzz graph through ``IngestFrontend`` on the card at
+    depths 1, 2 and 4 and windows of 2 and 4 ticks (pause, submit every
+    batch, resume, flush: the pump drains one backlog, so every window
+    but the first stages while the one before is in flight), each
+    (K, depth) leg three times with the depth order reversed every other
+    round, and the median time of each printed; every leg's table equals
+    the CPU oracle's, so the depths agree. Then a PageRank
+    window: 4 churn ticks in one ``tick_many`` on the fused loop at
+    config 3's width, the per-tick iters and converged flags back as [4]
+    stacks, the ranks within the bound of phase 5."""
+    cfg = WINDOW_PARITY
+    KS, R, NB = cfg["key_space"], cfg["rows"], cfg["batches"]
+    rng = np.random.default_rng(cfg["seed"])
+    batches = [DeltaBatch(rng.integers(0, KS, R).astype(np.int64),
+                          rng.integers(0, 8, R).astype(np.float32),
+                          np.ones(R, np.int64)) for _ in range(NB)]
+    g, s, r = _fuzz_graph(KS)
+    oracle = DirtyScheduler(g, CpuExecutor())
+    t0 = time.perf_counter()
+    for b in batches:
+        oracle.push(s, b)
+        oracle.tick()
+    want = _table_array(oracle, r, KS)
+    oracle_s = time.perf_counter() - t0
+    out: Dict[str, object] = {}
+
+    def leg(k: int, depth: int) -> float:
+        g, s, r = _fuzz_graph(KS)
+        sched = DirtyScheduler(g, get_executor("cuda"))
+        fe = IngestFrontend(sched, depth=depth, window=CoalesceWindow(
+            max_rows=R, max_ticks=k, max_latency_s=0.001),
+            max_bytes=1 << 30)
+        try:
+            fe.pause()
+            tks = [fe.submit(s, b) for b in batches]
+            t0 = time.perf_counter()
+            fe.resume()
+            fe.flush(timeout=120)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not all(t.result(timeout=60).applied for t in tks):
+                raise AssertionError("a window-parity ticket was not "
+                                     "applied")
+        finally:
+            fe.close()
+        nw = NB // k
+        want_staged = nw if depth > 1 else 0
+        want_piped = nw - 1 if depth > 1 else 0
+        if (sched.megatick_windows != nw or sched.megatick_fallbacks
+                or fe.windows_staged != want_staged
+                or fe.windows_pipelined != want_piped):
+            raise AssertionError(
+                f"depth {depth}, K {k}: windows "
+                f"{sched.megatick_windows}, fallbacks "
+                f"{sched.megatick_fallbacks}, staged "
+                f"{fe.windows_staged}, pipelined {fe.windows_pipelined}")
+        # every leg's table, at every depth, equals the CPU oracle's
+        if not np.array_equal(_table_array(sched, r, KS), want,
+                              equal_nan=True):
+            raise AssertionError(f"depth {depth}, K {k}: the table != the "
+                                 f"CPU oracle's")
+        (q,) = [q for key, q in sched.executor._window_cache.items()
+                if key[0] == "ingress_q"]
+        log(f"[window] depth {depth}, K {k}: {NB} batches of {R} rows in "
+            f"{nw} windows, {wall * 1e3:.3f} ms from resume to flushed "
+            f"({wall / NB * 1e3:.4f} ms a tick); windows_staged "
+            f"{fe.windows_staged}, windows_pipelined "
+            f"{fe.windows_pipelined}, stage_overlap_frac "
+            f"{fe.stage_overlap_frac:.3f}; queue generations "
+            f"{q.generations}, {q.nbytes} B on the card [{card}]")
+        return wall
+
+    # the depths in turn, the order reversed every other round, so that
+    # neither warm-up nor drift favours a depth; the median of the rounds
+    for k in cfg["ks"]:
+        walls: Dict[int, List[float]] = {d: [] for d in cfg["depths"]}
+        for rnd in range(cfg["rounds"]):
+            order = cfg["depths"][::-1] if rnd % 2 else cfg["depths"]
+            for depth in order:
+                walls[depth].append(leg(k, depth))
+        for depth, ws in walls.items():
+            out[(k, depth)] = float(np.median(ws))
+        log(f"[window] K {k}: median ms from resume to flushed over "
+            f"{cfg['rounds']} rounds, " + ", ".join(
+                f"depth {d} {out[(k, d)] * 1e3:.3f} "
+                f"({[round(w * 1e3, 3) for w in walls[d]]})"
+                for d in cfg["depths"]) + f" [{card}]")
+    log(f"[window] depth-fuzz tables ({int(np.isfinite(want).sum())} keys) "
+        f"equal across depths {cfg['depths']} and windows {cfg['ks']}, and "
+        f"equal to the CPU oracle ({oracle_s:.2f} s on the host) exactly "
+        f"[{card}]")
+
+    # PageRank: 4 churn ticks in one window on the fused loop, beside a
+    # twin scheduler fed the same batches tick by tick (two rounds, the
+    # twin first in the first and second in the second)
+    pcfg = PAGERANK_WINDOW
+    n, K = pcfg["n_nodes"], pcfg["churn_ticks"]
+    legs = {}
+    for leg in ("window", "per-tick"):
+        pg, web, ex, sched, _arena = pagerank_setup(pcfg, {})
+        sched.push(pg.teleport, pagerank.teleport_batch(n))
+        sched.push(pg.edges, web.initial_batch())
+        sched.tick()
+        if not isinstance(ex._fx_program, LinearFixpointProgram):
+            raise AssertionError("the PageRank window leg did not take "
+                                 "the fused loop")
+        legs[leg] = (pg, web, ex, sched)
+    churn = [[legs["window"][1].churn(pcfg["churn"]) for _ in range(K)]
+             for _ in range(2)]
+    for _ in range(2 * K):      # the twin's web takes the same churn
+        legs["per-tick"][1].churn(pcfg["churn"])
+    walls: Dict[str, List[float]] = {"window": [], "per-tick": []}
+    iters_h: List[int] = []
+    conv_h: List[bool] = []
+    per_passes: List[int] = []
+    reads = 0
+    for rnd in range(2):
+        order = ("per-tick", "window") if rnd == 0 else ("window",
+                                                          "per-tick")
+        for leg in order:
+            pg, web, ex, sched = legs[leg]
+            r0 = ex.loop_reads + ex.host_syncs
+            t0 = time.perf_counter()
+            if leg == "window":
+                res = sched.tick_many([{pg.edges: b} for b in churn[rnd]])
+            else:
+                rs = []
+                for b in churn[rnd]:
+                    sched.push(pg.edges, b)
+                    rs.append(sched.tick(sync=False))
+            torch.cuda.synchronize()
+            walls[leg].append(time.perf_counter() - t0)
+            if leg == "per-tick":
+                per_passes += [r.block().passes for r in rs]
+                continue
+            conv, iters = res.quiesced, res.passes.parts[1]
+            if not (isinstance(conv, torch.Tensor)
+                    and tuple(conv.shape) == (K,)
+                    and isinstance(iters, torch.Tensor)
+                    and tuple(iters.shape) == (K,)):
+                raise AssertionError(f"PageRank window: iters {iters!r}, "
+                                     f"conv {conv!r}")
+            it, cv = iters.tolist(), conv.tolist()
+            res.block()
+            r1 = ex.loop_reads + ex.host_syncs
+            if r1 - r0 != sum(it) + 3 * K:
+                raise AssertionError(f"PageRank window: {r1 - r0} readbacks "
+                                     f"for iters {it} (iters + 3 a tick)")
+            reads += r1 - r0
+            iters_h += it
+            conv_h += cv
+    pg, web, ex, sched = legs["window"]
+    err = rank_error(sched, pg, web, n)
+    twin = legs["per-tick"]
+    err_t = rank_error(twin[3], twin[0], twin[1], n)
+    if (sched.megatick_windows != 2 or sched.megatick_fallbacks
+            or not all(conv_h) or err["rel_err"] > PAGERANK_MAX_REL_ERR
+            or err_t["rel_err"] > PAGERANK_MAX_REL_ERR):
+        raise AssertionError(f"PageRank window: windows "
+                             f"{sched.megatick_windows}, conv {conv_h}, "
+                             f"rel err {err['rel_err']:.3g} (twin "
+                             f"{err_t['rel_err']:.3g})")
+    wall = sum(walls["window"])
+    log(f"[window] PageRank: 2 windows of {K} churn ticks of 1% in one "
+        f"tick_many each on the fused loop, {[round(w * 1e3, 3) for w in walls['window']]} "
+        f"ms = {wall / (2 * K) * 1e3:.3f} ms a tick amortized; the per-tick "
+        f"twin, same batches: {[round(w * 1e3, 3) for w in walls['per-tick']]} "
+        f"ms = {sum(walls['per-tick']) / (2 * K) * 1e3:.3f} ms a tick; iters "
+        f"{iters_h} (twin passes {per_passes}), converged {conv_h} (host "
+        f"values re-uploaded as [{K}] device stacks, read back at "
+        f"block()); readbacks {reads} = iters + 3 a tick; max|rank - ref| / max(ref, 1) = {err['rel_err']:.3g}, twin "
+        f"{err_t['rel_err']:.3g} (bound {PAGERANK_MAX_REL_ERR:g}) [{card}]")
+    out["pagerank"] = {"walls_s": walls, "iters": iters_h,
+                       "rel_err": err["rel_err"]}
+    return out
+
+
 def main() -> int:
-    dev = phase_device()
-    phase_build()
-    recs = phase_kernels("cuda")
-    serve = phase_serve(dev["card"])
+    t_start = time.perf_counter()
+    spent: Dict[str, float] = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    dev = timed(phase_device)
+    card = dev["card"]
+    timed(phase_build)
+    recs = timed(phase_kernels, "cuda")
+    serve = timed(phase_serve, card)
     # the other paths run no hand-written kernel: their counts stay 0
     topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
-    phase_pagerank(dev["card"])
-    phase_fused(dev["card"])
-    phase_row_leg(dev["card"])
-    phase_defer_leg(dev["card"])
-    phase_wordcount(dev["card"])
-    phase_tfidf(dev["card"])
-    phase_sssp(dev["card"])
-    phase_multiset(dev["card"])
-    phase_image_embed(dev["card"])
+    for phase in (phase_pagerank, phase_fused, phase_row_leg,
+                  phase_defer_leg, phase_wordcount, phase_tfidf, phase_sssp,
+                  phase_multiset, phase_image_embed, phase_window_parity):
+        timed(phase, card)
+    log("[time] s a phase: " + ", ".join(
+        f"{name[len('phase_'):]} {s:.1f}" for name, s in spent.items())
+        + f"; all phases {time.perf_counter() - t_start:.1f} s [{card}]")
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
         raise AssertionError("a phase after the serving slice launched a "
                              "top-k kernel")

@@ -13,7 +13,9 @@ Ported so far: the k-NN re-index workload served end to end
 KnnIndex lowering -> the top-k kernel), every row lowering with
 PageRank, word-count, TF-IDF and SSSP, and the ViT-B/16 image-embed ETL
 (``models``, ``workloads.image_embed``: a Map whose ``params`` are the
-model's weights).
+model's weights), and the window path: K ticks staged into the device
+ingress queue and run in one executor call (``tick_many``), pipelined by
+the serving pump at depth > 1.
 """
 
 from reflow_tpu_torch.delta import DeltaBatch, Spec

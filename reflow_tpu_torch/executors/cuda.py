@@ -19,6 +19,19 @@ compact-or-append, the fused loop's CSR rebuild) goes through
 there is no compiled-program cache: the program objects are built once
 per bound graph. One card needs no ``place``.
 
+The window path (``tick_many``'s fused branch and the serve pump's
+staged windows): :meth:`stage_window` writes a K-tick window's host
+batches into the persistent slots of a ``DeviceIngressQueue``
+(``executors/ingress_queue.py``), :meth:`dispatch_window` runs the K
+ticks over those slots in one call, and :meth:`retire_window` frees the
+queue generation. Where JAX ``lax.scan``s a jitted tick over donated
+buffers, the port runs an eager K-tick loop over slot views on one
+stream: no host readback between ticks beyond the ones the per-tick path
+pays (a k-NN tick's path choice, a loop's per-pass reads). JAX also
+shares its compiled loop-free window program across structurally
+identical graphs; the port's is an eager pass built in microseconds, so
+each executor keeps its own.
+
 Refused at :meth:`bind` with "not ported yet": op kinds without a
 lowering. A Map with ``params`` binds them as its state, a copy of the
 tree on the executor's device (:meth:`update_params` swaps it with no
@@ -36,7 +49,7 @@ from __future__ import annotations
 
 import time
 from collections import Counter
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,9 +58,11 @@ from reflow_tpu_torch.delta import DeltaBatch, torch_dtype
 from reflow_tpu_torch.executors.arena import propagate_plan_caps
 from reflow_tpu_torch.executors.base import Executor
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
+                                                     bucket_capacity,
                                                      resolve_device,
                                                      to_device, to_host)
-from reflow_tpu_torch.executors.fixpoint import FixpointProgram, analyze
+from reflow_tpu_torch.executors.fixpoint import (FixpointProgram, analyze,
+                                                 slot_ingress)
 from reflow_tpu_torch.executors.linear_fixpoint import (
     LinearFixpointProgram, analyze_linear, resid_state)
 from reflow_tpu_torch.executors.lowerings import (LOWERINGS, join_state,
@@ -56,12 +71,37 @@ from reflow_tpu_torch.executors.lowerings import (LOWERINGS, join_state,
                                                   reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
+from reflow_tpu_torch.utils.config import env_int
+from reflow_tpu_torch.utils.metrics import profile_annotation
 from reflow_tpu_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["CudaExecutor"]
+__all__ = ["CudaExecutor", "StagedWindow"]
 
 #: op kinds whose lowering keeps no state
 _STATELESS = ("map", "filter", "groupby", "union")
+
+
+class StagedWindow:
+    """A staged-but-not-yet-dispatched K-tick window: the ingress queue
+    generation its slot writes landed in, the [K, cap] stack the window
+    reads, and everything :meth:`CudaExecutor.dispatch_window` /
+    :meth:`CudaExecutor.retire_window` need to finish the lifecycle.
+    ``fresh`` is filled by dispatch (the stack the window hands back)
+    and consumed by retire."""
+
+    __slots__ = ("plan", "caps", "K", "max_iters", "queue", "gen", "stack",
+                 "qsig", "fresh")
+
+    def __init__(self, plan, caps, K, max_iters, queue, gen, stack, qsig):
+        self.plan = plan
+        self.caps = caps
+        self.K = K
+        self.max_iters = max_iters
+        self.queue = queue
+        self.gen = gen
+        self.stack = stack
+        self.qsig = qsig
+        self.fresh = None
 
 
 def _error_reason(node: Node) -> str:
@@ -118,6 +158,20 @@ class CudaExecutor(Executor):
         #: full CSR rebuilds by cause: initial, gen (a compaction), shrunk
         #: (rcount below the cache's count), tail (the tail overflowed)
         self.csr_rebuilds: Counter = Counter()
+        #: window path: ingress queues and loop-free window programs by
+        #: (plan, caps[, K]) signature (dropped on a bind of another graph)
+        self._window_cache: Dict[tuple, object] = {}
+        #: per-source host batches above this row bound don't fit a
+        #: reasonable queue slot: the scheduler falls back to the per-tick
+        #: path instead
+        self.megatick_max_rows = env_int("REFLOW_MEGATICK_MAX_ROWS")
+        #: windows dispatched through the device ingress queue
+        self.window_dispatches = 0
+
+    #: the obs tag of this executor's device in spans and gauges
+    @property
+    def device_label(self) -> Optional[str]:
+        return str(self.device)
 
     def _reset_fixpoint(self) -> None:
         self._fx_structure = None
@@ -145,6 +199,7 @@ class CudaExecutor(Executor):
     def bind(self, graph: FlowGraph) -> None:
         if graph is not self.graph:
             self._reset_fixpoint()
+            self._window_cache.clear()
         # state is reset below: any sorted-arena cache is now stale
         self._csr_cache.clear()
         self.graph = graph
@@ -288,17 +343,8 @@ class CudaExecutor(Executor):
         values whatever ``sync`` says; ``leftover`` holds the row
         program's live carry after a ``max_iters`` halt (the scheduler
         stashes it, and the next tick resumes)."""
-        if self._fx_unsupported:
+        if self._ensure_fx_program() is None:
             return None
-        if self._fx_structure is None:
-            self._fx_structure = analyze(self.graph)
-            if self._fx_structure is None:
-                self._fx_unsupported = True
-                return None
-        if self._fx_program is None:
-            self._fx_program = self._build_fixpoint()
-            if self._fx_program is None:
-                return None
 
         t0 = time.perf_counter() if _trace.ENABLED else 0.0
         dev_ingress = self._to_device_ingress(ingress)
@@ -344,6 +390,224 @@ class CudaExecutor(Executor):
                     self._linear_fixpoint = False
                     self._linear_structure = None
         return FixpointProgram(self, structure=self._fx_structure)
+
+    def _ensure_fx_program(self):
+        """The bound graph's fixpoint program, built on first use (None
+        when the graph has no fixpoint structure)."""
+        if self._fx_unsupported:
+            return None
+        if self._fx_structure is None:
+            self._fx_structure = analyze(self.graph)
+            if self._fx_structure is None:
+                self._fx_unsupported = True
+                return None
+        if self._fx_program is None:
+            self._fx_program = self._build_fixpoint()
+        return self._fx_program
+
+    # -- the window path: K ticks in one call ------------------------------
+
+    def supports_window(self) -> bool:
+        """Does the bound graph fit the window path? The scheduler's
+        ``window_support`` and the serve frontend read this to decide
+        whether the window path can engage at all. ``fixpoint=False``
+        opts out (ticks stay per-tick), and sinks need per-tick host
+        egress."""
+        if self.graph is None or not self.fixpoint or self.graph.sinks:
+            return False
+        if not self.graph.loops:
+            return True
+        if self._fx_unsupported:
+            return False
+        if self._fx_structure is None:
+            self._fx_structure = analyze(self.graph)
+            if self._fx_structure is None:
+                self._fx_unsupported = True
+                return False
+        return True
+
+    def run_window(self, plan, feeds, max_iters):
+        """One K-tick commit window in ONE call, fed from the ingress
+        queue: each host batch is written into a persistent queue slot
+        and the window's tick loop reads the slots in place. ``feeds`` is
+        a list of K ``{node_id: batch}`` ingress dicts with identical node
+        sets. As in JAX, each tick's fixpoint carry is dropped before the
+        next: a row-program tick that halts at ``max_iters`` inside a
+        window does not resume (its converged flag comes back False at
+        ``block()``). Returns ``(passes_base, iters, rows, converged,
+        extra_dirty)``, or None when the window doesn't fit
+        (device-resident batches, rows above ``megatick_max_rows``, an
+        unsupported graph) — the scheduler then runs the ticks one by
+        one. The depth-1 composition of :meth:`stage_window` →
+        :meth:`dispatch_window` → :meth:`retire_window`."""
+        sw = self.stage_window(plan, feeds, max_iters)
+        if sw is None:
+            return None
+        out = self.dispatch_window(sw)
+        if out is None:
+            return None
+        self.retire_window(sw)
+        return out
+
+    def stage_window(self, plan, feeds, max_iters):
+        """Front half of the window lifecycle: check the window fits the
+        fused path, write every host batch into the ingress queue's
+        staging generation, and SEAL that generation (the queue's next
+        write rotates onto a free set, so a pipelined caller can stage
+        window N+1 while N is in flight). Returns a
+        :class:`StagedWindow`, or None when the window doesn't fit
+        (nothing is staged or sealed then). A key outside int32 raises
+        ``DeliveryError`` with nothing sealed.
+
+        A successful stage guarantees the dispatch can engage: for loop
+        graphs the fixpoint program is built here, so the caller may
+        commit irreversible work (a WAL append) between stage and
+        dispatch."""
+        if not self.supports_window():
+            return None
+        K = len(feeds)
+        node_ids = sorted(feeds[0])
+        if any(sorted(f) != node_ids for f in feeds):
+            return None
+        caps: Dict[int, int] = {}
+        for nid in node_ids:
+            rows = 0
+            for f in feeds:
+                b = f[nid]
+                if hasattr(b, "nonzero"):
+                    # already device-resident: no host rows to write
+                    # (and len() would read back) — the per-tick path
+                    return None
+                rows = max(rows, len(b))
+            if rows > self.megatick_max_rows:
+                return None
+            caps[nid] = bucket_capacity(rows)
+
+        if self.graph.loops:
+            # build the fixpoint program NOW: dispatch must not be able to
+            # refuse after the caller logged the staged window
+            prog = self._ensure_fx_program()
+            if prog is None or not hasattr(prog, "call_many"):
+                return None
+
+        qsig = ("ingress_q", tuple(n.id for n in plan),
+                tuple(sorted(caps.items())), K)
+        queue = self._window_cache.get(qsig)
+        if queue is None:
+            from reflow_tpu_torch.executors.ingress_queue import (
+                DeviceIngressQueue)
+
+            # negotiate capacity with the arena BEFORE reserving device
+            # memory: impossible ingress sizes raise here, not mid-window
+            self._track_arena(plan, caps)
+            queue = DeviceIngressQueue(
+                {nid: self.graph.nodes[nid].spec for nid in node_ids},
+                caps, K, placement=self.device)
+            self._window_cache[qsig] = queue
+
+        t_h0 = time.perf_counter() if _trace.ENABLED else 0.0
+        for t, f in enumerate(feeds):
+            for nid in node_ids:
+                queue.write(t, nid, f[nid])
+        if _trace.ENABLED:
+            _trace.evt("queue_write", t_h0, time.perf_counter() - t_h0,
+                       args={"ticks": K, "slots": K * len(node_ids),
+                             "inflight": queue.in_flight})
+        stack = queue.stacked()
+        gen = queue.seal()
+        return StagedWindow(plan, caps, K, max_iters, queue, gen, stack,
+                            qsig)
+
+    def dispatch_window(self, sw: StagedWindow):
+        """Middle of the window lifecycle: the K ticks over the staged
+        stack. The launches are asynchronous, so a pipelined caller
+        returns here while the device still runs the window (the ticks'
+        own host readbacks excepted) and can stage the next one. A window
+        that fails raises; it is never retried on the per-tick path."""
+        try:
+            out = self._dispatch_many(sw)
+        except Exception:
+            # the window died part-way: drop the queue so the next window
+            # allocates a fresh one instead of writing a generation that
+            # was never retired
+            self._window_cache.pop(sw.qsig, None)
+            raise
+        if out is None:
+            # unreachable by construction (stage builds the program);
+            # un-seal the generation
+            sw.queue.cancel(sw.gen)
+            return None
+        self.window_dispatches += 1
+        return out
+
+    def retire_window(self, sw: StagedWindow) -> None:
+        """Tail of the window lifecycle: hand the window's stack back to
+        the ingress queue and free its generation. Off the critical path
+        — a pipelined pump runs this after the NEXT window is staged."""
+        sw.queue.retire(sw.gen, sw.fresh)
+        sw.fresh = None
+
+    def cancel_window(self, sw: StagedWindow) -> None:
+        """Abandon a staged window whose dispatch never ran: the
+        generation goes straight back to the free list."""
+        sw.queue.cancel(sw.gen)
+
+    def _dispatch_many(self, sw: StagedWindow):
+        """The K ticks of a staged window: run the window program for
+        its plan/caps over the [K, cap] ingress stack and return the
+        scheduler-facing ``(passes_base, iters, rows, converged,
+        extra_dirty)`` tuple (None when the fixpoint program has no
+        ``call_many``). The stack the window hands back is parked on
+        ``sw`` for the retire step; the call is labelled
+        ``reflow.window[K]`` for a device trace."""
+        plan, stack, caps, K = sw.plan, sw.stack, sw.caps, sw.K
+        t_d0 = time.perf_counter() if _trace.ENABLED else 0.0
+        if not self.graph.loops:
+            # loop-free sink-free graph (e.g. streaming TF-IDF): one pass
+            # a tick over the K slots, no per-tick egress by construction
+            sig = ("pass_many", tuple(n.id for n in plan),
+                   tuple(sorted(caps.items())))
+            pass_fn = self._window_cache.get(sig)
+            if pass_fn is None:
+                pass_fn = self._window_cache[sig] = self.build_pass_fn(
+                    list(plan))
+            self._track_arena(plan, caps)
+            states = dict(self.states)
+            with profile_annotation(f"reflow.window[{K}]"):
+                for t in range(K):
+                    states, egress = pass_fn(states, slot_ingress(stack, t))
+                    if egress:
+                        raise RuntimeError("loop-free sink-free pass "
+                                           "produced egress")
+            self.states = states
+            sw.fresh = stack
+            if _trace.ENABLED:
+                _trace.evt("device_dispatch", t_d0,
+                           time.perf_counter() - t_d0,
+                           args={"kind": "window", "ticks": K,
+                                 "device": self.device_label})
+            return K, 0, 0, True, set()
+
+        prog = self._ensure_fx_program()
+        if prog is None or not hasattr(prog, "call_many"):
+            return None
+        st = self._fx_structure
+        self._track_arena(plan, caps)
+        if st.exit_plan:
+            self._track_arena(
+                list(st.exit_plan),
+                {n.id: 2 * n.inputs[0].spec.key_space for n in st.boundary})
+        with profile_annotation(f"reflow.window[{K}]"):
+            new_states, (iters, rows, conv), sw.fresh = prog.call_many(
+                dict(self.states), plan, stack, K, sw.max_iters)
+        if _trace.ENABLED:
+            _trace.evt("device_dispatch", t_d0, time.perf_counter() - t_d0,
+                       args={"kind": "window", "ticks": K,
+                             "device": self.device_label})
+        self.states = new_states
+        extra_dirty = set(st.region_ids) | {n.id for n in st.exit_plan}
+        passes_base = K * (1 + (1 if st.exit_plan else 0))
+        return passes_base, iters, rows, conv, extra_dirty
 
     def on_states_replaced(self) -> None:
         """The state tree was swapped wholesale (a restore): drop the

@@ -35,8 +35,11 @@ Left out, and why: ``_solve_carry_caps``, ``_pad_delta`` and
 ``_abstract_delta`` exist in the JAX package only to keep the
 ``while_loop`` carry's shapes stable across iterations; an eager loop
 carries each pass's egress as it comes, at whatever capacity it has.
-``make_scan_program`` and the macro-tick mixin belong to the window path
-(K ticks in one dispatch), which the port does not have yet.
+
+K ticks in one call (the window path): :func:`make_scan_program` runs a
+tick program over the K slots of a ``[K, cap]`` ingress stack in an
+eager loop, where JAX ``lax.scan``s it; both programs take it through
+:class:`_MacroTickMixin.call_many`.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from reflow_tpu_torch.executors.lowerings import _differs
 from reflow_tpu_torch.graph import FlowGraph, Node
 
 __all__ = ["FixpointProgram", "FixpointStructure", "analyze",
-           "collect_sink_egress"]
+           "collect_sink_egress", "make_scan_program", "slot_ingress"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +156,74 @@ def collect_sink_egress(sink_ids: Sequence[int], eg_a: dict,
     return out
 
 
-class FixpointProgram:
+def slot_ingress(ing_stack: Dict[int, DeviceDelta], t: int
+                 ) -> Dict[int, DeviceDelta]:
+    """Tick ``t``'s ingress: a view of slot ``t`` of every source's
+    ``[K, cap]`` stack (no copy)."""
+    return {nid: DeviceDelta(d.keys[t], d.values[t], d.weights[t])
+            for nid, d in ing_stack.items()}
+
+
+def make_scan_program(tick_fn):
+    """K consecutive ticks in ONE call: the window path's tick loop.
+
+    ``tick_fn(states, ingress)`` is one tick with the program call
+    contract ``-> (states', sink_egress, carry, iters, rows, converged)``.
+    The JAX package ``lax.scan``s it over the K stacked ingress pytrees
+    inside one jit; here an eager loop runs it over views of the K slots
+    of the ``[K, cap]`` stack, all on one stream. Sink-free graphs only
+    (the caller guards): per-tick sink egress would need per-tick host
+    materialization.
+
+    As in the scan, each tick's carry is dropped before the next tick: a
+    tick of the row program that halts at ``max_iters`` does not resume
+    inside a window; its converged flag comes back False.
+
+    Returns ``scan_fn(states, ing_stack, n_ticks) -> (states',
+    (iters[K], rows[K], converged[K]), stack)``. The loop already reads
+    each tick's three scalars on the host; they are uploaded again as
+    ``[K]`` tensors on the stack's device only so that the result has
+    the form of JAX's scan outputs, and ``block()`` reads them back (one
+    small copy each way a window). The stack comes back as it went in
+    (nothing is donated in PyTorch): the ingress queue re-adopts it at
+    retire.
+    """
+
+    def scan_fn(op_states, ing_stack, n_ticks: int):
+        states = op_states
+        ys = []
+        for t in range(n_ticks):
+            states, sink_eg, _carry, iters, rows, conv = tick_fn(
+                states, slot_ingress(ing_stack, t))
+            if sink_eg:
+                raise RuntimeError("macro-tick requires a sink-free graph")
+            ys.append((int(iters), int(rows), bool(conv)))
+        dev = next(iter(ing_stack.values())).keys.device
+        cols = list(zip(*ys)) if ys else [(), (), ()]
+        return states, (
+            torch.tensor(cols[0], dtype=torch.int32, device=dev),
+            torch.tensor(cols[1], dtype=torch.int64, device=dev),
+            torch.tensor(cols[2], dtype=torch.bool, device=dev)), ing_stack
+
+    return scan_fn
+
+
+class _MacroTickMixin:
+    """Shared macro-tick entry for the two fixpoint program kinds (both
+    have the call contract ``(states, plan, ingress, max_iters)``)."""
+
+    def call_many(self, op_states, plan: Sequence[Node],
+                  ing_stack: Dict[int, DeviceDelta], n_ticks: int,
+                  max_iters: int):
+        """-> (states', (iters[K], rows[K], converged[K]), stack). The
+        state a tick leaves (the fused loop's CSR cache included) is the
+        next tick's, exactly as K single-tick calls thread it."""
+        return make_scan_program(
+            lambda st, ing: self(st, plan, ing, max_iters))(
+                op_states, ing_stack, n_ticks)
+
+
+class FixpointProgram(_MacroTickMixin):
     """One tick of the row-based fixpoint: phase A pass, the host-checked
     loop over the region's row lowerings, the exit pass.
 

@@ -79,9 +79,14 @@ the loop node's ``resid`` state (semantic state: checkpointed and
 carried by ``convert.py``); the left-table patch then tracks the folded
 collection ``emitted - resid``.
 
+K ticks in one call (``call_many``, the window path) run the same tick
+K times over the slots of the window's ingress stack; the CSR cache
+threads through them as it threads through K single calls (JAX carries
+it through its ``lax.scan``).
+
 Left out: the shard context (the loop inside one ``shard_map`` region
-with ``psum_scatter``/``pmax``) waits for the multi-device port, and
-``call_many`` for the window path; both raise.
+with ``psum_scatter``/``pmax``) waits for the multi-device port; it
+raises.
 """
 
 from __future__ import annotations
@@ -94,6 +99,7 @@ import torch
 from reflow_tpu_torch.delta import Spec, torch_dtype
 from reflow_tpu_torch.executors.device_delta import MIN_CAPACITY, DeviceDelta
 from reflow_tpu_torch.executors.fixpoint import (FixpointStructure,
+                                                 _MacroTickMixin,
                                                  collect_sink_egress,
                                                  run_exit_pass,
                                                  snapshot_boundary)
@@ -271,7 +277,7 @@ def resid_state(loop_spec: Spec, device) -> dict:
                                  dtype=torch.float32, device=device)}
 
 
-class LinearFixpointProgram:
+class LinearFixpointProgram(_MacroTickMixin):
     """One tick for a linear loop region: row-based phase A, the fused
     delta-vector loop, the row-based exit pass.
 
@@ -826,8 +832,3 @@ class LinearFixpointProgram:
                                      st.boundary)
         sink_egress = collect_sink_egress(self.sink_ids, eg_a, eg_b)
         return states, sink_egress, None, iters, rows, converged
-
-    def call_many(self, op_states, ing_stack, n_ticks: int):
-        raise NotImplementedError(
-            "K ticks in one dispatch belong to the window path, which is "
-            "not ported yet")

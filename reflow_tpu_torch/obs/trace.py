@@ -42,6 +42,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["ENABLED", "RING_CAPACITY", "SAMPLE_EVERY", "STAGES",
+           "WINDOW_SPANS",
            "TraceCtx", "enable", "disable", "enabled", "reset", "evt",
            "events", "mint", "mint_cause", "sample", "ticket_stages"]
 
@@ -57,6 +58,15 @@ SAMPLE_EVERY = max(1, env_int("REFLOW_TRACE_SAMPLE"))
 #: the per-ticket stage names, in pipeline order
 STAGES = ("admission", "coalesce", "sched_delay", "execute", "fsync",
           "resolve")
+
+#: the aggregate spans of the window path, beside the per-ticket stages:
+#: the executor's slot writes into the ingress queue (``queue_write``)
+#: and the launches of one window (``device_dispatch``, ``kind``
+#: "window"); the scheduler's ``tick_many`` (``fused`` and, on the pump's
+#: staged path, ``staged``); the pump's ``window_stage``, ``pump_execute``
+#: and ``window_retire``
+WINDOW_SPANS = ("queue_write", "device_dispatch", "tick_many",
+                "window_stage", "pump_execute", "window_retire")
 
 #: event tuple: (name, ts_s, dur_s, track_override_or_None, args_or_None)
 Event = Tuple[str, float, float, Optional[str], Optional[Dict[str, Any]]]

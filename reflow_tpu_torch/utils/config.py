@@ -119,3 +119,9 @@ declare("REFLOW_TRACE_RING", "int", 65536,
         "per-thread trace ring-buffer capacity (spans)")
 declare("REFLOW_TRACE_SAMPLE", "int", 16,
         "ticket sampling stride: 1-in-N tickets get a span timeline")
+declare("REFLOW_WINDOW_DEPTH", "int", 2,
+        "pipelined window depth (1 = serial stage->dispatch->retire)")
+declare("REFLOW_MEGATICK_WASTE", "float", 0.5,
+        "max padded-slot fraction before a fused window falls back")
+declare("REFLOW_MEGATICK_MAX_ROWS", "int", 1 << 16,
+        "max rows per fused mega-tick window before fallback")

@@ -54,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
               "reflow_tpu_torch.workloads.pagerank",
               "reflow_tpu_torch.workloads.sssp",
               "reflow_tpu_torch.workloads.tfidf",
-              "reflow_tpu_torch.workloads.wordcount"):
+              "reflow_tpu_torch.workloads.wordcount",
+              "reflow_tpu_torch.executors.ingress_queue",
+              "reflow_tpu_torch.utils.faults",
+              "reflow_tpu_torch.utils.metrics"):
         assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"

@@ -30,7 +30,9 @@ import reflow_tpu_torch as P
 from reflow_tpu.executors import linear_fixpoint as jlf
 from reflow_tpu.executors.tpu import TpuExecutor
 from reflow_tpu_torch.executors import linear_fixpoint as plf
+from reflow_tpu_torch.executors.device_delta import bucket_capacity
 from reflow_tpu_torch.executors.fixpoint import FixpointProgram
+from reflow_tpu_torch.executors.ingress_queue import DeviceIngressQueue
 from reflow_tpu_torch.executors.linear_fixpoint import LinearFixpointProgram
 from reflow_tpu_torch.workloads import pagerank as ppr
 
@@ -403,12 +405,80 @@ def test_dtypes_that_do_not_round_trip_take_the_row_program(case):
     np.testing.assert_allclose(vals["port"], vals["jax"], atol=1e-5)
 
 
-def test_call_many_and_shard_context_refused():
+def test_shard_context_refused():
     sched, _ = _pagerank_sched(64, 512, 1 << 12)
     ex = sched.executor
-    with pytest.raises(NotImplementedError, match="window path"):
-        ex._fx_program.call_many({}, {}, 2)
     ex.mesh = object()
     with pytest.raises(NotImplementedError, match="sharded"):
         LinearFixpointProgram(ex, structure=ex._fx_structure,
                               linear=ex._linear_structure)
+
+
+def test_call_many_equals_single_calls():
+    """``call_many`` over K PageRank churn ticks equals K single ticks
+    state for state, bit for bit on the CPU — the Join's arena, the
+    Reduce's tables and the persistent CSR cache (which a tail overflow
+    rebuilds mid-window) — and equals the JAX ``call_many`` (through its
+    window path) within 1e-6 relative (float32 sums: XLA fuses the
+    scanned tick differently from the single-tick program)."""
+    from reflow_tpu.workloads import pagerank as jpr
+
+    n, e, K = 128, 1024, 4
+    arena = 1 << 12
+
+    def setup(pkg):
+        mod = jpr if pkg is J else ppr
+        web = mod.WebGraph.random(n, e, seed=2)
+        pg = mod.build_graph(n, tol=1e-4, arena_capacity=arena)
+        ex = TpuExecutor() if pkg is J else _port()
+        sched = pkg.DirtyScheduler(pg.graph, ex)
+        sched.push(pg.teleport, mod.teleport_batch(n))
+        sched.push(pg.edges, web.initial_batch())
+        sched.tick()
+        return sched, pg, [web.churn(0.05) for _ in range(K)]
+
+    one, pg1, churn = setup(P)
+    many, pg2, churn2 = setup(P)
+    ex1, ex2 = one.executor, many.executor
+    prog = ex2._fx_program
+    assert isinstance(prog, LinearFixpointProgram)
+    # K single-tick calls, each at its own ingress capacity
+    for b in churn:
+        one.push(pg1.edges, b)
+        one.tick(sync=False)
+    # one call_many over the window's [K, cap] stack
+    plan = many._dirty_plan([pg2.edges.id])
+    eid = pg2.edges.id
+    queue = DeviceIngressQueue(
+        {eid: pg2.edges.spec},
+        {eid: bucket_capacity(max(len(b) for b in churn2))}, K,
+        placement=ex2.device)
+    for t, b in enumerate(churn2):
+        queue.write(t, eid, b)
+    stack = queue.stacked()
+    states, (iters, rows, conv), back = prog.call_many(
+        ex2.states, plan, stack, K, many.max_loop_iters)
+    ex2.states = states
+    assert back is stack
+    assert iters.tolist() == [r.passes - 1 for r in one.history[1:]]
+    assert rows.tolist() == [r.deltas_in - len(b) for r, b in
+                             zip(one.history[1:], churn)]
+    assert conv.tolist() == [True] * K
+    for nid, st in ex1.states.items():
+        for key, t in st.items():
+            assert torch.equal(t, ex2.states[nid][key]), (nid, key)
+    c1, c2 = ex1._csr_cache[pg1.join.id], ex2._csr_cache[pg2.join.id]
+    assert sorted(c1) == sorted(c2)
+    for key in c1:
+        if isinstance(c1[key], torch.Tensor):
+            assert torch.equal(c1[key], c2[key]), key
+        else:
+            assert c1[key] == c2[key], key
+    assert ex1.csr_rebuilds == ex2.csr_rebuilds
+
+    jsched, jpg, jchurn = setup(J)
+    jsched.tick_many([{jpg.edges: b} for b in jchurn]).block()
+    assert jsched.megatick_windows == 1
+    want = jpr.ranks_to_array(jsched.read_table(jpg.new_rank), n)
+    got = ppr.ranks_to_array(many.read_table(pg2.new_rank), n)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -4,9 +4,11 @@ JAX package's frontend over the same batches (on the CPU, small size).
 Each batch is submitted and flushed before the next, so both frontends
 tick the same feeds; tickets must resolve ``applied`` and the tables
 must match (ids exact, scores within 1e-5: the same float32 sums in
-another order). The JAX executor runs with ``fixpoint=False``, which
-keeps its frontend on per-tick streaming ticks — the path the port
-takes, since the port has no window path yet.
+another order). The port's frontend runs at its default depth (2): the
+k-NN graph has no sink and no loop, so each flush stages a window
+through the port's ingress queue. The JAX frontend runs both ways: with
+``fixpoint=False`` (per-tick streaming ticks) and with its default
+executor, which takes its own window path.
 """
 
 import numpy as np
@@ -42,9 +44,10 @@ def _batches(seed):
 
 
 def _serve(pkg, seed, device_batches=False):
-    if pkg == "jax":
+    if pkg in ("jax", "jax_window"):
         kg = jknn.build_graph(Q, D, DIM, K, scan_chunk=128)
-        sched = JDirtyScheduler(kg.graph, TpuExecutor(fixpoint=False))
+        sched = JDirtyScheduler(kg.graph,
+                                TpuExecutor(fixpoint=pkg == "jax_window"))
         fe = JIngestFrontend(sched)
         from reflow_tpu import DeltaBatch as DB
     else:
@@ -86,6 +89,31 @@ def test_frontend_port_matches_jax_frontend(seed):
             np.testing.assert_array_equal(pt[q][:, 0], other[q][:, 0])
             np.testing.assert_allclose(pt[q][:, 1], other[q][:, 1],
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_window_path_at_depth_2_matches_jax_window_path(seed, monkeypatch):
+    """The port's frontend at its default depth against the JAX frontend
+    over the default executor, both taking their window paths: every
+    flush is one staged window, tickets ``applied``, ids exact, scores
+    within 1e-5. (The JAX queue's host scratch reuse is turned off: see
+    ``tests/test_torch_megatick.py``.)"""
+    import reflow_tpu.executors.ingress_queue as jiq
+
+    monkeypatch.setattr(jiq, "_SCRATCH_REUSE_SAFE", False)
+    pt, pres, pfe, psched = _serve("port", seed)
+    jt, jres, jfe, jsched = _serve("jax_window", seed)
+    n = len(_batches(seed))
+    assert pfe.depth == jfe.depth == 2
+    assert pfe.admission == jfe.admission == "device"
+    assert psched.megatick_windows == jsched.megatick_windows == n
+    assert psched.megatick_fallbacks == jsched.megatick_fallbacks == 0
+    assert pfe.windows_staged == jfe.windows_staged == n
+    assert all(r.status == APPLIED for r in pres + jres)
+    assert set(pt) == set(jt) == set(range(Q))
+    for q in pt:
+        np.testing.assert_array_equal(pt[q][:, 0], jt[q][:, 0])
+        np.testing.assert_allclose(pt[q][:, 1], jt[q][:, 1], atol=1e-5)
 
 
 def test_device_batches_through_frontend_match_host_batches():

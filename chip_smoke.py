@@ -142,9 +142,40 @@ Phases, each printing its own lines:
    the per-tick iters and converged flags as [4] device stacks (host
    values re-uploaded, read back at ``block()``), readbacks held to
    iters + 3 a tick, the ranks within 1e-3 of the float64 reference.
+13. **Durable ingestion at full width**, under a ``tempfile.mkdtemp()``
+   directory (removed at the end; its filesystem printed beside every
+   WAL and checkpoint time). The k-NN leg: config 4 through
+   ``IngestFrontend(depth=2, admission="device")`` over
+   ``DurableScheduler(fsync="tick", committer="thread")`` beside a
+   non-durable twin fed the same host batches in turns: the queries, a
+   15 x 65,536-doc preload of random int8 rows, a full
+   ``save_checkpoint`` (the covered segments truncated), 5 inserts of
+   8,192 docs, a retraction and a query update, every ticket ``applied``
+   with an LSN and ``log_readbacks`` 0. The last window dies at the
+   ``after_append`` seam; a fresh executor and scheduler ``recover`` from
+   checkpoint plus tail, tick the logged window, and take the upstream's
+   resend of every batch (all ``deduped``). The table must equal the
+   twin's exactly (ids and scores above ``NEG``) and brute force under
+   phase 4's limits; the top-k launches are counted tick by tick, live
+   and in the replay. Printed: tick ms with the WAL and the twin's, MB
+   logged a tick, the WAL's append and fsync p50, checkpoint save ms and
+   MB, restore, recover and replay ms, the first tick after recovery.
+   The PageRank leg, twice (the second with the chain's final delta
+   torn): config 3 on the fused loop through a durable scheduler with a
+   ``CheckpointChain`` (a full element after the initial tick, a delta
+   after each of 6 churn ticks), killed at ``before_tick_mark`` on churn
+   tick 7, recovered from chain plus tail, the resent batch deduped, and
+   2 more churn ticks: the first restored tick rebuilds its CSR, every
+   tick reads back passes + 3 times, the ranks are within 1e-3 of the
+   float64 reference and within ``DURABLE_TWIN_BOUND`` of an uncrashed
+   twin; the join's edge arena (keys, values, weights, row count,
+   generation, overflow flag) equals the twin's exactly, as restored at
+   the checkpoint tick and again after the last tick. Printed: element bytes and save ms, restore and replay ms, the
+   post-recovery ticks.
 
-The phases after the serving slice run no hand-written kernel; the top-k
-counts, zeroed before them, must stay 0.
+Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
+them, must stay 0. Phase 13 zeroes them again and counts its own path's
+launches apart from its twin's.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -154,8 +185,11 @@ rest of the repository beside it, the script fails before any result.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from typing import Callable, Dict, FrozenSet, List, Set
@@ -165,7 +199,8 @@ import torch
 from torch.autograd import DeviceType
 
 from reflow_tpu_torch import (CpuExecutor, DeltaBatch, DirtyScheduler,
-                              FlowGraph, Spec, get_executor)
+                              DurableScheduler, FlowGraph, Spec,
+                              get_executor, recover)
 from reflow_tpu_torch.executors.arena import compact_arena
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      bucket_capacity,
@@ -177,7 +212,15 @@ from reflow_tpu_torch.kernels import topk as topk_mod
 from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
                                            topk_merge_plain, topk_plain)
 from reflow_tpu_torch.models import vit
-from reflow_tpu_torch.serve import APPLIED, CoalesceWindow, IngestFrontend
+from reflow_tpu_torch.serve import (APPLIED, DEDUPED, CoalesceWindow,
+                                    IngestFrontend, PumpCrashed)
+from reflow_tpu_torch.utils.checkpoint import (CheckpointChain,
+                                               load_checkpoint,
+                                               read_chain_manifest,
+                                               save_checkpoint)
+from reflow_tpu_torch.utils.faults import CrashInjector, CrashPoint
+from reflow_tpu_torch.utils.metrics import summarize_wal
+from reflow_tpu_torch.wal import list_segments
 from reflow_tpu_torch.workloads import (image_embed, knn, pagerank, sssp,
                                         tfidf, wordcount)
 
@@ -2600,6 +2643,542 @@ def phase_window_parity(card: str) -> Dict[str, object]:
     return out
 
 
+# -- phase 13: durable ingestion ---------------------------------------------
+
+#: phase 13's PageRank legs: config 3 at full width, 7 churn ticks before
+#: the kill (a chain element after each) and 2 after the recovery
+DURABLE_PR = dict(PAGERANK, churn_ticks=9, kill_at=7)
+#: a restored run against the run never stopped, as max|rank - twin| /
+#: max(twin, 1): the restore rebuilds the CSR in one piece, so the float
+#: sums add in another order and a tol-gated emission can flip at its
+#: edge. Each run's emitted rank lies within tol of its computed one, so
+#: two runs part by under 2 tol plus how far their computed ranks part;
+#: ten legs on the H100 read 7.9e-6 to 1.0e-4, one flipped gate (PERF.md,
+#: PR 8). The integer state is held exactly apart (DURABLE_ARENA), so a
+#: lost or doubled edge batch fails there
+DURABLE_TWIN_BOUND = 3 * PAGERANK["tol"]
+#: the leaves of PageRank's join state that only the edge batches write:
+#: a restore and a replay must give the twin's bit for bit
+DURABLE_ARENA = ("rkeys", "rvals", "rw", "rcount", "gen", "error")
+
+
+def fs_line(path: str) -> str:
+    """The filesystem ``path`` lies on: its type, mount point and device
+    from ``/proc/mounts`` (the longest mount prefix), and its free space
+    from ``os.statvfs``."""
+    path = os.path.realpath(path)
+    best = ("?", "?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[1]):
+                best = (dev, mnt, fstype)
+    st = os.statvfs(path)
+    return (f"fs {best[2]} on {best[1]} ({best[0]}), "
+            f"{st.f_bavail * st.f_frsize / 2**30:.1f} GiB free")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _dirs, files in os.walk(path) for f in files)
+
+
+def _launches() -> tuple:
+    return topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES
+
+
+def _since(l0: tuple) -> tuple:
+    l1 = _launches()
+    return l1[0] - l0[0], l1[1] - l0[1]
+
+
+def _knn_feed(cfg: Dict[str, int], seed: int) -> List[tuple]:
+    """(batch id, source, host batch, kind) in the upstream's order: the
+    queries, the preload (random int8 rows), then the inserts on fresh
+    ids, the retraction and the query update."""
+    Q, dim = cfg["Q"], cfg["dim"]
+    rng = np.random.default_rng(seed)
+
+    def docs(lo: int, n: int) -> DeltaBatch:
+        return DeltaBatch(np.arange(lo, lo + n, dtype=np.int64),
+                          rng.integers(-127, 128, (n, dim), dtype=np.int8))
+
+    n = cfg["preload_chunk"]
+    feed = [("q0", "q", DeltaBatch(np.arange(Q, dtype=np.int64),
+                                   rng.standard_normal((Q, dim),
+                                                       dtype=np.float32)),
+             "query insert")]
+    feed += [(f"pre{c}", "d", docs(c * n, n), "preload")
+             for c in range(cfg["preload_chunks"])]
+    lo = cfg["preload_chunks"] * n
+    for i in range(cfg["insert_ticks"]):
+        feed.append((f"ins{i}", "d", docs(lo, cfg["per_tick"]), "insert"))
+        lo += cfg["per_tick"]
+    gone = np.arange(cfg["retract"], dtype=np.int64)
+    feed.append(("ret", "d", DeltaBatch(
+        gone, np.zeros((len(gone), dim), np.int8),
+        -np.ones(len(gone), np.int64)), "retract"))
+    nq = cfg["query_update"]
+    feed.append(("qup", "q", DeltaBatch(
+        np.arange(nq, dtype=np.int64),
+        rng.standard_normal((nq, dim), dtype=np.float32)), "query update"))
+    return feed
+
+
+def _want_launches(kind: str, chunks: int) -> tuple:
+    """(topk, topk_merge) launches of one k-NN tick: a rescan merges once
+    a corpus chunk, an incremental tick runs one top-k."""
+    rescan = kind in ("retract", "query update", "query insert")
+    return (0, chunks) if rescan else (1, 0)
+
+
+def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
+    """Config 4 served durably at full width beside a non-durable twin,
+    killed inside the last window, recovered and resent."""
+    cfg = FULL
+    Q, D, dim, k = cfg["Q"], cfg["D"], cfg["dim"], cfg["k"]
+    chunks = D // cfg["scan_chunk"]
+    feed = _knn_feed(cfg, seed=13)
+    n_head = 1 + cfg["preload_chunks"]
+    wal_dir = os.path.join(tmp, "knn-wal")
+    ckpt_dir = os.path.join(tmp, "knn-ckpt")
+
+    def graph():
+        return knn.build_graph(Q, D, dim, k, scan_chunk=cfg["scan_chunk"],
+                               dtype=torch.bfloat16, doc_dtype=torch.int8,
+                               precision="default")
+
+    def frontend(sched):
+        return IngestFrontend(sched, depth=2, admission="device",
+                              window=CoalesceWindow(
+                                  max_rows=cfg["preload_chunk"],
+                                  max_ticks=8, max_latency_s=0.005),
+                              max_bytes=1 << 30)
+
+    def submit(fe, kg, item):
+        bid, src, batch, _kind = item
+        l0 = _launches()
+        t0 = time.perf_counter()
+        ticket = fe.submit(kg.queries if src == "q" else kg.docs, batch,
+                           batch_id=bid)
+        fe.flush(timeout=600)
+        res = ticket.result(timeout=600)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, _since(l0)
+
+    kt, kd = graph(), graph()
+    twin = DirtyScheduler(kt.graph, get_executor("cuda"))
+    crash = CrashInjector(1 << 62, only="after_append")
+    dur = DurableScheduler(kd.graph, get_executor("cuda"), wal_dir=wal_dir,
+                           fsync="tick", committer="thread", crash=crash)
+    fe_t, fe_d = frontend(twin), frontend(dur)
+    rows: List[Dict[str, object]] = []
+    try:
+        for i, item in enumerate(feed[:-1]):
+            if i == n_head:
+                t0 = time.perf_counter()
+                meta = save_checkpoint(dur, ckpt_dir)
+                save_s = time.perf_counter() - t0
+                meta_b = os.path.getsize(os.path.join(ckpt_dir, "meta.pkl"))
+                kept = [seq for seq, _p in list_segments(wal_dir)]
+                if min(kept) != meta["wal_pos"][0]:
+                    raise AssertionError(f"segments {kept} kept after a "
+                                         f"checkpoint at {meta['wal_pos']}")
+            wal_b0 = dur.wal.bytes_written
+            # in turns: durable first on even items, the twin first on odd
+            order = ((fe_d, kd), (fe_t, kt)) if i % 2 == 0 else \
+                ((fe_t, kt), (fe_d, kd))
+            out = {}
+            for fe, kg in order:
+                out[fe is fe_d] = submit(fe, kg, item)
+            (res_d, s_d, l_d), (res_t, s_t, l_t) = out[True], out[False]
+            for res in (res_d, res_t):
+                if res.status != APPLIED:
+                    raise AssertionError(f"{item[0]}: ticket {res}")
+            if not res_d.lsn:
+                raise AssertionError(f"{item[0]}: durable ticket has no LSN")
+            rows.append({"id": item[0], "kind": item[3], "s": s_d,
+                         "twin_s": s_t, "launches": l_d,
+                         "twin_launches": l_t,
+                         "wal_bytes": dur.wal.bytes_written - wal_b0,
+                         "lsn": res_d.lsn})
+        # the kill: the last window dies after its push records are
+        # appended, before its dispatch; the twin takes it whole
+        last = feed[-1]
+        res_t, s_t, twin_last = submit(fe_t, kt, last)
+        if res_t.status != APPLIED:
+            raise AssertionError(f"twin {last[0]}: {res_t}")
+        crash.remaining = 1
+        l0 = _launches()
+        ticket = fe_d.submit(kd.queries, last[2], batch_id=last[0])
+        try:
+            ticket.result(timeout=600)
+        except PumpCrashed:
+            pass
+        else:
+            raise AssertionError("the crash seam did not fire")
+        killed_launches = _since(l0)
+        if crash.fired_seam != "after_append":
+            raise AssertionError(f"crashed at {crash.fired_seam}")
+        wal = summarize_wal(dur.wal)
+        log_readbacks = dur.log_readbacks
+        dur.wal.drain()     # what the page cache holds at the kill
+    finally:
+        fe_t.close()
+        fe_d.close(flush=False)
+    del fe_d, dur, kd
+    torch.cuda.empty_cache()
+
+    # a fresh process: new executor and scheduler on the same dirs
+    k2 = graph()
+    t0 = time.perf_counter()
+    sched2 = DurableScheduler(k2.graph, get_executor("cuda"),
+                              wal_dir=wal_dir, fsync="tick",
+                              committer="thread")
+    l0 = _launches()
+    rep = recover(sched2, wal_dir, ckpt_dir)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    replay_launches = _since(l0)
+    pending = sum(len(v) for v in sched2._pending.values())
+    l0 = _launches()
+    t1 = time.perf_counter()
+    sched2.tick()       # the logged, undispatched last window
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    first_launches = _since(l0)
+    fe2 = frontend(sched2)
+    try:
+        l0 = _launches()
+        resent = [fe2.submit(k2.queries if src == "q" else k2.docs, b,
+                             batch_id=bid) for bid, src, b, _k in feed]
+        fe2.flush(timeout=600)
+        statuses = Counter(t.result(timeout=600).status for t in resent)
+        resend_launches = _since(l0)
+    finally:
+        fe2.close()
+    table = sched2.read_table(k2.index)
+    twin_table = twin.read_table(kt.index)
+
+    # checks: the launches, the twin, brute force
+    want_live = [_want_launches(r["kind"], chunks) for r in rows]
+    if [r["launches"] for r in rows] != want_live:
+        raise AssertionError(f"live launches {[r['launches'] for r in rows]}"
+                             f", expected {want_live}")
+    tail = feed[n_head:-1]
+    want_replay = tuple(map(sum, zip(*[_want_launches(kind, chunks)
+                                        for *_x, kind in tail])))
+    if (rep.replayed_ticks != len(tail) or replay_launches != want_replay
+            or pending != 1
+            or first_launches != _want_launches(feed[-1][3], chunks)
+            or killed_launches != (0, 0) or resend_launches != (0, 0)):
+        raise AssertionError(
+            f"recovery: {rep.as_dict()}, replay launches {replay_launches} "
+            f"(expected {want_replay}), pending {pending}, first tick "
+            f"launches {first_launches}, killed window {killed_launches}, "
+            f"resend {resend_launches}")
+    if set(statuses) - {APPLIED, DEDUPED} or log_readbacks:
+        raise AssertionError(f"resend statuses {dict(statuses)}, "
+                             f"log_readbacks {log_readbacks}")
+    live_ids = 0
+    for q in range(Q):
+        a, b = table[q], twin_table[q]
+        live = a[:, 1] > NEG
+        if not np.array_equal(live, b[:, 1] > NEG) \
+                or not np.array_equal(a[live], b[live]):
+            raise AssertionError(f"query {q}: the recovered table != the "
+                                 f"uncrashed twin's")
+        live_ids += int(live.sum())
+    st = sched2.executor.states[k2.index.id]
+    full = scores(st["qvec"], st["dvec"])
+    full = torch.where(st["dlive"][None, :], full, NEG)
+    bvals, bids = topk_plain(full, k)
+    del full
+    got = np.stack([table[q] for q in range(Q)])
+    bids_h, bvals_h = bids.cpu().numpy(), bvals.cpu().numpy()
+    recall = sum(len(set(got[q, :, 0].astype(np.int64)) & set(bids_h[q]))
+                 for q in range(Q)) / (Q * k)
+    score_diff = float(np.abs(got[:, :, 1] - bvals_h).max())
+    if recall < 0.99 or score_diff > 1e-2:
+        raise AssertionError(f"recovered table vs brute force: recall "
+                             f"{recall:.4f}, score max_abs_diff "
+                             f"{score_diff:.3g}")
+
+    ins = [r for r in rows[n_head:] if r["kind"] == "insert"]
+    med = _median([r["s"] for r in ins])
+    med_t = _median([r["twin_s"] for r in ins])
+    pre_mb = sum(r["wal_bytes"] for r in rows[1:n_head]) / 1e6
+    log(f"[durable] k-NN at full width (Q {Q}, {D} ids x {dim} int8, k {k}, "
+        f"chunk {cfg['scan_chunk']}) through IngestFrontend(depth=2, "
+        f"admission='device') over DurableScheduler(fsync='tick', "
+        f"committer='thread') beside a non-durable twin; {len(feed)} "
+        f"batches, every ticket applied with an LSN "
+        f"(last {rows[-1]['lsn']}); log_readbacks {log_readbacks} [{card}] "
+        f"[{fs}]")
+    log(f"[durable] preload: {cfg['preload_chunks']} host batches of "
+        f"{cfg['preload_chunk']} docs logged, {pre_mb:.1f} MB; tick ms "
+        f"with the WAL {[round(r['s'] * 1e3, 3) for r in rows[:n_head]]}, "
+        f"twin {[round(r['twin_s'] * 1e3, 3) for r in rows[:n_head]]}")
+    log(f"[durable] checkpoint (full, after the preload): save "
+        f"{save_s * 1e3:.1f} ms, {(meta['states_bytes'] + meta_b) / 1e6:.1f} "
+        f"MB ({meta['states_bytes'] / 1e6:.1f} MB of device state, "
+        f"{meta_b / 1e6:.3f} MB meta); the covered segments truncated, "
+        f"the log now starts at segment {meta['wal_pos'][0]} [{fs}]")
+    log(f"[durable] insert tick ({cfg['per_tick']} int8 docs) with the WAL "
+        f"median "
+        f"{med * 1e3:.3f} ms of {[round(r['s'] * 1e3, 3) for r in ins]}; "
+        f"non-durable twin median {med_t * 1e3:.3f} ms of "
+        f"{[round(r['twin_s'] * 1e3, 3) for r in ins]}; MB logged a tick "
+        f"{_median([r['wal_bytes'] for r in ins]) / 1e6:.3f}; retract tick "
+        f"{rows[-1]['s'] * 1e3:.3f} ms (twin {rows[-1]['twin_s'] * 1e3:.3f})"
+        f" [{card}] [{fs}]")
+    log(f"[durable] WAL: {wal.appends} appends, {wal.fsyncs} fsyncs, "
+        f"{wal.bytes_written / 1e6:.1f} MB; append p50 "
+        f"{wal.append_p50_s * 1e3:.3f} ms (p95 {wal.append_p95_s * 1e3:.3f})"
+        f", fsync p50 {wal.fsync_p50_s * 1e3:.3f} ms (p95 "
+        f"{wal.fsync_p95_s * 1e3:.3f}) [{fs}]")
+    log(f"[durable] kill at after_append in the last window (query "
+        f"update); recover: {recover_s * 1e3:.1f} ms in all (restore "
+        f"{rep.restore_s * 1e3:.1f} ms, scan + replay {rep.replay_s * 1e3:.1f}"
+        f" ms); replayed {rep.replayed_pushes} pushes and "
+        f"{rep.replayed_ticks} ticks, deduped {rep.deduped_pushes}; "
+        f"{pending} push pending; first tick after recovery "
+        f"{first_s * 1e3:.3f} ms, time to it {(recover_s + first_s) * 1e3:.1f}"
+        f" ms [{card}] [{fs}]")
+    log(f"[durable] resend of all {len(feed)} batches from the upstream's "
+        f"cursor: {dict(statuses)}; (topk, topk_merge) launches: live "
+        f"{[r['launches'] for r in rows]}, replay {replay_launches}, first "
+        f"tick {first_launches}, killed window {killed_launches}")
+    log(f"[durable] recovered table == uncrashed twin exactly ({live_ids} "
+        f"live ids and scores); vs brute force: recall {recall:.6f}, score "
+        f"max_abs_diff {score_diff:.6g}")
+    total = [sum(x) for x in zip(*([r["launches"] for r in rows]
+                                   + [replay_launches, first_launches]))]
+    twin_total = [sum(x) for x in zip(*([r["twin_launches"] for r in rows]
+                                        + [twin_last]))]
+    return {"launches": total, "twin_launches": twin_total,
+            "recover_s": recover_s,
+            "insert_ms": med * 1e3, "twin_insert_ms": med_t * 1e3}
+
+
+def _pr_tick(sched, ex, pushes) -> Dict[str, object]:
+    """One PageRank tick on the card: push, tick, synchronize; its
+    readbacks (forced syncs and loop reads) and its CSR cause."""
+    s0, r0 = sched.forced_syncs, ex.loop_reads
+    t0 = time.perf_counter()
+    for src, batch, bid in pushes:
+        sched.push(src, batch, batch_id=bid)
+    res = sched.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not res.quiesced:
+        raise AssertionError(f"tick {res.tick} did not quiesce")
+    last = dict(getattr(ex._fx_program, "last_tick", None) or {})
+    return {"s": wall, "passes": int(res.passes),
+            "readbacks": sched.forced_syncs - s0 + ex.loop_reads - r0,
+            "csr": last.get("csr")}
+
+
+def _arena_state(ex, pg) -> Dict[str, torch.Tensor]:
+    st = ex.states[pg.join.id]
+    # a copy: the executor writes the arena's rows in place
+    return {k: st[k].to("cpu", copy=True) for k in DURABLE_ARENA}
+
+
+def _arena_diff(got: Dict[str, torch.Tensor],
+                want: Dict[str, torch.Tensor]) -> List[str]:
+    return [k for k in DURABLE_ARENA if got[k].dtype != want[k].dtype
+            or not torch.equal(got[k], want[k])]
+
+
+def durable_pagerank(card: str, fs: str, tmp: str, torn: bool,
+                     data: Dict[str, object]) -> Dict[str, object]:
+    """Config 3 on the fused loop through a DurableScheduler with a
+    CheckpointChain: a full element after the initial tick, a delta after
+    each churn tick, a kill at ``before_tick_mark`` on churn tick 7
+    (``torn``: the final delta cut short), recovery from chain plus tail,
+    the resend deduped, and 2 more churn ticks."""
+    cfg = DURABLE_PR
+    n, kill = cfg["n_nodes"], cfg["kill_at"]
+    arena = (bucket_capacity(cfg["n_edges"])
+             + 8 * bucket_capacity(2 * int(cfg["churn"] * cfg["n_edges"])
+                                   + 2))
+    churns, first = data["churns"], data["first"]
+
+    def build():
+        return pagerank.build_graph(n, tol=cfg["tol"], arena_capacity=arena)
+
+    tag = "torn" if torn else "clean"
+    wal_dir = os.path.join(tmp, f"pr-{tag}-wal")
+    root = os.path.join(tmp, f"pr-{tag}-chain")
+    pg = build()
+    ex = get_executor("cuda")
+    sched = DurableScheduler(pg.graph, ex, wal_dir=wal_dir, fsync="tick",
+                             committer="thread",
+                             crash=CrashInjector(kill + 1,
+                                                 only="before_tick_mark"))
+    chain = CheckpointChain(root, delta_every=1 << 20)
+    pushes = [(pg.teleport, first[0], "init0"), (pg.edges, first[1], "init1")]
+    ticks = [_pr_tick(sched, ex, pushes)]
+    saves = []
+    for t in range(kill):
+        if t:
+            ticks.append(_pr_tick(sched, ex, [(pg.edges, churns[t - 1],
+                                               f"c{t - 1}")]))
+        t0 = time.perf_counter()
+        info = chain.save(sched)
+        save_s = time.perf_counter() - t0
+        saves.append((info["kind"], save_s, info["bytes"] if "bytes" in info
+                      else _dir_bytes(os.path.join(root, info["element"]))))
+    try:
+        _pr_tick(sched, ex, [(pg.edges, churns[kill - 1], f"c{kill - 1}")])
+    except CrashPoint:
+        pass
+    else:
+        raise AssertionError("the before_tick_mark seam did not fire")
+    sched.close()
+    if torn:
+        last = os.path.join(root, read_chain_manifest(root)["deltas"][-1])
+        with open(last, "r+b") as f:
+            f.truncate(os.path.getsize(last) - 9)
+    readback_mb = chain.readback_bytes / 1e6
+    del sched, ex
+    torch.cuda.empty_cache()
+    want_ckpt = kill - 1 if torn else kill
+    # the chain as a restore leaves it, before any replayed tick
+    pg3 = build()
+    probe = DirtyScheduler(pg3.graph, get_executor("cuda"))
+    load_checkpoint(probe, root)
+    restored_diff = _arena_diff(_arena_state(probe.executor, pg3),
+                                data["arena"][want_ckpt])
+    if probe._tick != want_ckpt or restored_diff:
+        raise AssertionError(
+            f"PageRank {tag} leg: the chain restored tick {probe._tick} "
+            f"(expected {want_ckpt}); arena leaves unlike the twin's: "
+            f"{restored_diff}")
+    del probe, pg3
+
+    pg2 = build()
+    ex2 = get_executor("cuda")
+    sched2 = DurableScheduler(pg2.graph, ex2, wal_dir=wal_dir, fsync="tick",
+                              committer="thread")
+    s0, r0, h0 = sched2.forced_syncs, ex2.loop_reads, len(sched2.history)
+    t0 = time.perf_counter()
+    rep = recover(sched2, wal_dir, root)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    replayed = sched2.history[h0:]
+    replay_reads = sched2.forced_syncs - s0 + ex2.loop_reads - r0
+    replay_passes = sum(int(r.passes) for r in replayed)
+    first_cause = dict(ex2.csr_rebuilds) if replayed else None
+    # the upstream resends its batch of the killed tick: deduped
+    if sched2.push(pg2.edges, churns[kill - 1], batch_id=f"c{kill - 1}"):
+        raise AssertionError("the resent batch was not deduped")
+    after = [_pr_tick(sched2, ex2, [])]
+    if first_cause is None:
+        first_cause = dict(ex2.csr_rebuilds)
+    for t in range(kill, cfg["churn_ticks"]):
+        after.append(_pr_tick(sched2, ex2, [(pg2.edges, churns[t],
+                                             f"c{t}")]))
+    ranks = pagerank.ranks_to_array(sched2.read_table(pg2.new_rank), n)
+    final_diff = _arena_diff(_arena_state(ex2, pg2),
+                             data["arena"][sched2._tick])
+    sched2.close()
+    rel = float((np.abs(ranks - data["ref"])
+                 / np.maximum(data["ref"], 1.0)).max())
+    twin_rel = float((np.abs(ranks - data["twin"])
+                      / np.maximum(data["twin"], 1.0)).max())
+    bad = [t for t in ticks + after if t["readbacks"] != t["passes"] + 3]
+    if (rep.checkpoint_tick != want_ckpt or first_cause != {"initial": 1}
+            or bad or replay_reads != replay_passes + 3 * len(replayed)
+            or len(replayed) != rep.replayed_ticks
+            or rel > PAGERANK_MAX_REL_ERR or twin_rel > DURABLE_TWIN_BOUND
+            or final_diff or not np.isfinite(ranks).all()):
+        raise AssertionError(
+            f"PageRank {tag} leg: {rep.as_dict()}, first CSR {first_cause}, "
+            f"readbacks off on {bad}, replay {replay_reads} reads in "
+            f"{replay_passes} passes, rel err {rel:.3g}, vs twin "
+            f"{twin_rel:.3g}, arena leaves unlike the twin's at tick "
+            f"{sched2._tick}: {final_diff}")
+    full = [s for s in saves if s[0] == "full"]
+    deltas = [s for s in saves if s[0] == "delta"]
+    log(f"[durable] PageRank {tag} leg ({n} nodes, {cfg['n_edges']} edges, "
+        f"fused loop): chain full element {full[0][2] / 1e6:.2f} MB in "
+        f"{full[0][1] * 1e3:.1f} ms; {len(deltas)} delta elements "
+        f"{[round(b / 1e6, 2) for _k, _s, b in deltas]} MB in "
+        f"{[round(s * 1e3, 1) for _k, s, _b in deltas]} ms; "
+        f"{readback_mb:.1f} MB of device state read back by the saves "
+        f"[{card}] [{fs}]")
+    log(f"[durable] PageRank {tag} leg: kill at before_tick_mark on churn "
+        f"tick {kill}{', final delta torn' if torn else ''}; recover "
+        f"{recover_s * 1e3:.1f} ms (restore {rep.restore_s * 1e3:.1f} ms, "
+        f"scan + replay {rep.replay_s * 1e3:.1f} ms; checkpoint tick "
+        f"{rep.checkpoint_tick}, {rep.replayed_ticks} ticks and "
+        f"{rep.replayed_pushes} pushes replayed, WAL torn tail "
+        f"{rep.torn_tail is not None}); CSR after the first restored tick "
+        f"{first_cause}; post-recovery ticks "
+        f"{[round(t['s'] * 1e3, 3) for t in after]} ms, passes "
+        f"{[t['passes'] for t in after]}, readbacks "
+        f"{[t['readbacks'] for t in after]} (passes + 3) [{card}]")
+    log(f"[durable] PageRank {tag} leg: max|rank - ref| / max(ref, 1) = "
+        f"{rel:.6g} (bound {PAGERANK_MAX_REL_ERR:g}); against the uncrashed "
+        f"twin {twin_rel:.6g} (bound {DURABLE_TWIN_BOUND:.3g}); the edge "
+        f"arena ({', '.join(DURABLE_ARENA)}) equals the twin's exactly at "
+        f"the restored tick {want_ckpt} and at tick {sched2._tick}")
+    return {"recover_s": recover_s, "rel_err": rel, "twin_rel": twin_rel}
+
+
+def phase_durable(card: str) -> Dict[str, object]:
+    """Durable ingestion at full width: the k-NN leg (the top-k kernels,
+    live and in the replay), then the PageRank chain leg twice (the final
+    delta torn on the second)."""
+    tmp = tempfile.mkdtemp()
+    try:
+        fs = fs_line(tmp)
+        log(f"[durable] WAL and checkpoints under a temp dir: {fs}")
+        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+        out = durable_knn(card, fs, tmp)
+        # every launch since the zeroing is the durable path's or its
+        # twin's (the comparison, left out of the path's count)
+        total = _launches()
+        if [a - b for a, b in zip(total, out["twin_launches"])] \
+                != out["launches"]:
+            raise AssertionError(
+                f"top-k launches {total}: the durable path's own "
+                f"{out['launches']} and the twin's {out['twin_launches']}")
+        cfg = DURABLE_PR
+        web = pagerank.WebGraph.random(cfg["n_nodes"], cfg["n_edges"],
+                                       seed=cfg["seed"])
+        first = (pagerank.teleport_batch(cfg["n_nodes"]),
+                 web.initial_batch())
+        churns = [web.churn(cfg["churn"]) for _ in range(cfg["churn_ticks"])]
+        pg, _web, ex, twin, _arena = pagerank_setup(cfg, {})
+        twin.push(pg.teleport, first[0])
+        twin.push(pg.edges, first[1])
+        twin.tick()
+        # the arena at both legs' restored ticks and at the last
+        arena = {}
+        for b in churns:
+            if twin._tick in (cfg["kill_at"] - 1, cfg["kill_at"]):
+                arena[twin._tick] = _arena_state(ex, pg)
+            twin.push(pg.edges, b)
+            twin.tick()
+        arena[twin._tick] = _arena_state(ex, pg)
+        data = {"first": first, "churns": churns, "arena": arena,
+                "ref": pagerank.reference_ranks(web),
+                "twin": pagerank.ranks_to_array(twin.read_table(pg.new_rank),
+                                                cfg["n_nodes"])}
+        del twin, ex
+        legs = [durable_pagerank(card, fs, tmp, torn, data)
+                for torn in (False, True)]
+        out["pagerank"] = legs
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     spent: Dict[str, float] = {}
@@ -2621,15 +3200,20 @@ def main() -> int:
                   phase_defer_leg, phase_wordcount, phase_tfidf, phase_sssp,
                   phase_multiset, phase_image_embed, phase_window_parity):
         timed(phase, card)
-    log("[time] s a phase: " + ", ".join(
-        f"{name[len('phase_'):]} {s:.1f}" for name, s in spent.items())
-        + f"; all phases {time.perf_counter() - t_start:.1f} s [{card}]")
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
         raise AssertionError("a phase after the serving slice launched a "
                              "top-k kernel")
-    for rec in recs:
-        rec["launches"] = serve["total_launches" if rec["name"] == "topk"
-                                else "total_merge_launches"]
+    # phase 13 zeroes the counts itself, just before its path
+    durable = timed(phase_durable, card)
+    log("[time] s a phase: " + ", ".join(
+        f"{name[len('phase_'):]} {s:.1f}" for name, s in spent.items())
+        + f"; all phases {time.perf_counter() - t_start:.1f} s [{card}]")
+    for i, rec in enumerate(recs):
+        by_path = {"serve": serve["total_launches" if rec["name"] == "topk"
+                                  else "total_merge_launches"],
+                   "durable": durable["launches"][i]}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)
     print(f"card: {dev['card']}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -125,3 +125,15 @@ declare("REFLOW_MEGATICK_WASTE", "float", 0.5,
         "max padded-slot fraction before a fused window falls back")
 declare("REFLOW_MEGATICK_MAX_ROWS", "int", 1 << 16,
         "max rows per fused mega-tick window before fallback")
+declare("REFLOW_LOCKCHECK", "flag", False,
+        "wrap named locks with the runtime lock-order detector; a "
+        "held-before cycle raises LockOrderError")
+declare("REFLOW_CKPT_DELTA_EVERY", "int", 8,
+        "CheckpointChain cadence: every Nth save is promoted to a full "
+        "checkpoint; the saves between are cheap delta elements "
+        "(1 = every save full, i.e. deltas disabled)")
+declare("REFLOW_TILE_BYTES", "int", 0,
+        "key-range tile budget (bytes) for checkpoint elements: a full "
+        "checkpoint's and a delta element's keyed host state is written "
+        "one tile of roughly this many resident bytes at a time. 0 "
+        "(default) disables tiling")

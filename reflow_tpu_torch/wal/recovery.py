@@ -1,0 +1,210 @@
+"""Crash recovery: checkpoint restore + WAL tail replay.
+
+The port's copy of ``reflow_tpu/wal/recovery.py``. It reads any log
+either package wrote, compacted logs included (a JAX ``WalCompactor``'s
+folded records carry ``compacted`` and ``batch_ids``).
+
+``recover(sched, wal_dir, ckpt_dir)`` rebuilds a crashed process's
+scheduler in two moves:
+
+1. **Restore** the latest checkpoint (if one exists) — operator state,
+   sink views, tick counter, dedup window, pending batches — and take
+   its recorded WAL position as the replay start.
+2. **Replay** the WAL tail through the scheduler's ordinary
+   ``push(batch_id=...)`` / ``tick()`` path. Idempotence needs no new
+   machinery: a push whose id the restored dedup window already holds
+   is dropped by the same code that drops a lossy transport's
+   duplicates, and a tick marker at or below the restored tick counter
+   is skipped. Execution is deterministic from the restored state, so
+   the re-run ticks reproduce exactly the sink deltas the crashed
+   process produced.
+
+Pushes logged after the last tick marker (a crash between ``push`` and
+``tick``) land back in the pending buffers, exactly where the crash
+left them; the next ``tick()`` folds them once.
+
+The asynchronous WAL committer changes nothing here: a crash between a
+frame's write and its fsync may leave the scan seeing records whose
+submitters were never acknowledged (their tickets were still gated on
+``wal.wait_durable``). Replaying them is safe — replay is idempotent,
+and the upstream's re-send of the unacknowledged batch dedups against
+the replayed ``batch_id``. Conversely a power loss may drop
+written-but-unfsynced frames entirely; those batches were never
+acknowledged either, so the re-send folds them exactly once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+from reflow_tpu_torch.delta import DeltaBatch
+from reflow_tpu_torch.wal.log import TornTail, WalError, scan_wal
+
+__all__ = ["RecoveryReport", "recover", "replay_records"]
+
+
+@dataclasses.dataclass
+class RecoveryReport:
+    """What a ``recover()`` call did (metrics.summarize_wal merges
+    these counters into the WAL metrics record)."""
+
+    checkpoint_loaded: bool
+    checkpoint_tick: int
+    wal_records: int
+    replayed_pushes: int
+    deduped_pushes: int
+    replayed_ticks: int
+    skipped_ticks: int
+    torn_tail: Optional[TornTail]
+    final_tick: int
+    #: highest epoch stamped on any scanned record (0 = pre-fencing
+    #: log); the recovering WAL adopts it so a restarted leader can
+    #: never write records older than what its own log already holds
+    epoch: int = 0
+    #: host-clock seconds of the checkpoint restore (state onto the
+    #: executor's device) and of the scan plus replay of the tail
+    restore_s: float = 0.0
+    replay_s: float = 0.0
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["torn_tail"] = (self.torn_tail._asdict()
+                          if self.torn_tail is not None else None)
+        return d
+
+
+def _resolve_source(sched, rec):
+    node = sched.graph.nodes[rec["node"]]
+    if node.name != rec["node_name"]:
+        raise ValueError(
+            f"WAL push record for node #{rec['node']} named "
+            f"{rec['node_name']!r}, but the recovering graph has "
+            f"{node.name!r} there — recover() needs the same graph the "
+            f"log was written against")
+    return node
+
+
+def replay_records(sched, records) -> tuple:
+    """Replay scanned WAL records through ``sched``'s ordinary
+    ``push(batch_id=...)`` / ``tick()`` path — the idempotent core shared
+    by :func:`recover` and the read replicas' continuous replay
+    (``serve/replica.py``). ``records`` is an iterable of ``(pos, rec)``
+    pairs (positions are ignored; a bare record iterable also works when
+    each element is a 2-tuple ending in the record dict). A
+    ``DurableScheduler`` caller must suspend its own re-logging around
+    this (``recover`` does; replicas run a plain scheduler). Returns
+    ``(replayed_pushes, deduped_pushes, replayed_ticks, skipped_ticks)``.
+    """
+    replayed = deduped = ticks_done = ticks_skipped = 0
+    for _pos, rec in records:
+        kind = rec.get("kind")
+        if kind == "push":
+            batch = DeltaBatch(rec["keys"], rec["values"],
+                               rec["weights"])
+            node = _resolve_source(sched, rec)
+            ids = rec.get("batch_ids")
+            if ids is None:
+                if sched.push(node, batch, batch_id=rec["batch_id"]):
+                    replayed += 1
+                else:
+                    deduped += 1
+            elif any(b in sched._seen_batch_ids for b in ids):
+                # a coalesced frontend feed batch: its micro-batch
+                # ids committed atomically with the macro-tick, so
+                # the replay is all-or-nothing too
+                if (rec.get("compacted")
+                        and not all(b in sched._seen_batch_ids
+                                    for b in ids)):
+                    # a key-level-folded record (wal/compact.py) whose
+                    # ids this scheduler has PARTIALLY seen cannot be
+                    # replayed: the folded batch is the sum of all its
+                    # inputs and has no per-id slice to apply. The
+                    # supported flows keep fold ids disjoint from any
+                    # restore point (folds start at the checkpoint
+                    # anchor; re-anchored followers reset through the
+                    # checkpoint) — hitting this means replaying a
+                    # compacted log against a state cut inside the
+                    # folded range. Fail loud over silent divergence.
+                    raise WalError(
+                        f"compacted record for {rec['node_name']!r} has "
+                        f"{sum(1 for b in ids if b in sched._seen_batch_ids)}"
+                        f"/{len(ids)} already-seen batch ids — state "
+                        f"cut lands inside a folded range; restore "
+                        f"from the checkpoint anchor instead")
+                deduped += 1
+            else:
+                for b in ids:
+                    sched._register_batch_id(b)
+                sched.push(node, batch)
+                replayed += 1
+        elif kind == "tick":
+            if rec["tick"] > sched._tick:
+                sched.tick()
+                ticks_done += 1
+            else:
+                ticks_skipped += 1
+        # "ckpt" and unknown kinds: informational, skip
+    return replayed, deduped, ticks_done, ticks_skipped
+
+
+def recover(sched, wal_dir: str, ckpt_dir: Optional[str] = None,
+            ) -> RecoveryReport:
+    """Restore ``sched`` (fresh, same graph/executor as the crashed run)
+    from the latest checkpoint plus the WAL tail. Works on a plain
+    ``DirtyScheduler`` or a ``DurableScheduler`` (whose re-logging is
+    suspended during replay — the tail segments stay authoritative
+    until the next checkpoint truncates them)."""
+    from reflow_tpu_torch.utils.checkpoint import (checkpoint_exists,
+                                                   load_checkpoint)
+
+    start = None
+    ckpt_loaded = False
+    ckpt_tick = 0
+    t0 = time.perf_counter()
+    if ckpt_dir is not None and checkpoint_exists(ckpt_dir):
+        # dispatches on layout: a legacy full checkpoint or an
+        # incremental chain (base + deltas); either way ``wal_pos`` is
+        # the scan anchor and the tail past it may be compacted —
+        # replay of folded records goes through the same dedup below
+        meta = load_checkpoint(sched, ckpt_dir)
+        ckpt_loaded = True
+        ckpt_tick = sched._tick
+        start = meta.get("wal_pos")
+    t1 = time.perf_counter()
+
+    records, torn = scan_wal(wal_dir, start=start)
+    if torn is None:
+        # a DurableScheduler already repaired the crashed generation's
+        # torn tail when it opened the log; surface that here
+        torn = getattr(getattr(sched, "wal", None), "repaired_tail", None)
+    suspended = getattr(sched, "_wal_suspended", None)
+    if suspended is not None:
+        sched._wal_suspended = True
+    try:
+        replayed, deduped, ticks_done, ticks_skipped = replay_records(
+            sched, records)
+    finally:
+        if suspended is not None:
+            sched._wal_suspended = False
+    max_epoch = max((rec.get("epoch", 0) or 0 for _p, rec in records),
+                    default=0)
+    wal = getattr(sched, "wal", None)
+    if wal is not None and hasattr(wal, "adopt_epoch"):
+        wal.adopt_epoch(max_epoch)
+        max_epoch = wal.epoch
+    return RecoveryReport(
+        checkpoint_loaded=ckpt_loaded,
+        checkpoint_tick=ckpt_tick,
+        wal_records=len(records),
+        replayed_pushes=replayed,
+        deduped_pushes=deduped,
+        replayed_ticks=ticks_done,
+        skipped_ticks=ticks_skipped,
+        torn_tail=torn,
+        final_tick=sched._tick,
+        epoch=max_epoch,
+        restore_s=t1 - t0,
+        replay_s=time.perf_counter() - t1,
+    )

@@ -33,7 +33,8 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "ml_dtypes") or top == "reflow_tpu"
+    return top in ("jax", "jaxlib", "ml_dtypes", "orbax") \
+        or top == "reflow_tpu"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -57,7 +58,12 @@ def test_importing_the_port_loads_no_jax():
               "reflow_tpu_torch.workloads.wordcount",
               "reflow_tpu_torch.executors.ingress_queue",
               "reflow_tpu_torch.utils.faults",
-              "reflow_tpu_torch.utils.metrics"):
+              "reflow_tpu_torch.utils.metrics",
+              "reflow_tpu_torch.utils.checkpoint",
+              "reflow_tpu_torch.utils.tiles",
+              "reflow_tpu_torch.wal.log",
+              "reflow_tpu_torch.wal.durable",
+              "reflow_tpu_torch.wal.recovery"):
         assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"

@@ -173,9 +173,36 @@ Phases, each printing its own lines:
    the checkpoint tick and again after the last tick. Printed: element bytes and save ms, restore and replay ms, the
    post-recovery ticks.
 
+14. **Replication at full width** — config 4's k-NN (phase 13's leader
+   setup, with a sink ``nn`` on the index for the read tier, which keeps
+   each window on the per-tick path) through ``IngestFrontend`` at depth
+   2 over ``DurableScheduler(fsync="tick", committer="thread")``, a
+   ``SegmentShipper`` and two ``ReplicaScheduler`` followers, each on a
+   ``cuda`` executor of its own: ``r0`` from segment 0 (attached before
+   the preload, shipped by ``pump_once`` on the main thread through the
+   head), ``r1`` bootstrapped from the leader's full checkpoint after the
+   preload; then a tail of 8 inserts, 2 retractions of whole inserted
+   batches and 2 query updates shipped by the shipper's thread
+   (``start()``). After every leader tick each follower that reached it
+   holds the leader's table bit for bit and its sink view. Reads through
+   ``ReadTier`` at the leader's tick, and ``StaleRead`` above every
+   replica; ``r0`` restarted mid-tail on a fresh executor from its own
+   checkpoint; ``WalCompactor`` folds the tail (the retracted rows gone),
+   ``recover`` from checkpoint plus folded log equals the leader, and
+   ``r1``, detached inside the folded range, re-anchors through the
+   checkpoint; the leader stops, ``FailoverCoordinator`` promotes a
+   follower at epoch 1 onto a fresh ``cuda`` executor, the old leader's
+   append raises ``FencedWrite`` and a shipment of its epoch changes no
+   mirror byte, and after an insert and a query update the survivor and
+   the new leader equal a non-replicated twin. Printed: ship lag in ticks
+   and ms, MB shipped, apply ms a window, bootstrap ms and MB, read p50
+   and p95, compaction ms, records and bytes, the fold's and the
+   snapshot walk's host loops alone, failover ms by part and the time to
+   the first acknowledged write, and the launches by path.
+
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
-them, must stay 0. Phase 13 zeroes them again and counts its own path's
-launches apart from its twin's.
+them, must stay 0. Phases 13 and 14 zero them again and count their own
+paths' launches apart from their twins'.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -190,7 +217,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import zlib
 from collections import Counter
 from typing import Callable, Dict, FrozenSet, List, Set
 
@@ -213,14 +242,21 @@ from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
                                            topk_merge_plain, topk_plain)
 from reflow_tpu_torch.models import vit
 from reflow_tpu_torch.serve import (APPLIED, DEDUPED, CoalesceWindow,
-                                    IngestFrontend, PumpCrashed)
+                                    FailoverCoordinator, IngestFrontend,
+                                    LeaderReadAdapter, PumpCrashed, ReadTier,
+                                    ReplicaScheduler, StaleRead)
 from reflow_tpu_torch.utils.checkpoint import (CheckpointChain,
                                                load_checkpoint,
                                                read_chain_manifest,
                                                save_checkpoint)
 from reflow_tpu_torch.utils.faults import CrashInjector, CrashPoint
 from reflow_tpu_torch.utils.metrics import summarize_wal
-from reflow_tpu_torch.wal import list_segments
+from reflow_tpu_torch.utils import tiles
+from reflow_tpu_torch.wal import (FencedWrite, SegmentShipper, WalCompactor,
+                                  list_segments, scan_wal)
+from reflow_tpu_torch.wal.compact import _SourceFold
+from reflow_tpu_torch.wal.log import _MAGIC
+from reflow_tpu_torch.wal.ship import ShipAck, Shipment, ShipNack
 from reflow_tpu_torch.workloads import (image_embed, knn, pagerank, sssp,
                                         tfidf, wordcount)
 
@@ -2734,6 +2770,40 @@ def _want_launches(kind: str, chunks: int) -> tuple:
     return (0, chunks) if rescan else (1, 0)
 
 
+def _knn_graph(cfg: Dict[str, int], sink: bool = False):
+    """Config 4's k-NN graph (bf16 queries, int8 corpus); ``sink`` adds a
+    sink ``nn`` on the index, the view the read tier serves."""
+    kg = knn.build_graph(cfg["Q"], cfg["D"], cfg["dim"], cfg["k"],
+                         scan_chunk=cfg["scan_chunk"], dtype=torch.bfloat16,
+                         doc_dtype=torch.int8, precision="default")
+    if sink:
+        kg.graph.sink(kg.index, "nn")
+    return kg
+
+
+def _knn_frontend(sched, cfg: Dict[str, int]) -> IngestFrontend:
+    return IngestFrontend(sched, depth=2, admission="device",
+                          window=CoalesceWindow(
+                              max_rows=cfg["preload_chunk"], max_ticks=8,
+                              max_latency_s=0.005),
+                          max_bytes=1 << 30)
+
+
+def _table_diff(got: Dict, want: Dict) -> List[int]:
+    """The queries whose live top-k (ids and scores above ``NEG``) differ
+    between two k-NN tables, bit for bit."""
+    bad = [q for q in want if q not in got]
+    for q in want:
+        if q not in got:
+            continue
+        a, b = got[q], want[q]
+        live = a[:, 1] > NEG
+        if not np.array_equal(live, b[:, 1] > NEG) \
+                or not np.array_equal(a[live], b[live]):
+            bad.append(q)
+    return bad
+
+
 def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     """Config 4 served durably at full width beside a non-durable twin,
     killed inside the last window, recovered and resent."""
@@ -2746,16 +2816,10 @@ def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     ckpt_dir = os.path.join(tmp, "knn-ckpt")
 
     def graph():
-        return knn.build_graph(Q, D, dim, k, scan_chunk=cfg["scan_chunk"],
-                               dtype=torch.bfloat16, doc_dtype=torch.int8,
-                               precision="default")
+        return _knn_graph(cfg)
 
     def frontend(sched):
-        return IngestFrontend(sched, depth=2, admission="device",
-                              window=CoalesceWindow(
-                                  max_rows=cfg["preload_chunk"],
-                                  max_ticks=8, max_latency_s=0.005),
-                              max_bytes=1 << 30)
+        return _knn_frontend(sched, cfg)
 
     def submit(fe, kg, item):
         bid, src, batch, _kind = item
@@ -2882,15 +2946,11 @@ def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     if set(statuses) - {APPLIED, DEDUPED} or log_readbacks:
         raise AssertionError(f"resend statuses {dict(statuses)}, "
                              f"log_readbacks {log_readbacks}")
-    live_ids = 0
-    for q in range(Q):
-        a, b = table[q], twin_table[q]
-        live = a[:, 1] > NEG
-        if not np.array_equal(live, b[:, 1] > NEG) \
-                or not np.array_equal(a[live], b[live]):
-            raise AssertionError(f"query {q}: the recovered table != the "
-                                 f"uncrashed twin's")
-        live_ids += int(live.sum())
+    bad = _table_diff(table, twin_table)
+    if bad:
+        raise AssertionError(f"queries {bad[:8]}: the recovered table != "
+                             f"the uncrashed twin's")
+    live_ids = sum(int((table[q][:, 1] > NEG).sum()) for q in range(Q))
     st = sched2.executor.states[k2.index.id]
     full = scores(st["qvec"], st["dvec"])
     full = torch.where(st["dlive"][None, :], full, NEG)
@@ -3179,6 +3239,644 @@ def phase_durable(card: str) -> Dict[str, object]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 14: replication ----------------------------------------------------
+
+#: phase 14's tail after the leader's checkpoint, in order: 8 inserts of
+#: 8,192 fresh docs, 2 retractions of whole inserted batches (their own
+#: vectors, so a compaction fold cancels them row for row) and 2 query
+#: updates on disjoint queries (a fold keeps one row a key); r1 detaches
+#: after the first query update. After the failover the promoted leader
+#: takes an insert and a query update
+REPLICA_TAIL = ("ins", "ins", "ins", "ret", "qup", "ins", "ins", "ins",
+                "ins", "ret", "ins", "qup")
+REPLICA_DETACH_AFTER = 4
+#: r0 checkpoints and restarts after this tail tick, so that the
+#: promotion's recovery (r0 wins the election's tie by name) replays the
+#: rest of the tail from that checkpoint
+REPLICA_RESTART_AFTER = 7
+#: the inserted batch each retraction takes back (indices into the tail)
+REPLICA_RETRACTS = {3: 1, 9: 6}
+#: a follower that has not reached the leader's tick after this long
+#: fails the phase (a replay that raised on the shipper's thread)
+REPLICA_WAIT_S = 120.0
+#: ReadTier reads timed: lookups and full-view reads at the leader's tick
+READ_LOOKUPS, READ_VIEWS = 200, 20
+
+
+def _replica_feed(cfg: Dict[str, int], seed: int) -> tuple:
+    """(head, tail, after): the queries and the preload (phase 13's feed),
+    the tail of ``REPLICA_TAIL`` and the two batches after the failover,
+    each as (batch id, source, host batch, kind)."""
+    Q, dim, per = cfg["Q"], cfg["dim"], cfg["per_tick"]
+    head = _knn_feed(cfg, seed)[:1 + cfg["preload_chunks"]]
+    rng = np.random.default_rng(seed + 1)
+    lo = cfg["preload_chunks"] * cfg["preload_chunk"]
+    nq = cfg["query_update"]
+    qlo = 0
+
+    def docs(lo: int) -> DeltaBatch:
+        return DeltaBatch(np.arange(lo, lo + per, dtype=np.int64),
+                          rng.integers(-127, 128, (per, dim),
+                                       dtype=np.int8))
+
+    def queries(qlo: int) -> DeltaBatch:
+        return DeltaBatch(np.arange(qlo, qlo + nq, dtype=np.int64),
+                          rng.standard_normal((nq, dim), dtype=np.float32))
+
+    tail: List[tuple] = []
+    for i, kind in enumerate(REPLICA_TAIL):
+        if kind == "ins":
+            tail.append((f"tins{i}", "d", docs(lo), "insert"))
+            lo += per
+        elif kind == "ret":
+            b = tail[REPLICA_RETRACTS[i]][2]
+            tail.append((f"tret{i}", "d", DeltaBatch(
+                b.keys, b.values, -np.ones(len(b.keys), np.int64)),
+                "retract"))
+        else:
+            tail.append((f"tqup{i}", "q", queries(qlo), "query update"))
+            qlo += nq
+    # the corpus is full after the tail (2^20 ids): the insert after the
+    # failover lands on the ids the first retraction freed
+    freed = tail[min(REPLICA_RETRACTS.values())][2].keys
+    after = [("fins", "d", DeltaBatch(
+        freed, rng.integers(-127, 128, (len(freed), dim), dtype=np.int8)),
+        "insert"), ("fqup", "q", queries(qlo), "query update")]
+    if qlo + nq > Q or lo > cfg["D"]:
+        raise AssertionError("the feed outran the queries or the corpus")
+    return head, tail, after
+
+
+def _on_thread(ident: int) -> tuple:
+    """(topk, topk_merge) launches made so far on one host thread."""
+    return tuple(topk_mod.LAUNCHES_BY_THREAD.get(ident, (0, 0)))
+
+
+def _since_on(ident: int, l0: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(_on_thread(ident), l0))
+
+
+class _Counted:
+    """A replica as the shipper, the read tier and the coordinator see it:
+    every call passes through to it. The top-k launches made on the
+    calling thread inside ``receive`` (the replay of shipped windows)
+    and the first ``promote`` (the new leader's recovery) are added up
+    here, apart from the leader's on its pump thread; a receive that
+    published a new horizon is timed to its synchronize."""
+
+    def __init__(self, inner, replay=(0, 0)):
+        self.inner = inner
+        self.name = inner.name
+        self.replay = list(replay)
+        self.apply_s: List[tuple] = []
+        #: (start, end, payload bytes) of every receive, host clock
+        self.rx: List[tuple] = []
+        self.shipped = 0
+        self.promote_s = None
+        self.promote_t0 = None
+        self.promote_launches = (0, 0)
+        self.error = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def receive(self, sh):
+        me = threading.get_ident()
+        l0, h0 = _on_thread(me), self.inner.published_horizon()
+        t0 = time.perf_counter()
+        try:
+            resp = self.inner.receive(sh)
+        except BaseException as e:
+            self.error = e
+            raise
+        h1 = self.inner.published_horizon()
+        if h1 > h0:
+            torch.cuda.synchronize()
+            self.apply_s.append((time.perf_counter() - t0, h1 - h0))
+        d = _since_on(me, l0)
+        self.replay = [self.replay[0] + d[0], self.replay[1] + d[1]]
+        self.rx.append((t0, time.perf_counter(), len(sh.payload)))
+        if isinstance(resp, ShipAck):
+            self.shipped += len(sh.payload)
+        return resp
+
+    def promote(self, **kw):
+        me = threading.get_ident()
+        first = self.promote_s is None
+        l0, t0 = _on_thread(me), time.perf_counter()
+        sched = self.inner.promote(**kw)
+        torch.cuda.synchronize()
+        if first:
+            self.promote_t0 = t0
+            self.promote_s = time.perf_counter() - t0
+            self.promote_launches = _since_on(me, l0)
+        return sched
+
+
+def _wait_horizon(followers: List[_Counted], tick: int, t0: float
+                  ) -> Dict[str, float]:
+    """Seconds from ``t0`` until each follower published ``tick``; raises
+    what a follower's replay raised, or after ``REPLICA_WAIT_S``."""
+    seen: Dict[str, float] = {}
+    while len(seen) < len(followers):
+        for p in followers:
+            if p.error is not None:
+                raise AssertionError(f"{p.name}: replay failed") from p.error
+            if p.name not in seen and p.published_horizon() >= tick:
+                seen[p.name] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > REPLICA_WAIT_S:
+            raise AssertionError(
+                f"followers at {[p.published_horizon() for p in followers]}"
+                f", the leader at tick {tick}")
+        time.sleep(0.0002)
+    return seen
+
+
+def _mirror_digest(replica) -> Dict[str, tuple]:
+    """Each mirrored segment's size, mtime and CRC-32 of its bytes."""
+    out = {}
+    for _seq, path in list_segments(replica.mirror_dir):
+        st = os.stat(path)
+        with open(path, "rb") as f:
+            out[os.path.basename(path)] = (st.st_size, st.st_mtime_ns,
+                                           zlib.crc32(f.read()))
+    return out
+
+
+def _pct(xs: List[float], q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def replicate_knn(card: str, fs: str, tmp: str,
+                  cfg: Dict[str, int] = FULL) -> Dict[str, object]:
+    """Config 4's k-NN at full width through a durable leader with two
+    followers on their own executors (one from segment 0, one from the
+    leader's checkpoint), reads through the read tier, a follower's
+    restart, a compaction of the tail and a follower re-anchored across
+    it, and a failover to a promoted follower, beside a non-replicated
+    twin fed the same acknowledged batches."""
+    chunks = cfg["D"] // cfg["scan_chunk"]
+    main = threading.get_ident()
+    head, tail, after = _replica_feed(cfg, seed=14)
+    wal_dir = os.path.join(tmp, "leader-wal")
+    ckpt_dir = os.path.join(tmp, "leader-ckpt")
+    graphs = {n: _knn_graph(cfg, sink=True)
+              for n in ("leader", "twin", "r0", "r1")}
+    kd, kt = graphs["leader"], graphs["twin"]
+    leader = DurableScheduler(kd.graph, get_executor("cuda"),
+                              wal_dir=wal_dir, fsync="tick",
+                              committer="thread")
+    twin = DirtyScheduler(kt.graph, get_executor("cuda"))
+    fe, fe_t = _knn_frontend(leader, cfg), _knn_frontend(twin, cfg)
+    ship = SegmentShipper(leader.wal, ckpt_dir=ckpt_dir,
+                          leader_tick=lambda: leader._tick)
+    r0 = _Counted(ReplicaScheduler(graphs["r0"].graph,
+                                   os.path.join(tmp, "r0"),
+                                   executor=get_executor("cuda"), name="r0"))
+    ship.attach(r0)
+    if r0.bootstraps:
+        raise AssertionError("r0 bootstrapped: no checkpoint existed yet")
+    followers = [r0]
+    counts = {"leader": [0, 0], "twin": [0, 0], "restart": (0, 0),
+              "recover": (0, 0), "new_leader": [0, 0]}
+
+    def add(key, d):
+        counts[key] = [counts[key][0] + d[0], counts[key][1] + d[1]]
+
+    def replayed() -> tuple:
+        return tuple(map(sum, zip(*[p.replay for p in live])))
+
+    def submit(front, g, item) -> float:
+        bid, src, batch, _kind = item
+        ticket = front.submit(g.queries if src == "q" else g.docs, batch,
+                              batch_id=bid)
+        front.flush(timeout=600)
+        res = ticket.result(timeout=600)
+        if res.status != APPLIED:
+            raise AssertionError(f"{bid}: ticket {res}")
+        return time.perf_counter()
+
+    def twin_step(item):
+        l0 = _on_thread(fe_t._thread.ident)
+        submit(fe_t, kt, item)
+        torch.cuda.synchronize()
+        add("twin", _since_on(fe_t._thread.ident, l0))
+
+    def check(tag: str, sched, g, among: List[_Counted]):
+        """Each follower in ``among`` that reached ``sched``'s tick holds
+        its table and its sink view exactly."""
+        tick = sched._tick
+        want = sched.read_table(g.index)
+        view = {kv: w for kv, w in sched.view("nn").items() if w != 0}
+        for p in among:
+            if p.published_horizon() < tick:
+                continue
+            with p.inner._lock:
+                got = p.inner.sched.read_table(graphs[p.name].index)
+            h, pview = p.inner.view_at("nn")
+            bad = _table_diff(got, want)
+            if bad or h != tick or pview != view:
+                raise AssertionError(
+                    f"{tag}: {p.name} at horizon {h} unlike the leader at "
+                    f"tick {tick} (queries {bad[:8]}, views equal "
+                    f"{pview == view})")
+            checks.append((tag, p.name, tick))
+
+    checks: List[tuple] = []
+    live = [r0]
+    steps: List[Dict[str, object]] = []
+
+    def leader_step(item, threaded: bool) -> Dict[str, object]:
+        pump = fe._thread.ident
+        l0 = _on_thread(pump)
+        t0 = time.perf_counter()
+        t_ack = submit(fe, kd, item)
+        tick = leader._tick
+        at_ack = {p.name: tick - p.published_horizon() for p in followers}
+        if not threaded:
+            while not ship.fully_shipped():
+                ship.pump_once()
+        lag = _wait_horizon(followers, tick, t_ack)
+        torch.cuda.synchronize()
+        mine = _since_on(pump, l0)
+        add("leader", mine)
+        want = _want_launches(item[3], chunks)
+        if mine != want:
+            raise AssertionError(f"{item[0]}: the leader launched {mine}, "
+                                 f"expected {want}")
+        twin_step(item)
+        check(item[0], leader, kd, followers)
+        row = {"id": item[0], "kind": item[3], "s": t_ack - t0,
+               "lag_s": lag, "lag_ticks": at_ack,
+               "rx": [(round((a - t_ack) * 1e3, 2), round((b - a) * 1e3, 2),
+                       n) for a, b, n in followers[0].rx if a >= t0]}
+        steps.append(row)
+        return row
+
+    try:
+        # the head, shipped by pump_once on this thread
+        for item in head:
+            leader_step(item, threaded=False)
+        t0 = time.perf_counter()
+        meta = save_checkpoint(leader, ckpt_dir)
+        ckpt_s = time.perf_counter() - t0
+        r1 = _Counted(ReplicaScheduler(graphs["r1"].graph,
+                                       os.path.join(tmp, "r1"),
+                                       executor=get_executor("cuda"),
+                                       name="r1"))
+        l0 = _launches()
+        t0 = time.perf_counter()
+        ship.attach(r1)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        if _since(l0) != (0, 0) or r1.bootstraps != 1 \
+                or r1.published_horizon() != leader._tick:
+            raise AssertionError(f"r1's bootstrap: {r1.bootstraps} "
+                                 f"bootstraps, horizon "
+                                 f"{r1.published_horizon()}")
+        followers.append(r1)
+        live.append(r1)
+        check("bootstrap", leader, kd, [r1])
+        # the tail, shipped by the shipper's thread
+        ship.start()
+        n_head_applies = len(r0.apply_s)
+        for i, item in enumerate(tail):
+            leader_step(item, threaded=True)
+            if i == REPLICA_DETACH_AFTER:
+                ship.detach("r1")
+                followers.remove(r1)
+                r1_cursor = tuple(r1.subscribe())
+            if i != REPLICA_RESTART_AFTER:
+                continue
+            # r0's restart: a checkpoint of its own, then a fresh executor
+            ship.detach("r0")
+            followers.remove(r0)
+            t0 = time.perf_counter()
+            r0.inner.checkpoint()
+            r0_ckpt_s = time.perf_counter() - t0
+            r0_dir, old_replay = r0.inner.replica_dir, tuple(r0.replay)
+            r0_boots = r0.bootstraps
+            old_apply = r0.apply_s[n_head_applies:]
+            old_shipped = r0.shipped
+            live.remove(r0)
+            del r0
+            torch.cuda.empty_cache()
+            graphs["r0"] = _knn_graph(cfg, sink=True)
+            l0 = _on_thread(main)
+            t0 = time.perf_counter()
+            inner = ReplicaScheduler(graphs["r0"].graph, r0_dir,
+                                     executor=get_executor("cuda"), name="r0")
+            torch.cuda.synchronize()
+            restart_s = time.perf_counter() - t0
+            counts["restart"] = _since_on(main, l0)
+            r0 = _Counted(inner)
+            if inner.restored_from not in ("checkpoint",
+                                           "checkpoint+tail", "tail") \
+                    or inner.published_horizon() != leader._tick:
+                raise AssertionError(f"r0 restarted from "
+                                     f"{inner.restored_from} at "
+                                     f"{inner.published_horizon()}")
+            check("restart", leader, kd, [r0])
+            ship.attach(r0)
+            followers.append(r0)
+            live.append(r0)
+            if old_replay != (counts["leader"][0], counts["leader"][1]):
+                raise AssertionError(f"r0 replayed {old_replay}, the leader "
+                                     f"launched {counts['leader']}")
+        tail_segments = [seq for seq, _p in list_segments(wal_dir)
+                         if seq >= meta["wal_pos"][0]]
+
+        # reads through the tier at the leader's tick (read-your-writes)
+        tick = leader._tick
+        tier = ReadTier([r0, r1], leader=LeaderReadAdapter(leader))
+        want_view = {kv: w for kv, w in leader.view("nn").items() if w != 0}
+        keys = list(want_view)
+        look_s, view_s = [], []
+        for j in range(READ_LOOKUPS):
+            t0 = time.perf_counter()
+            res = tier.lookup("nn", keys[j % len(keys)], min_horizon=tick)
+            look_s.append(time.perf_counter() - t0)
+            if res.value != 1.0 or res.horizon != tick \
+                    or res.source != "r0":
+                raise AssertionError(f"lookup: {res}")
+        for _ in range(READ_VIEWS):
+            t0 = time.perf_counter()
+            res = tier.view_at("nn", min_horizon=tick)
+            view_s.append(time.perf_counter() - t0)
+            if res.value != want_view or res.source != "r0":
+                raise AssertionError(f"view_at from {res.source} at "
+                                     f"{res.horizon}: unlike the leader's")
+        try:
+            ReadTier([r0, r1]).lookup("nn", keys[0], min_horizon=tick + 1)
+        except StaleRead:
+            pass
+        else:
+            raise AssertionError("a read above every replica was served")
+        if tier.leader_fallbacks or tier.stale_reads:
+            raise AssertionError("a fresh read fell back to the leader")
+
+        # compaction of the tail, bounded by the checkpoint and by r0
+        comp = WalCompactor(leader.wal, shipper=ship, ckpt_dir=ckpt_dir,
+                            min_segments=2, keep_segments=0)
+        t0 = time.perf_counter()
+        ev = comp.compact_once()
+        compact_s = time.perf_counter() - t0
+        if ev is None or not ev["covers"][0] <= r1_cursor[0] \
+                <= ev["covers"][1]:
+            raise AssertionError(f"compaction {ev}: r1's cursor "
+                                 f"{r1_cursor} outside the folded range")
+        folded = [r for _p, r in scan_wal(wal_dir)[0]
+                  if r.get("compacted") and r["node"] == kd.docs.id]
+        gone = np.concatenate([tail[j][2].keys
+                               for j in REPLICA_RETRACTS.values()])
+        kept = sum(len(r["keys"]) for r in folded)
+        if not folded or any(np.isin(r["keys"], gone).any()
+                             or (np.asarray(r["weights"]) == 0).any()
+                             for r in folded):
+            raise AssertionError("retracted rows survived the fold")
+        # the host loops, alone: the fold's rows, the snapshot's walk
+        push = [r for _p, r in scan_wal(os.path.join(r0_dir, "wal"),
+                                        tuple(meta["wal_pos"]))[0]
+                if r.get("kind") == "push" and r["node"] == kd.docs.id]
+        fold = _SourceFold(kd.docs.id, push[0])
+        rows = sum(len(r["keys"]) for r in push)
+        t0 = time.perf_counter()
+        for r in push:
+            fold.add(r)
+        fold_s = time.perf_counter() - t0
+        sink_rows = [rw for d in leader.history[-1].sink_deltas.values()
+                     for rw in d.rows()]
+        t0 = time.perf_counter()
+        for kk, vv, _w in sink_rows:
+            tiles.bucket_of((kk, vv))
+        walk_s = time.perf_counter() - t0
+        # recovery from the checkpoint and the compacted log
+        gc_ = _knn_graph(cfg, sink=True)
+        rc = DirtyScheduler(gc_.graph, get_executor("cuda"))
+        l0 = _on_thread(main)
+        t0 = time.perf_counter()
+        rep = recover(rc, wal_dir, ckpt_dir)
+        torch.cuda.synchronize()
+        rc_s = time.perf_counter() - t0
+        counts["recover"] = _since_on(main, l0)
+        bad = _table_diff(rc.read_table(gc_.index),
+                          leader.read_table(kd.index))
+        if bad or rc._tick != leader._tick:
+            raise AssertionError(f"recovery from the compacted log: tick "
+                                 f"{rc._tick}, queries {bad[:8]} unlike "
+                                 f"the leader's")
+        del rc, gc_
+        torch.cuda.empty_cache()
+        # r1 comes back with its cursor inside the folded range
+        b0 = r1.bootstraps
+        t0 = time.perf_counter()
+        ship.attach(r1)
+        followers.append(r1)
+        _wait_horizon([r1], leader._tick, t0)
+        torch.cuda.synchronize()
+        reanchor_s = time.perf_counter() - t0
+        if r1.bootstraps != b0 + 1:
+            raise AssertionError("r1 did not re-anchor on the checkpoint")
+        check("re-anchor", leader, kd, [r1])
+
+        # failover: the leader stops without a drain
+        fe.close(flush=False)
+        tier = ReadTier([r0, r1], leader=LeaderReadAdapter(leader))
+        coord = FailoverCoordinator([r0, r1], shipper=ship, read_tier=tier,
+                                    durable_kw={"fsync": "tick",
+                                                "committer": "thread"})
+        l0 = _on_thread(main)
+        t0 = time.perf_counter()
+        coord.promote_now(reason="leader stopped")
+        new = coord.leader_sched
+        torch.cuda.synchronize()
+        fail_s = time.perf_counter() - t0
+        win = coord.winner
+        fail_drain_s = win.promote_t0 - t0
+        survivor = r1 if win is r0 else r0
+        if new.wal.epoch != 1 or type(new.executor).__name__ \
+                != "CudaExecutor" or new.executor.device.type != "cuda" \
+                or new.executor is win.inner.sched.executor:
+            raise AssertionError(f"the promoted leader: epoch "
+                                 f"{new.wal.epoch}, executor "
+                                 f"{type(new.executor).__name__} on "
+                                 f"{getattr(new.executor, 'device', '?')}")
+        if _since_on(main, l0) != win.promote_launches:
+            raise AssertionError("launches outside the promotion's "
+                                 "recovery during the failover")
+        fe2 = _knn_frontend(new, cfg)
+        try:
+            firsts = []
+            for item in after:
+                l0 = _on_thread(fe2._thread.ident)
+                t1 = time.perf_counter()
+                t_ack = submit(fe2, graphs[win.name], item)
+                firsts.append(t_ack - t1)
+                if item is after[0]:
+                    to_first_write = t_ack - t0
+                _wait_horizon([survivor], new._tick, t_ack)
+                torch.cuda.synchronize()
+                add("new_leader", _since_on(fe2._thread.ident, l0))
+                twin_step(item)
+                check(f"after {item[0]}", new, graphs[win.name],
+                      [survivor])
+        finally:
+            fe2.close()
+        # the zombie: its append is fenced, and a shipment of its epoch
+        # (the bytes of its last segment) is refused before a byte lands
+        digests = {p.name: _mirror_digest(p.inner) for p in (r0, r1)}
+        try:
+            leader.wal.append({"kind": "tick", "tick": leader._tick + 1})
+        except FencedWrite:
+            pass
+        else:
+            raise AssertionError("the old leader's append was not fenced")
+        if ship.pump_once():
+            raise AssertionError("the old shipper shipped after the fence")
+        seq, spath = list_segments(wal_dir)[-1]
+        with open(spath, "rb") as f:
+            zbytes = f.read()[len(_MAGIC):]
+        for p in (r0, r1):
+            zombie = p.inner.receive(Shipment(
+                seq, len(_MAGIC), zbytes, len(_MAGIC) + len(zbytes), False,
+                None, leader._tick + 1, 0))
+            if not isinstance(zombie, ShipNack) \
+                    or not zombie.reason.startswith("fenced") \
+                    or _mirror_digest(p.inner) != digests[p.name]:
+                raise AssertionError(f"{p.name}: a zombie shipment was "
+                                     f"not fenced out: {zombie}")
+        bad = _table_diff(new.read_table(graphs[win.name].index),
+                          twin.read_table(kt.index))
+        if bad:
+            raise AssertionError(f"the promoted leader unlike the twin: "
+                                 f"queries {bad[:8]}")
+        coord.close()
+        new.close()
+    finally:
+        ship.stop()
+        fe.close(flush=False)
+        fe_t.close()
+        leader.close()
+
+    replica = [counts["restart"][0] + counts["recover"][0]
+               + win.promote_launches[0] + counts["new_leader"][0],
+               counts["restart"][1] + counts["recover"][1]
+               + win.promote_launches[1] + counts["new_leader"][1]]
+    for p in (r1, r0):
+        replica = [replica[0] + p.replay[0], replica[1] + p.replay[1]]
+    replica = [replica[0] + old_replay[0], replica[1] + old_replay[1]]
+    if not replica[0] or not replica[1]:
+        raise AssertionError(f"the replicas launched {replica}: both "
+                             f"top-k entries must run on the replica path")
+    tail_rows = steps[len(head):]
+    lag_ms = {n: [r["lag_s"][n] * 1e3 for r in tail_rows
+                  if n in r["lag_s"]] for n in ("r0", "r1")}
+    applies = [s * 1e3 / n for s, n in old_apply + r0.apply_s]
+    head_lag = [round(r["lag_s"]["r0"] * 1e3, 2) for r in steps[:len(head)]]
+    ship_mb = {"r0": (old_shipped + r0.shipped) / 1e6,
+               "r1": r1.shipped / 1e6}
+    log(f"[replica] k-NN at full width (Q {cfg['Q']}, {cfg['D']} ids x "
+        f"{cfg['dim']} int8, k {cfg['k']}, chunk {cfg['scan_chunk']}, a sink "
+        f"on the index) through IngestFrontend(depth=2) over "
+        f"DurableScheduler(fsync='tick', committer='thread'); r0 from "
+        f"segment 0, r1 from the checkpoint, each a ReplicaScheduler on its "
+        f"own cuda executor; {len(checks)} follower checks equal to the "
+        f"leader (table bit for bit and sink view) [{card}] [{fs}]")
+    log(f"[replica] ship lag at the ack, ticks behind (r0, r1) "
+        f"{[tuple(r['lag_ticks'].values()) for r in tail_rows]}; ack to "
+        f"horizon ms (tail, shipper thread; the first tail tick's receives "
+        f"on r0 as (start after the ack, ms, bytes): {tail_rows[0]['rx']}"
+        f"): r0 median "
+        f"{_median(lag_ms['r0']):.3f} of "
+        f"{[round(x, 2) for x in lag_ms['r0']]}, r1 median "
+        f"{_median(lag_ms['r1']):.3f} of "
+        f"{[round(x, 2) for x in lag_ms['r1']]}; head (pump_once) ack to "
+        f"r0's horizon ms {head_lag} [{card}] [{fs}]")
+    log(f"[replica] shipped {ship.bytes_total / 1e6:.1f} MB in "
+        f"{ship.shipments} shipments (r0 "
+        f"{ship_mb['r0']:.1f} MB, r1 {ship_mb['r1']:.1f} MB), "
+        f"{ship.nacks} NACKs, {ship.compact_reanchors} compaction "
+        f"re-anchors, {r0_boots} bootstrap(s) of r0 (a checkpoint "
+        f"truncated the segment its cursor ended); replica apply ms a "
+        f"window (r0, the tail): median "
+        f"{_median(applies):.3f} of {[round(a, 2) for a in applies]}; "
+        f"leader tick ms (tail) "
+        f"{[round(r['s'] * 1e3, 2) for r in tail_rows]} [{card}] [{fs}]")
+    log(f"[replica] leader checkpoint {ckpt_s * 1e3:.1f} ms "
+        f"({meta['states_bytes'] / 1e6:.1f} MB of device state); r1's "
+        f"bootstrap {boot_s * 1e3:.1f} ms: {meta['states_bytes'] / 1e6:.1f}"
+        f" MB loaded onto the card and saved again as its own checkpoint; "
+        f"r0's own checkpoint {r0_ckpt_s * 1e3:.1f} ms, its restart "
+        f"{restart_s * 1e3:.1f} ms (restored_from "
+        f"{r0.inner.restored_from!r}) [{card}] [{fs}]")
+    log(f"[replica] ReadTier at the leader's tick (read-your-writes): "
+        f"lookup p50 {_pct(look_s, 0.5) * 1e3:.4f} ms p95 "
+        f"{_pct(look_s, 0.95) * 1e3:.4f} ms ({READ_LOOKUPS}); view_at "
+        f"p50 {_pct(view_s, 0.5) * 1e3:.3f} ms p95 "
+        f"{_pct(view_s, 0.95) * 1e3:.3f} ms ({READ_VIEWS}, "
+        f"{len(want_view)} rows); StaleRead above every replica with no "
+        f"leader [{card}]")
+    log(f"[replica] compaction of segments {ev['covers']} (the tail's "
+        f"{len(tail_segments)} segments, rotated at 16 MB): "
+        f"{compact_s * 1e3:.1f} ms, records {ev['records_in']} -> "
+        f"{ev['records_out']}, {ev['orig_bytes'] / 1e6:.1f} -> "
+        f"{ev['bytes'] / 1e6:.1f} MB ({ev['reclaimed_bytes'] / 1e6:.1f} MB "
+        f"reclaimed), {kept} doc rows kept, the {len(gone)} retracted rows "
+        f"gone; _SourceFold.add alone {fold_s * 1e3:.1f} ms for {rows} "
+        f"rows ({rows / max(fold_s, 1e-9) / 1e3:.1f} k rows/s); the "
+        f"snapshot's bucket walk {walk_s * 1e3:.3f} ms for "
+        f"{len(sink_rows)} sink rows [{card}] [{fs}]")
+    log(f"[replica] recover from checkpoint + compacted log "
+        f"{rc_s * 1e3:.1f} ms (restore {rep.restore_s * 1e3:.1f}, replay "
+        f"{rep.replay_s * 1e3:.1f}; {rep.replayed_ticks} ticks), table == "
+        f"the leader's; r1 re-anchored through the checkpoint in "
+        f"{reanchor_s * 1e3:.1f} ms, then == the leader's [{card}] [{fs}]")
+    log(f"[replica] failover to {win.name} (epoch 1, executor on "
+        f"{new.executor.device}): {fail_s * 1e3:.1f} ms in all, of which "
+        f"the drain, fence and election {fail_drain_s * 1e3:.1f}, the "
+        f"promotion's recovery {win.promote_s * 1e3:.1f}, the survivor's "
+        f"re-anchor and the re-point "
+        f"{(fail_s - fail_drain_s - win.promote_s) * 1e3:.1f}; first tick "
+        f"{firsts[0] * 1e3:.3f} ms; time to the first acknowledged write "
+        f"{to_first_write * 1e3:.1f} ms; the old leader's append fenced, "
+        f"a zombie shipment NACKed, no mirror byte changed; the survivor "
+        f"and the new leader == the twin [{card}] [{fs}]")
+    log(f"[replica] (topk, topk_merge) launches: leader {counts['leader']}"
+        f", r0 replay {list(old_replay)} (== the leader's), r1 replay "
+        f"{r1.replay}, r0 after its restart {r0.replay}, r0's restart "
+        f"{list(counts['restart'])}, recovery from the compacted log "
+        f"{list(counts['recover'])}, the promotion's recovery "
+        f"{list(win.promote_launches)}, the promoted leader's ticks "
+        f"{counts['new_leader']}; twin {counts['twin']}")
+    return {"leader": counts["leader"], "replica": replica,
+            "twin": counts["twin"]}
+
+
+def phase_replication(card: str) -> Dict[str, object]:
+    """Replication at full width (``replicate_knn``); the top-k counts
+    zeroed just before its path, and every launch since told apart: the
+    leader's, the replica path's and the twin's."""
+    tmp = tempfile.mkdtemp()
+    try:
+        fs = fs_line(tmp)
+        log(f"[replica] WAL, mirrors and checkpoints under a temp dir: {fs}")
+        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+        topk_mod.LAUNCHES_BY_THREAD.clear()
+        out = replicate_knn(card, fs, tmp)
+        got = list(_launches())
+        want = [a + b + c for a, b, c in zip(out["leader"], out["replica"],
+                                            out["twin"])]
+        if got != want:
+            raise AssertionError(f"top-k launches {got}: the leader's "
+                                 f"{out['leader']}, the replicas' "
+                                 f"{out['replica']}, the twin's "
+                                 f"{out['twin']}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     spent: Dict[str, float] = {}
@@ -3203,15 +3901,18 @@ def main() -> int:
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
         raise AssertionError("a phase after the serving slice launched a "
                              "top-k kernel")
-    # phase 13 zeroes the counts itself, just before its path
+    # phases 13 and 14 zero the counts themselves, just before their paths
     durable = timed(phase_durable, card)
+    replica = timed(phase_replication, card)
     log("[time] s a phase: " + ", ".join(
         f"{name[len('phase_'):]} {s:.1f}" for name, s in spent.items())
         + f"; all phases {time.perf_counter() - t_start:.1f} s [{card}]")
     for i, rec in enumerate(recs):
         by_path = {"serve": serve["total_launches" if rec["name"] == "topk"
                                   else "total_merge_launches"],
-                   "durable": durable["launches"][i]}
+                   "durable": durable["launches"][i],
+                   "replica_leader": replica["leader"][i],
+                   "replica": replica["replica"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)

@@ -34,6 +34,11 @@ class Executor(abc.ABC):
         #: syncs on a streaming path; always 0 for host executors)
         self.materialize_count = 0
 
+    def fresh(self) -> "Executor":
+        """A new, unbound executor of this one's kind and options (a
+        promoted replica's leader runs on one)."""
+        return type(self)()
+
     def bind(self, graph: FlowGraph) -> None:
         """Attach to a validated graph and allocate per-node state."""
         self.graph = graph

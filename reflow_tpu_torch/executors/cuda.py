@@ -168,6 +168,12 @@ class CudaExecutor(Executor):
         #: windows dispatched through the device ingress queue
         self.window_dispatches = 0
 
+    def fresh(self) -> "CudaExecutor":
+        """A new, unbound executor on this one's device, with its loop
+        options."""
+        return type(self)(device=self.device, fixpoint=self.fixpoint,
+                          linear_fixpoint=self.linear_fixpoint)
+
     #: the obs tag of this executor's device in spans and gauges
     @property
     def device_label(self) -> Optional[str]:

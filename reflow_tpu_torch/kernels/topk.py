@@ -25,14 +25,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["topk", "topk_plain", "topk_merge", "topk_merge_plain",
            "chunked_corpus_topk", "score_form", "scores", "NEG",
-           "INT8_EMBED_SCALE", "TOPK_LAUNCHES", "TOPK_MERGE_LAUNCHES"]
+           "INT8_EMBED_SCALE", "TOPK_LAUNCHES", "TOPK_MERGE_LAUNCHES",
+           "LAUNCHES_BY_THREAD"]
 
 #: sentinel for "no candidate" — finite so arithmetic/compares stay clean
 NEG = float(np.finfo(np.float32).min)
@@ -42,6 +44,15 @@ NEG = float(np.finfo(np.float32).min)
 #: path went through the kernels
 TOPK_LAUNCHES = 0
 TOPK_MERGE_LAUNCHES = 0
+#: the same launches by the host thread that made them:
+#: ``threading.get_ident()`` -> [topk, topk_merge] (a replica's replay on
+#: the shipper's thread is told apart from its leader's pump); cleared
+#: with the two counts above
+LAUNCHES_BY_THREAD: Dict[int, List[int]] = {}
+
+
+def _tally(entry: int) -> None:
+    LAUNCHES_BY_THREAD.setdefault(threading.get_ident(), [0, 0])[entry] += 1
 
 #: the kernels index rows and columns with int32 (a cluster of up to 8
 #: blocks per row, each a tile past its segment's end): shapes stay
@@ -109,6 +120,7 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise RuntimeError(f"top-k kernel launch failed: cudaError {err} "
                            f"(shape {q}x{n}, k={k})")
     TOPK_LAUNCHES += 1
+    _tally(0)
     return vals, ids
 
 
@@ -179,6 +191,7 @@ def _launch_merge(carry_vals, carry_ids, scores, live, lo, out, stream):
         raise RuntimeError(f"top-k merge kernel launch failed: cudaError "
                            f"{err} (carry {q}x{k}, chunk {n})")
     TOPK_MERGE_LAUNCHES += 1
+    _tally(1)
     return out
 
 

@@ -1,0 +1,321 @@
+"""Flight recorder: a crash-surviving on-disk ring of recent spans.
+
+The trace rings (``obs/trace.py``) live in process memory — a kill -9
+takes them with it, which is exactly when an operator most wants the
+node's last seconds. The :class:`FlightRecorder` keeps a *bounded*
+on-disk ring in the node's own state directory (its "disk corner"):
+every causality-carrying span plus a small always-record set of
+control-plane events (fence rejects, failover elect/replay, reconnect
+attempts) is appended as one JSON line, buffered, and flushed to the
+OS every ``flush_every`` events — after a SIGKILL the flushed lines
+are plain file bytes, readable by anyone (``tools/reflow_flight.py``
+merges the corners of a whole fleet into one timeline).
+
+**Ring shape.** Two alternating JSONL files (``flight-a.jsonl`` /
+``flight-b.jsonl``), each opened with a fresh header line carrying the
+node name, pid, and a ``{mono, wall}`` clock anchor. When the active
+file exceeds half the byte budget the recorder truncates the *other*
+file and switches to it — so at least half a budget of history always
+survives, the files never grow past the budget, and recovery needs no
+index: read both files, drop any torn final line (a write cut mid-way
+by the kill), and order by the header anchors.
+
+**Crash model.** ``flush()`` pushes buffered lines through the file
+object into the OS page cache (no fsync — the recorder survives
+process death, which is the chaos benches' failure mode; surviving
+power loss is the WAL's job, not the flight recorder's). Eager flushes
+fire on the events worth dying with: fence rejects, promotions,
+breaker trips (:func:`note`).
+
+Install once per process with :func:`install`; it tees off
+:func:`reflow_tpu_torch.obs.trace.evt` via ``set_flight_hook`` so recording
+sites need no new code.
+
+The port's copy of ``reflow_tpu/obs/flight.py``: the same file format
+(``reflow.flight/1``), so ``tools/reflow_flight.py`` merges a port
+process's corner with a JAX process's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+from reflow_tpu_torch.obs import trace as _trace
+from reflow_tpu_torch.utils.config import env_int
+from reflow_tpu_torch.utils.runtime import named_lock
+
+__all__ = ["FLIGHT_SCHEMA", "FlightRecorder", "install", "installed",
+           "uninstall", "note", "flush_now", "read_flight_file",
+           "read_flight_dir"]
+
+FLIGHT_SCHEMA = "reflow.flight/1"
+
+#: span kinds recorded even without a causality token — the
+#: control-plane events a post-mortem always wants on the timeline
+ALWAYS_RECORD = frozenset({
+    "fence_reject", "failover_elect", "failover_replay",
+    "net_reconnect", "sub_push",
+})
+
+_FILES = ("flight-a.jsonl", "flight-b.jsonl")
+
+
+class FlightRecorder:
+    """One process's bounded on-disk span ring (see module docstring).
+
+    Thread-safe: spans arrive from every recording thread via the
+    trace tee. The write path under the lock is a dict build + a
+    buffered append; actual file writes happen only on flush/rotate.
+    """
+
+    def __init__(self, directory: str, *, node: Optional[str] = None,
+                 cap_bytes: Optional[int] = None,
+                 flush_every: Optional[int] = None) -> None:
+        from reflow_tpu_torch.obs.wire import node_id
+        self.dir = directory
+        self.node = node if node is not None else node_id()
+        self.cap_bytes = cap_bytes if cap_bytes is not None \
+            else env_int("REFLOW_FLIGHT_BYTES")
+        self.flush_every = flush_every if flush_every is not None \
+            else env_int("REFLOW_FLIGHT_FLUSH_EVERY")
+        self._lock = named_lock("obs.flight")
+        self._seq = 0
+        self._buf: List[str] = []
+        self._active = 0          # index into _FILES
+        self._active_bytes = 0
+        self._fh = None
+        self.events_total = 0
+        self.flushes_total = 0
+        self.rotations_total = 0
+        self.closed = False
+        self._published: List = []  # (registry, prefix) to drop on close
+        os.makedirs(self.dir, exist_ok=True)
+        with self._lock:
+            self._archive_previous()
+            self._open_active(truncate=True)
+
+    def _archive_previous(self) -> None:
+        """A respawn reopens the same disk corner; the dead
+        incarnation's ring is the post-mortem evidence, so move it
+        aside (one ``.prev`` generation, bounded) instead of
+        truncating over it."""
+        for fn in _FILES:
+            path = os.path.join(self.dir, fn)
+            if os.path.exists(path):
+                try:
+                    os.replace(path, path + ".prev")
+                except OSError:
+                    pass
+
+    # -- file machinery (caller holds the lock) ------------------------
+
+    def _header(self) -> str:
+        return json.dumps({
+            "flight": 1, "schema": FLIGHT_SCHEMA, "node": self.node,
+            "pid": os.getpid(),
+            "anchor": {"mono": time.perf_counter(),
+                       "wall": time.time()}})
+
+    def _open_active(self, truncate: bool) -> None:
+        path = os.path.join(self.dir, _FILES[self._active])
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+        self._fh = open(path, "w" if truncate else "a")
+        hdr = self._header() + "\n"
+        self._fh.write(hdr)
+        self._fh.flush()
+        self._active_bytes = len(hdr)
+
+    def _rotate(self) -> None:
+        self._active = 1 - self._active
+        self._open_active(truncate=True)
+        self.rotations_total += 1
+
+    def _flush_locked(self) -> None:
+        if not self._buf or self._fh is None:
+            return
+        data = "".join(self._buf)
+        self._buf.clear()
+        try:
+            self._fh.write(data)
+            self._fh.flush()
+        except OSError:
+            return  # a full/ripped disk must never break the data path
+        self._active_bytes += len(data)
+        self.flushes_total += 1
+        if self._active_bytes > max(self.cap_bytes // 2, 4096):
+            self._rotate()
+
+    # -- recording -----------------------------------------------------
+
+    def record(self, name: str, ts: float, dur: float,
+               track: Optional[str], args: Optional[Dict[str, Any]],
+               kind: str = "span") -> None:
+        """Append one event line (buffered). ``ts`` is the recording
+        process's ``time.perf_counter()``; the header anchor maps it
+        onto the wall clock at merge time."""
+        with self._lock:
+            if self.closed:
+                return
+            self._seq += 1
+            line = {"seq": self._seq, "kind": kind, "name": name,
+                    "mono": ts, "dur": dur}
+            if track:
+                line["track"] = track
+            if args:
+                line["args"] = args
+            self._buf.append(json.dumps(line) + "\n")
+            self.events_total += 1
+            if len(self._buf) >= self.flush_every:
+                self._flush_locked()
+
+    def _tee(self, name: str, ts: float, dur: float,
+             track: Optional[str], args: Optional[Dict[str, Any]]
+             ) -> None:
+        """The ``trace.set_flight_hook`` target: keep causality-carrying
+        spans and the always-record control set; drop the bulk."""
+        if name in ALWAYS_RECORD or name.startswith("control.") \
+                or (args is not None
+                    and ("cause" in args or "causes" in args)):
+            self.record(name, ts, dur, track, args)
+
+    def note(self, event: str, *, eager: bool = True, **args: Any
+             ) -> None:
+        """Record one control-plane event (zero-duration) and — by
+        default — flush immediately: these are the moments (fence,
+        promote, breaker trip) a process may not outlive."""
+        self.record(event, time.perf_counter(), 0.0, "flight",
+                    dict(args) or None, kind="event")
+        if eager:
+            self.flush()
+
+    def flush(self) -> None:
+        with self._lock:
+            self._flush_locked()
+
+    def close(self) -> None:
+        with self._lock:
+            self._flush_locked()
+            self.closed = True
+            if self._fh is not None:
+                try:
+                    self._fh.close()
+                except OSError:
+                    pass
+                self._fh = None
+        for reg, name in self._published:
+            reg.unregister_prefix(f"{name}.")
+        self._published = []
+
+    # -- observability -------------------------------------------------
+
+    def publish_metrics(self, registry=None, name: str = "flight"
+                        ) -> None:
+        from reflow_tpu_torch.obs.registry import REGISTRY
+        reg = registry if registry is not None else REGISTRY
+        reg.gauge(f"{name}.events_total", lambda: self.events_total)
+        reg.gauge(f"{name}.flushes_total", lambda: self.flushes_total)
+        reg.gauge(f"{name}.rotations_total",
+                  lambda: self.rotations_total)
+        self._published.append((reg, name))
+
+
+# -- module-level install (one recorder per process) ------------------------
+
+_REC: Optional[FlightRecorder] = None
+
+
+def install(directory: str, *, node: Optional[str] = None,
+            cap_bytes: Optional[int] = None,
+            flush_every: Optional[int] = None) -> FlightRecorder:
+    """Create the process's recorder and tee it off ``trace.evt``.
+    Replaces any previous recorder (closing it)."""
+    global _REC
+    rec = FlightRecorder(directory, node=node, cap_bytes=cap_bytes,
+                         flush_every=flush_every)
+    old, _REC = _REC, rec
+    _trace.set_flight_hook(rec._tee)
+    if old is not None:
+        old.close()
+    return rec
+
+
+def installed() -> Optional[FlightRecorder]:
+    return _REC
+
+
+def uninstall() -> None:
+    global _REC
+    _trace.set_flight_hook(None)
+    rec, _REC = _REC, None
+    if rec is not None:
+        rec.close()
+
+
+def note(event: str, **args: Any) -> None:
+    """Record + eagerly flush one control-plane event on the installed
+    recorder; a no-op when no recorder is installed (the common case —
+    callers never need to guard)."""
+    rec = _REC
+    if rec is not None:
+        rec.note(event, **args)
+
+
+def flush_now(reason: str = "") -> None:
+    """Eagerly flush the installed recorder (no-op when none)."""
+    rec = _REC
+    if rec is not None:
+        rec.flush()
+
+
+# -- post-mortem reading ----------------------------------------------------
+
+def read_flight_file(path: str) -> Optional[Dict[str, Any]]:
+    """Parse one flight file: ``{"header": {...}, "events": [...]}``.
+    A torn final line (the kill arrived mid-write) is dropped; a file
+    without a valid header returns None."""
+    try:
+        with open(path) as f:
+            raw = f.read()
+    except OSError:
+        return None
+    lines = raw.split("\n")
+    header = None
+    events: List[Dict[str, Any]] = []
+    for i, line in enumerate(lines):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            continue  # torn by the kill — drop, keep reading
+        if header is None:
+            if not (isinstance(obj, dict) and obj.get("flight") == 1):
+                return None
+            header = obj
+        elif isinstance(obj, dict):
+            events.append(obj)
+    if header is None:
+        return None
+    return {"header": header, "events": events, "path": path}
+
+
+def read_flight_dir(directory: str) -> List[Dict[str, Any]]:
+    """Every ring file of one node's corner — the live generation plus
+    the archived ``.prev`` one (a respawned process moved its dead
+    predecessor's ring aside) — valid ones only."""
+    out = []
+    for fn in _FILES:
+        for suffix in ("", ".prev"):
+            parsed = read_flight_file(
+                os.path.join(directory, fn + suffix))
+            if parsed is not None:
+                out.append(parsed)
+    return out

@@ -44,7 +44,8 @@ from typing import Any, Dict, List, Optional, Tuple
 __all__ = ["ENABLED", "RING_CAPACITY", "SAMPLE_EVERY", "STAGES",
            "WINDOW_SPANS",
            "TraceCtx", "enable", "disable", "enabled", "reset", "evt",
-           "events", "mint", "mint_cause", "sample", "ticket_stages"]
+           "events", "mint", "mint_cause", "sample", "set_flight_hook",
+           "ticket_stages"]
 
 #: hot-path gate — read directly (``if trace.ENABLED:``) at every
 #: instrumentation site; never wrapped in a function call
@@ -80,11 +81,27 @@ _gen = 0
 _mint_n = itertools.count()
 _cause_n = itertools.count()
 
+#: optional flight-recorder tee (obs/flight.py installs it): called as
+#: ``hook(name, ts, dur, track, args)`` after every ring put. A plain
+#: module global (like ENABLED) so the disabled cost is one None check.
+_flight_hook = None
+
+
+def set_flight_hook(hook) -> None:
+    """Install (or clear, with None) the flight-recorder tee on
+    :func:`evt`. One consumer at a time — the per-process
+    :class:`~reflow_tpu_torch.obs.flight.FlightRecorder`."""
+    global _flight_hook
+    _flight_hook = hook
+
 class TraceCtx:
     """Per-submission trace context carried on the Ticket.
 
     ``cause`` is the optional causality token (:func:`mint_cause`) that
-    correlates this context with spans recorded elsewhere."""
+    correlates this context with spans recorded elsewhere: the
+    replication path stamps it onto :class:`~reflow_tpu_torch.wal.ship.
+    Shipment` chunks so ``ship_segment`` and ``replica_replay`` stitch
+    into one chain."""
 
     __slots__ = ("batch_id", "t0", "sampled", "cause")
 
@@ -165,6 +182,8 @@ def evt(name: str, ts: float, dur: float, track: Optional[str] = None,
     if not ENABLED:
         return
     _ring().put((name, ts, dur, track, args))
+    if _flight_hook is not None:
+        _flight_hook(name, ts, dur, track, args)
 
 
 def events() -> List[Tuple[str, Event]]:

@@ -89,7 +89,7 @@ import os
 import pickle
 import struct
 import zlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -98,7 +98,7 @@ from reflow_tpu_torch.utils.tree import tree_leaves, tree_map
 __all__ = ["save_checkpoint", "load_checkpoint", "meta_digest",
            "checkpoint_exists", "CheckpointChain", "CheckpointError",
            "load_chain", "read_chain_manifest", "chain_head_wal_pos",
-           "CHAIN_MANIFEST", "CHAIN_SCHEMA"]
+           "committed_files", "CHAIN_MANIFEST", "CHAIN_SCHEMA"]
 
 CHAIN_MANIFEST = "chain.json"
 CHAIN_SCHEMA = "reflow.ckpt_chain/1"
@@ -145,6 +145,47 @@ def checkpoint_exists(path: Optional[str]) -> bool:
         return False
     return (os.path.exists(os.path.join(path, CHAIN_MANIFEST))
             or os.path.exists(os.path.join(path, "meta.pkl")))
+
+
+def _full_files(path: str, meta: dict) -> List[str]:
+    """The state and tile files one full checkpoint's ``meta`` names,
+    relative to its directory ``path``."""
+    rels: List[str] = []
+    sdir = meta.get("states_dir")
+    if sdir:
+        rels += [os.path.join(sdir, n)
+                 for n in sorted(os.listdir(os.path.join(path, sdir)))]
+    rels += list((meta.get("tiled") or {}).get("files", ()))
+    return rels
+
+
+def committed_files(path: str) -> Tuple[List[str], str, bytes]:
+    """The files the committed checkpoint in ``path`` is made of, as
+    ``(rels, commit_rel, commit_bytes)``: the paths (relative to
+    ``path``) of the state directory's files and the tile files its
+    ``meta.pkl`` names — for a chain, those of the base element, the
+    base's ``meta.pkl`` and the delta elements — and the commit file
+    (``meta.pkl``, or ``chain.json`` for a chain) with its bytes as read
+    first, so the list is what those bytes name. Directories a save left
+    behind uncommitted, or superseded ones not yet reaped, are not
+    listed. Raises ``OSError`` when a named file is gone (a save raced
+    the listing)."""
+    chain = os.path.join(path, CHAIN_MANIFEST)
+    if os.path.exists(chain):
+        with open(chain, "rb") as f:
+            commit = f.read()
+        manifest = json.loads(commit)
+        base = manifest["base"]
+        with open(os.path.join(path, base, "meta.pkl"), "rb") as f:
+            base_meta = pickle.loads(f.read())
+        rels = [os.path.join(base, r)
+                for r in _full_files(os.path.join(path, base), base_meta)]
+        rels.append(os.path.join(base, "meta.pkl"))
+        rels += list(manifest.get("deltas", []))
+        return rels, CHAIN_MANIFEST, commit
+    with open(os.path.join(path, "meta.pkl"), "rb") as f:
+        commit = f.read()
+    return _full_files(path, pickle.loads(commit)), "meta.pkl", commit
 
 
 def _is_array_state(st) -> bool:

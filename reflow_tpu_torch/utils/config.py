@@ -133,7 +133,31 @@ declare("REFLOW_CKPT_DELTA_EVERY", "int", 8,
         "checkpoint; the saves between are cheap delta elements "
         "(1 = every save full, i.e. deltas disabled)")
 declare("REFLOW_TILE_BYTES", "int", 0,
-        "key-range tile budget (bytes) for checkpoint elements: a full "
-        "checkpoint's and a delta element's keyed host state is written "
-        "one tile of roughly this many resident bytes at a time. 0 "
-        "(default) disables tiling")
+        "key-range tile budget (bytes) for O(state) maintenance: "
+        "checkpoint elements, compaction folds and replica snapshots "
+        "process one tile of roughly this many resident bytes at a time; "
+        "the shipper sends a checkpoint file by file. 0 (default) "
+        "disables tiling")
+declare("REFLOW_TILE_SHIP_RETRIES", "int", 3,
+        "per-tile resend attempts when a bootstrap tile unit is NACKed "
+        "(CRC mismatch on the follower) before the shipper falls back "
+        "to a whole-checkpoint bootstrap")
+declare("REFLOW_COMPACT_INTERVAL_S", "float", 2.0,
+        "background WAL compactor pass period (seconds)")
+declare("REFLOW_COMPACT_MIN_SEGMENTS", "int", 3,
+        "minimum eligible sealed segments before a compaction pass "
+        "rewrites (smaller ranges are not worth the fold)")
+declare("REFLOW_COMPACT_KEEP_SEGMENTS", "int", 1,
+        "newest sealed segments a compaction pass leaves untouched "
+        "(headroom between the fold and the committer's write head)")
+declare("REFLOW_FLEET_NODE", "str", None,
+        "this process's node id in causality tokens and flight-recorder "
+        "headers (default node-<pid>)")
+declare("REFLOW_FLIGHT_BYTES", "int", 1 << 20,
+        "flight recorder on-disk budget in bytes, split across two "
+        "alternating generation files — the ring rotates, it never "
+        "grows")
+declare("REFLOW_FLIGHT_FLUSH_EVERY", "int", 64,
+        "flight recorder flushes after this many buffered events "
+        "(control-plane events — fence/promote/breaker — always "
+        "flush eagerly)")

@@ -63,7 +63,15 @@ def test_importing_the_port_loads_no_jax():
               "reflow_tpu_torch.utils.tiles",
               "reflow_tpu_torch.wal.log",
               "reflow_tpu_torch.wal.durable",
-              "reflow_tpu_torch.wal.recovery"):
+              "reflow_tpu_torch.wal.recovery",
+              "reflow_tpu_torch.wal.ship",
+              "reflow_tpu_torch.wal.compact",
+              "reflow_tpu_torch.serve.replica",
+              "reflow_tpu_torch.serve.read",
+              "reflow_tpu_torch.serve.failover",
+              "reflow_tpu_torch.net.framing",
+              "reflow_tpu_torch.obs.flight",
+              "reflow_tpu_torch.obs.wire"):
         assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"

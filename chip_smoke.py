@@ -200,8 +200,42 @@ Phases, each printing its own lines:
    snapshot walk's host loops alone, failover ms by part and the time to
    the first acknowledged write, and the launches by path.
 
+15. **The serving tier and the wire** — one ``ServeTier(pump_threads=2)``
+   on the card hosting four tenants: ``knn`` (config 4 at full width over
+   ``DurableScheduler(fsync="tick", committer="thread")``, window depth 2,
+   device-keyed admission), ``pagerank`` (config 3 on the fused loop: the
+   initial batches and 4 churn ticks, from a producer thread of its own
+   while the k-NN preload runs), and ``wc_hot`` / ``wc_quiet`` (word-count
+   over 1,000 words) under a ``ControlPlane`` with
+   ``bench_configs.control_scenario``'s numbers. The k-NN tenant takes the
+   queries, phase 13's 15 x 65,536-doc preload and 3 inserts in process,
+   then 5 inserts, a retraction and a query update from a
+   ``RemoteProducer`` over ``TcpTransport`` (127.0.0.1) to an
+   ``RpcIngestServer`` on its handle; the fifth insert's ack is lost on the
+   link (``FaultyTransport``, ``drop_s2c``), and the producer's resubmit of
+   the same ``batch_id`` resolves ``deduped``. A ``SegmentShipper`` on its
+   log feeds a ``RemoteFollower`` over TCP to a ``ReplicaServer`` in front
+   of a ``ReplicaScheduler`` on a ``cuda`` executor of its own. After
+   every acknowledged tick the tenant's table equals, bit for bit, a twin
+   that ticks the same batches in process, and the follower's table equals
+   the leader's at that horizon. PageRank's ranks are within 1e-3 of the
+   float64 reference. Three paced hammers surge ``wc_hot`` while
+   ``wc_quiet`` submits 60 batches: ``wc_hot`` steps down the brownout
+   ladder and back within rungs x recover intervals + 12, ``wc_quiet``
+   stays at level 0 with its admission p99 at or under 50 ms. Then a crash
+   storm through ``pool_window@wc_hot``: the breaker goes open,
+   half-open, closed; both word-count tenants equal the CPU oracle fed
+   every batch whose ticket applied. The top-k launches are counted by
+   path as each executor's calls make them (``tier``: the pool threads on
+   the leader; ``tier_replica``: the follower's replay; ``twin``) and held
+   to the prediction. Printed: RPC submit -> applied p50/p95 beside the
+   in-process submit's, MB over the wire, ship lag over TCP (beside phase
+   14's in-process lag), ``summarize_tier``'s rows, windows, scheduling
+   delay and admission p99 a tenant and the pool's utilization, the
+   control timeline in intervals, the breaker's transitions.
+
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
-them, must stay 0. Phases 13 and 14 zero them again and count their own
+them, must stay 0. Phases 13-15 zero them again and count their own
 paths' launches apart from their twins'.
 
 The last lines are the kernels' JSON record, the card line, and
@@ -211,6 +245,7 @@ rest of the repository beside it, the script fails before any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -3850,7 +3885,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
         f"{list(win.promote_launches)}, the promoted leader's ticks "
         f"{counts['new_leader']}; twin {counts['twin']}")
     return {"leader": counts["leader"], "replica": replica,
-            "twin": counts["twin"]}
+            "twin": counts["twin"], "lag_ms_r0": _median(lag_ms["r0"])}
 
 
 def phase_replication(card: str) -> Dict[str, object]:
@@ -3873,6 +3908,657 @@ def phase_replication(card: str) -> Dict[str, object]:
                                  f"{out['replica']}, the twin's "
                                  f"{out['twin']}")
         return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 15: the serving tier and the wire ----------------------------------
+
+#: bench_configs.control_scenario's numbers (bench.py's control mode): the
+#: word-count tenants' byte budget (the hot one's ceiling is half of it,
+#: the quiet one's floor a quarter), the control interval, the hot
+#: tenant's occupancy SLO and its breach/recover intervals, the surge's
+#: hammers and the quiet tenant's batches (the smoke setting's 60) and
+#: p99 bound, the recovery slack, and the breaker's knobs
+CONTROL = dict(budget_bytes=8 << 10, interval_s=0.005, occupancy_slo=0.6,
+               breach_intervals=2, recover_intervals=2, hammers=3,
+               quiet_batches=60, quiet_p99_bound_s=0.05,
+               recovery_slack_ticks=12, max_crashes=3, crash_window_s=30.0,
+               respawn_backoff_s=0.0, respawn_backoff_max_s=0.01,
+               breaker_cooldown_s=0.02, breaker_cooldown_max_s=0.1,
+               probe_intervals=2)
+#: each hammer's pause between submits: 3 hammers still offer the hot
+#: tenant thousands of batches a second, past what its windows drain
+HAMMER_PACE_S = 0.001
+#: the k-NN tenant's inserts submitted in process, beside the RPC ones,
+#: on the ids phase 13's feed leaves free (3 x 8192 fill the 2^20 ids)
+TIER_LOCAL_INSERTS = 3
+#: the RPC insert whose response the producer's link loses (it resubmits)
+TIER_RESET_AT = 4
+TIER_PR_CHURN = 4
+#: the word-count tenants' words (the bench's w0..w999) and key space
+WC_WORDS, WC_KEYS = 1000, 1024
+#: a wait on the tier, the follower or a ticket longer than this fails
+TIER_WAIT_S = 120.0
+#: (topk, topk_merge) launches predicted for each k-NN path (the tier's
+#: pool threads, the TCP follower's replay, the twin): the queries and
+#: the retraction and the query update rescan (128 merges each), the 15
+#: preload ticks and the 8 insert ticks run one top-k each; the
+#: resubmitted insert is deduped and runs no tick
+TIER_WANT = (15 + TIER_LOCAL_INSERTS + 5,
+             3 * (FULL["D"] // FULL["scan_chunk"]))
+
+
+class _Meter:
+    """The bytes written by every connection of the transports it wraps
+    (whole frames, both ends of each link)."""
+
+    def __init__(self):
+        self.sent = 0
+        self._lock = threading.Lock()
+
+    def add(self, n: int) -> int:
+        with self._lock:
+            self.sent += n
+        return n
+
+    def wrap(self, transport):
+        meter = self
+
+        class Conn:
+            def __init__(self, inner):
+                self.inner = inner
+
+            def send_msg(self, obj, timeout_s=None):
+                return meter.add(self.inner.send_msg(obj, timeout_s))
+
+            def send_raw(self, data, timeout_s=None):
+                return meter.add(self.inner.send_raw(data, timeout_s))
+
+            def recv_msg(self, timeout_s=None):
+                return self.inner.recv_msg(timeout_s)
+
+            def close(self):
+                self.inner.close()
+
+            @property
+            def alive(self):
+                return self.inner.alive
+
+        class Listener:
+            def __init__(self, inner):
+                self.inner = inner
+
+            @property
+            def address(self):
+                return self.inner.address
+
+            def accept(self, timeout_s=None):
+                return Conn(self.inner.accept(timeout_s))
+
+            def close(self):
+                self.inner.close()
+
+        class Transport:
+            def listen(self):
+                return Listener(transport.listen())
+
+            def connect(self, address, timeout_s=None):
+                return Conn(transport.connect(address, timeout_s))
+
+        return Transport()
+
+
+def _count_path(ex, path: str, tally: Dict[str, List[int]],
+                lock: threading.Lock) -> None:
+    """Add the top-k launches of ``ex``'s calls to ``tally[path]``,
+    whichever host thread makes them: each call's launches on its own
+    thread (the kernels' per-thread tallies) are counted at the call, so
+    pool threads that come and go are mapped as they come."""
+    tally[path] = [0, 0]
+    for meth in ("run_pass", "dispatch_window", "run_tick_fixpoint"):
+        def counted(*a, _real=getattr(ex, meth), **kw):
+            me = threading.get_ident()
+            l0 = _on_thread(me)
+            try:
+                return _real(*a, **kw)
+            finally:
+                d = _since_on(me, l0)
+                with lock:
+                    tally[path][0] += d[0]
+                    tally[path][1] += d[1]
+        setattr(ex, meth, counted)
+
+
+def _wc_lines(tag: int, producer: int, j: int) -> List[str]:
+    """bench.py's control-mode line: 8 words of w0..w999, seeded by the
+    tenant, the producer and the batch."""
+    rng = np.random.default_rng((tag * 101 + producer) * 100_003 + j)
+    return [" ".join(f"w{int(x)}" for x in rng.integers(0, WC_WORDS, 8))]
+
+
+def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
+    """One ``ServeTier(pump_threads=2)`` on the card hosting config 4's
+    k-NN (durable, fed in process and over TCP by a ``RemoteProducer``,
+    its log shipped over TCP to a follower), config 3's PageRank and two
+    word-count tenants under a ``ControlPlane`` (a hot tenant's surge,
+    then a crash storm), beside the k-NN tenant's twin."""
+    from reflow_tpu_torch.net import (FaultyTransport, RemoteFollower,
+                                      ReplicaServer, TcpTransport)
+    from reflow_tpu_torch.obs import MetricsRegistry
+    from reflow_tpu_torch.serve import (ControlConfig, ControlPlane,
+                                        GraphConfig, RemoteProducer,
+                                        RpcIngestServer, SLOSpec, ServeTier)
+    from reflow_tpu_torch.utils.faults import StormInjector, WireFaults
+    from reflow_tpu_torch.utils.metrics import percentile, summarize_tier
+
+    cfg, kn = FULL, CONTROL
+    t_phase = time.perf_counter()
+    feed = _knn_feed(cfg, seed=15)
+    head, ins, ret, qup = feed[:16], feed[16:21], feed[21], feed[22]
+    rng = np.random.default_rng(16)
+    lo = cfg["preload_chunks"] * cfg["preload_chunk"] \
+        + cfg["insert_ticks"] * cfg["per_tick"]
+    local = []
+    for i in range(TIER_LOCAL_INSERTS):
+        local.append((f"lins{i}", "d", DeltaBatch(
+            np.arange(lo, lo + cfg["per_tick"], dtype=np.int64),
+            rng.integers(-127, 128, (cfg["per_tick"], cfg["dim"]),
+                         dtype=np.int8)), "insert"))
+        lo += cfg["per_tick"]
+    if lo > cfg["D"]:
+        raise AssertionError("the local inserts outran the corpus")
+
+    tally: Dict[str, List[int]] = {}
+    lock = threading.Lock()
+    kd, kt, kr = (_knn_graph(cfg) for _ in range(3))
+    leader = DurableScheduler(kd.graph, get_executor("cuda"),
+                              wal_dir=os.path.join(tmp, "knn-wal"),
+                              fsync="tick", committer="thread")
+    twin = DirtyScheduler(kt.graph, get_executor("cuda"))
+    replica = ReplicaScheduler(kr.graph, os.path.join(tmp, "f0"),
+                               executor=get_executor("cuda"), name="f0")
+    _count_path(leader.executor, "tier", tally, lock)
+    _count_path(replica.sched.executor, "tier_replica", tally, lock)
+    _count_path(twin.executor, "twin", tally, lock)
+    pg, web, _pex, pr_sched, _arena = pagerank_setup(PAGERANK, {})
+    wc = {}
+    for name in ("wc_hot", "wc_quiet"):
+        g, src, sink = wordcount.build_graph(WC_KEYS)
+        wc[name] = (DirtyScheduler(g, get_executor("cuda")), src, sink)
+    vocab = {f"w{i}": i for i in range(WC_WORDS)}
+
+    storm = StormInjector(only="pool_window@wc_hot")
+    storm.disarm()
+    tier = ServeTier(max_bytes=1 << 30, pump_threads=2, crash=storm)
+    meter = _Meter()
+    tcp = meter.wrap(TcpTransport())
+    window = CoalesceWindow(max_rows=cfg["preload_chunk"], max_ticks=8,
+                            max_latency_s=0.005)
+    wc_window = CoalesceWindow(max_rows=4096, max_ticks=8,
+                               max_latency_s=0.005)
+    budget = kn["budget_bytes"]
+    h_knn = tier.register("knn", leader, GraphConfig(
+        window=window, admission="device", window_depth=2))
+    h_pr = tier.register("pagerank", pr_sched, GraphConfig(
+        window=CoalesceWindow(max_rows=2 * PAGERANK["n_edges"], max_ticks=8,
+                              max_latency_s=0.005)))
+    h_hot = tier.register("wc_hot", wc["wc_hot"][0], GraphConfig(
+        weight=1.0, ceiling_bytes=budget // 2, window=wc_window))
+    h_quiet = tier.register("wc_quiet", wc["wc_quiet"][0], GraphConfig(
+        weight=4.0, floor_bytes=budget // 4, window=wc_window))
+    rsrv = ReplicaServer(replica, tcp).start()
+    ship = SegmentShipper(leader.wal, leader_tick=lambda: leader._tick)
+    link = RemoteFollower(tcp, rsrv.address, name="f0", io_timeout_s=60.0)
+    ship.attach(link)
+    ship.start()
+    rpc = RpcIngestServer(h_knn, tcp).start()
+    faults = WireFaults(seed=15)
+    prod = RemoteProducer(FaultyTransport(tcp, faults), rpc.address,
+                          name="knn-producer", io_timeout_s=60.0)
+    cp = None
+    errors: List[BaseException] = []
+    try:
+        for h in (h_knn, h_pr, h_hot, h_quiet):
+            ex = h.frontend.sched.executor
+            if ex.device.type != "cuda" or h.device_label != str(ex.device):
+                raise AssertionError(f"{h.name}: executor on {ex.device}, "
+                                     f"label {h.device_label}")
+        for ex in (replica.sched.executor, twin.executor):
+            if ex.device.type != "cuda":
+                raise AssertionError(f"an executor on {ex.device}")
+
+        # PageRank on its own producer thread, beside the k-NN preload
+        pr_ticks: List[float] = []
+
+        def pagerank_producer():
+            try:
+                t0 = time.perf_counter()
+                a = h_pr.submit(pg.teleport,
+                                pagerank.teleport_batch(PAGERANK["n_nodes"]))
+                b = h_pr.submit(pg.edges, web.initial_batch())
+                for t in (a, b):
+                    if not t.result(timeout=TIER_WAIT_S).applied:
+                        raise AssertionError("pagerank: initial batch")
+                pr_ticks.append(time.perf_counter() - t0)
+                for _ in range(TIER_PR_CHURN):
+                    t0 = time.perf_counter()
+                    t = h_pr.submit(pg.edges, web.churn(PAGERANK["churn"]))
+                    if not t.result(timeout=TIER_WAIT_S).applied:
+                        raise AssertionError("pagerank: churn batch")
+                    pr_ticks.append(time.perf_counter() - t0)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        pr_thread = threading.Thread(target=pagerank_producer,
+                                     name="pagerank-producer")
+        pr_thread.start()
+
+        rows: List[Dict[str, object]] = []
+        follower_checks = 0
+
+        def after_ack(item, t_sub, t_ack, how, res):
+            nonlocal follower_checks
+            bid, src, batch, kind = item
+            if res.status not in (APPLIED, DEDUPED):
+                raise AssertionError(f"{bid}: {res}")
+            h_knn.flush(timeout=TIER_WAIT_S)
+            tick = leader._tick
+            while replica.published_horizon() < tick:
+                if time.perf_counter() - t_ack > TIER_WAIT_S:
+                    raise AssertionError(
+                        f"{bid}: the follower at "
+                        f"{replica.published_horizon()}, the leader at "
+                        f"tick {tick}")
+                time.sleep(0.0002)
+            lag = time.perf_counter() - t_ack
+            if how != "dedup":
+                twin.tick_many([{kt.queries if src == "q" else kt.docs:
+                                 batch}]).block()
+            want = twin.read_table(kt.index)
+            bad = _table_diff(leader.read_table(kd.index), want)
+            if bad or tick != twin._tick:
+                raise AssertionError(
+                    f"{bid}: the tier's table at tick {tick} unlike the "
+                    f"twin's at {twin._tick} (queries {bad[:8]})")
+            with replica._lock:
+                got = replica.sched.read_table(kr.index)
+                h = replica.published_horizon()
+            bad = _table_diff(got, want)
+            if bad or h != tick:
+                raise AssertionError(
+                    f"{bid}: the follower at horizon {h} unlike the "
+                    f"leader at tick {tick} (queries {bad[:8]})")
+            follower_checks += 1
+            rows.append({"id": bid, "kind": kind, "how": how,
+                         "status": res.status, "s": t_ack - t_sub,
+                         "lag_s": lag, "tick": tick})
+
+        def local_submit(item):
+            bid, src, batch, _kind = item
+            t0 = time.perf_counter()
+            res = h_knn.submit(kd.queries if src == "q" else kd.docs, batch,
+                               batch_id=bid).result(timeout=TIER_WAIT_S)
+            after_ack(item, t0, time.perf_counter(), "local", res)
+
+        def rpc_submit(item, reset=False):
+            bid, src, batch, _kind = item
+            fails = prod.link_failures
+            t0 = time.perf_counter()
+            if reset:
+                faults.set_rates(drop_s2c=1.0)
+            ticket = prod.submit("queries" if src == "q" else "docs", batch,
+                                 batch_id=bid)
+            if reset:
+                faults.quiesce()
+                if prod.link_failures != fails + 1 or ticket.done():
+                    raise AssertionError(f"{bid}: the link did not drop the "
+                                         f"ack ({prod.link_failures} "
+                                         f"failures)")
+            res = ticket.result(timeout=TIER_WAIT_S)
+            t_ack = time.perf_counter()
+            if reset:
+                if res.status != DEDUPED \
+                        or bid not in prod.last_hello["admitted"] \
+                        or ticket.submits < 2:
+                    raise AssertionError(
+                        f"{bid}: resubmitted after the reset, {res}, "
+                        f"admitted {prod.last_hello['admitted']}, "
+                        f"{ticket.submits} submits")
+                # the first submit applied it; its tick is the twin's now
+                twin.tick_many([{kt.queries if src == "q" else kt.docs:
+                                 batch}]).block()
+                after_ack(item, t0, t_ack, "dedup", res)
+            else:
+                after_ack(item, t0, t_ack, "rpc", res)
+
+        # a server's boot heap stays out of its full collections: the
+        # 14 phases before this one left a heap whose full collection
+        # stalls every thread about 95 ms (the tier's admissions too)
+        gc.collect()
+        gc.freeze()
+        # zero the tallies just before the path
+        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+        topk_mod.LAUNCHES_BY_THREAD.clear()
+        t_knn = time.perf_counter()
+        for item in head + local:
+            local_submit(item)
+        for i, item in enumerate(ins):
+            rpc_submit(item, reset=(i == TIER_RESET_AT))
+        for item in (ret, qup):
+            rpc_submit(item)
+        knn_s = time.perf_counter() - t_knn
+        launches = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        pr_thread.join(timeout=TIER_WAIT_S)
+        if errors:
+            raise AssertionError("pagerank producer failed") from errors[0]
+        if pr_thread.is_alive():
+            raise AssertionError("pagerank producer still running")
+        h_pr.flush(timeout=TIER_WAIT_S)
+        pr_err = rank_error(pr_sched, pg, web, PAGERANK["n_nodes"])
+        if pr_err["rel_err"] > PAGERANK_MAX_REL_ERR:
+            raise AssertionError(f"pagerank in the tier: relative error "
+                                 f"{pr_err['rel_err']:.3g}")
+
+        # the word-count tenants under the control plane
+        slo = SLOSpec(budget_occupancy=kn["occupancy_slo"],
+                      breach_intervals=kn["breach_intervals"],
+                      recover_intervals=kn["recover_intervals"])
+        reg = MetricsRegistry()
+        cp = ControlPlane(
+            tier, specs={"wc_hot": slo, "wc_quiet": slo},
+            config=ControlConfig(
+                interval_s=kn["interval_s"],
+                max_crashes=kn["max_crashes"],
+                crash_window_s=kn["crash_window_s"],
+                respawn_backoff_s=kn["respawn_backoff_s"],
+                respawn_backoff_max_s=kn["respawn_backoff_max_s"],
+                breaker_cooldown_s=kn["breaker_cooldown_s"],
+                breaker_cooldown_max_s=kn["breaker_cooldown_max_s"],
+                probe_intervals=kn["probe_intervals"]),
+            registry=reg)
+        cp.start()
+        hot_tickets: List[tuple] = []
+        quiet_batches: List[DeltaBatch] = []
+        stop = threading.Event()
+
+        def hammer(pid):
+            j = 0
+            while not stop.is_set():
+                b = wordcount.ingest_lines(_wc_lines(7, pid, j),
+                                           vocab=dict(vocab))
+                try:
+                    t = h_hot.submit(wc["wc_hot"][1], b, timeout=0.2)
+                    with lock:
+                        hot_tickets.append((t, b))
+                except Exception:  # noqa: BLE001 - saturation is the point
+                    pass
+                j += 1
+                # a hammer paces itself: unpaced, three spinning threads
+                # take the interpreter lock from every torch call of the
+                # pool threads and the quiet tenant's producer
+                time.sleep(HAMMER_PACE_S)
+
+        gc_pauses: List[float] = []
+        gc_t0 = [0.0]
+
+        def gc_timer(phase, info):
+            if info["generation"] != 2:
+                return
+            if phase == "start":
+                gc_t0[0] = time.perf_counter()
+            else:
+                gc_pauses.append(time.perf_counter() - gc_t0[0])
+
+        gc.callbacks.append(gc_timer)
+        t_surge = time.perf_counter()
+        cp_t0 = cp._clock()
+        hammers = [threading.Thread(target=hammer, args=(p,),
+                                    name=f"hammer-{p}")
+                   for p in range(kn["hammers"])]
+        for t in hammers:
+            t.start()
+        hot_peak = quiet_peak = 0
+        for j in range(kn["quiet_batches"]):
+            b = wordcount.ingest_lines(_wc_lines(6, 0, j), vocab=dict(vocab))
+            res = h_quiet.submit(wc["wc_quiet"][1], b).result(
+                timeout=TIER_WAIT_S)
+            if not res.applied:
+                raise AssertionError(f"wc_quiet batch {j}: {res}")
+            quiet_batches.append(b)
+            hot_peak = max(hot_peak, cp.level("wc_hot"))
+            quiet_peak = max(quiet_peak, cp.level("wc_quiet"))
+        surge_s = time.perf_counter() - t_surge
+        quiet_adm = list(h_quiet.frontend.admission_s)
+        quiet_p99 = percentile(quiet_adm, 99)
+        stop.set()
+        for t in hammers:
+            t.join()
+        gc.callbacks.remove(gc_timer)
+        log(f"[tier] the surge's host: wc_quiet's slowest admissions ms "
+            f"{[round(x * 1e3, 3) for x in sorted(quiet_adm)[-3:]]}; "
+            f"{len(gc_pauses)} full garbage collections, ms "
+            f"{[round(x * 1e3, 1) for x in gc_pauses]} [{card}]")
+        ticks_at_end = cp.ticks
+        rungs = len(slo.ladder)
+        bound = rungs * kn["recover_intervals"] + kn["recovery_slack_ticks"]
+        deadline = time.perf_counter() + 30
+        while cp.level("wc_hot") > 0 and time.perf_counter() < deadline:
+            time.sleep(kn["interval_s"])
+        recovery = cp.ticks - ticks_at_end
+        if not (hot_peak > 0 and quiet_peak == 0
+                and cp.level("wc_hot") == 0
+                and h_hot.frontend.policy == "block"
+                and recovery <= bound
+                and quiet_p99 <= kn["quiet_p99_bound_s"]):
+            raise AssertionError(
+                f"surge: hot peak level {hot_peak}, quiet {quiet_peak}, hot "
+                f"policy {h_hot.frontend.policy} after {recovery} intervals "
+                f"(bound {bound}), quiet admission p99 {quiet_p99 * 1e3:.3f}"
+                f" ms (bound {kn['quiet_p99_bound_s'] * 1e3:.0f} ms)")
+        surge_actions = list(cp.actions)
+
+        # the crash storm through pool_window@wc_hot
+        storm.rearm()
+        t_storm = time.perf_counter()
+        j = 0
+        while cp.breaker_state("wc_hot") != "open":
+            if time.perf_counter() - t_storm > 30:
+                raise AssertionError("the breaker never opened")
+            b = wordcount.ingest_lines(_wc_lines(5, 0, j), vocab=dict(vocab))
+            try:
+                t = h_hot.submit(wc["wc_hot"][1], b, timeout=0.1)
+                with lock:
+                    hot_tickets.append((t, b))
+            except Exception:  # noqa: BLE001 - failed or quarantined
+                pass
+            j += 1
+            time.sleep(0.002)
+        open_s = time.perf_counter() - t_storm
+        sib = h_quiet.submit(wc["wc_quiet"][1], wordcount.ingest_lines(
+            _wc_lines(4, 0, 0), vocab=dict(vocab)))
+        if not sib.result(timeout=TIER_WAIT_S).applied:
+            raise AssertionError("wc_quiet did not apply during the storm")
+        quiet_batches.append(wordcount.ingest_lines(_wc_lines(4, 0, 0),
+                                                    vocab=dict(vocab)))
+        storm.disarm()
+        t_heal = time.perf_counter()
+        while cp.breaker_state("wc_hot") != "closed":
+            if time.perf_counter() - t_heal > 30:
+                raise AssertionError("the breaker never closed")
+            time.sleep(kn["interval_s"])
+        heal_s = time.perf_counter() - t_heal
+        for j in range(5):
+            b = wordcount.ingest_lines(_wc_lines(5, 1, j), vocab=dict(vocab))
+            t = h_hot.submit(wc["wc_hot"][1], b)
+            if not t.result(timeout=TIER_WAIT_S).applied:
+                raise AssertionError("wc_hot after the storm")
+            hot_tickets.append((t, b))
+        for h in (h_hot, h_quiet):
+            h.flush(timeout=TIER_WAIT_S)
+        actions = list(cp.actions)
+        breaker = [a["kind"] for a in actions
+                   if a.get("graph") == "wc_hot"
+                   and a["kind"].startswith("breaker")]
+        if breaker[:1] != ["breaker_open"] or breaker[-1:] != \
+                ["breaker_close"] or "breaker_probe" not in breaker:
+            raise AssertionError(f"breaker transitions {breaker}")
+        # the word-count tenants against the CPU oracle: every batch whose
+        # ticket applied, once
+        statuses: Counter = Counter()
+        applied_hot: List[DeltaBatch] = []
+        for t, b in hot_tickets:
+            try:
+                res = t.result(timeout=TIER_WAIT_S)
+            except Exception as e:  # noqa: BLE001 - crashed or closed
+                statuses[type(e).__name__] += 1
+                continue
+            statuses[res.status] += 1
+            if res.applied:
+                applied_hot.append(b)
+        for name, batches in (("wc_hot", applied_hot),
+                              ("wc_quiet", quiet_batches)):
+            g, src, sink = wordcount.build_graph(WC_KEYS)
+            oracle = DirtyScheduler(g, CpuExecutor())
+            for b in batches:
+                oracle.push(src, b)
+                oracle.tick()
+            sched, _src, tsink = wc[name]
+            got = {kv: w for kv, w in sched.view(tsink.name).items() if w}
+            want = {kv: w for kv, w in oracle.view(sink.name).items() if w}
+            if got != want:
+                raise AssertionError(f"{name}: the view != the CPU oracle's "
+                                     f"({len(got)} vs {len(want)} rows)")
+        control = {k: reg.value(f"control.{k}", 0)
+                   for k in ("respawns", "scale_ups", "scale_downs",
+                             "brownout_steps", "brownouts_exited")}
+        summary = summarize_tier(tier).to_dict()
+    finally:
+        if cp is not None:
+            cp.stop()
+        prod.close()
+        rpc.close()
+        ship.close()
+        rsrv.close()
+        tier.close()
+        replica.close()
+        gc.unfreeze()
+
+    # the launches by path, against the prediction and the global counts
+    paths = {p: tuple(tally[p]) for p in ("tier", "tier_replica", "twin")}
+    for p, got in paths.items():
+        if got != TIER_WANT:
+            raise AssertionError(f"top-k launches on the {p} path {got}, "
+                                 f"predicted {TIER_WANT}")
+    total = tuple(map(sum, zip(*paths.values())))
+    if total != launches:
+        raise AssertionError(f"top-k launches {launches} != the paths' "
+                             f"{paths}")
+    phase_s = time.perf_counter() - t_phase
+
+    def ms(xs):
+        return [round(x * 1e3, 2) for x in xs]
+
+    rpc_rows = [r for r in rows
+                if r["how"] == "rpc" and r["kind"] == "insert"]
+    local_rows = [r for r in rows if r["how"] == "local"
+                  and r["kind"] == "insert"]
+    dedup = [r for r in rows if r["how"] == "dedup"][0]
+    rpc_s = [r["s"] for r in rows if r["how"] == "rpc"]
+    ins_lag = [r["lag_s"] for r in rows if r["kind"] == "insert"
+               and r["how"] != "dedup"]
+    log(f"[tier] ServeTier(pump_threads=2) on {card}: knn (config 4 at full "
+        f"width, DurableScheduler(fsync='tick', committer='thread'), "
+        f"window depth 2), pagerank (config 3, fused loop), wc_hot and "
+        f"wc_quiet (word-count, {WC_WORDS} words) under a ControlPlane; a "
+        f"follower over TCP (SegmentShipper -> RemoteFollower -> "
+        f"ReplicaServer -> ReplicaScheduler on its own cuda executor); "
+        f"{len(rows)} k-NN ticks equal to the twin and {follower_checks} "
+        f"follower horizons equal to the leader, bit for bit [{fs}]")
+    log(f"[tier] RPC submit -> APPLIED over TCP (k-NN, {cfg['per_tick']} "
+        f"int8 docs an insert): p50 {_pct(rpc_s, 0.5) * 1e3:.3f} ms p95 "
+        f"{_pct(rpc_s, 0.95) * 1e3:.3f} ms of {ms(rpc_s)} (inserts "
+        f"{ms([r['s'] for r in rpc_rows])}); in-process submit on the same "
+        f"tenant: p50 {_pct([r['s'] for r in local_rows], 0.5) * 1e3:.3f} "
+        f"ms p95 {_pct([r['s'] for r in local_rows], 0.95) * 1e3:.3f} ms "
+        f"of {ms([r['s'] for r in local_rows])} [{card}]")
+    log(f"[tier] reset mid-submit: {dedup['id']}'s ack lost on the link "
+        f"(FaultyTransport, drop_s2c), the producer re-dialed "
+        f"({prod.reconnects_total} reconnects, {prod.link_failures} link "
+        f"failures), hello reported it admitted, the resubmit resolved "
+        f"{dedup['status']} in {dedup['s'] * 1e3:.1f} ms, folded once "
+        f"(the table == the twin's) [{card}]")
+    log(f"[tier] MB over the wire (frames written, both ends, RPC and "
+        f"shipping): {meter.sent / 1e6:.1f}; shipped "
+        f"{ship.bytes_total / 1e6:.1f} MB of log in {ship.shipments} "
+        f"shipments, {ship.nacks} NACKs, "
+        f"{ship.retransmit_bytes / 1e6:.1f} MB re-offered; the follower's "
+        f"link: {link.reconnects_total} reconnects, {link.link_failures} "
+        f"failures; the replica's order and CRC rejects "
+        f"{replica.order_rejects}, {replica.crc_rejects} [{card}]")
+    log(f"[tier] ship lag over TCP, ms from the ack to the follower's "
+        f"horizon: insert ticks median {_median(ins_lag) * 1e3:.3f} of "
+        f"{ms(ins_lag)}; preload ticks "
+        f"({cfg['preload_chunk'] * cfg['dim'] / 1e6:.1f} MB of docs a "
+        f"record) "
+        f"{ms([r['lag_s'] for r in rows if r['kind'] == 'preload'])} "
+        f"[{card}] [{fs}]")
+    log(f"[tier] pagerank in the tier: the initial batches and "
+        f"{TIER_PR_CHURN} churn ticks, s from submit to applied "
+        f"{[round(x, 3) for x in pr_ticks]}; relative error "
+        f"{pr_err['rel_err']:.3g} (bound {PAGERANK_MAX_REL_ERR}) [{card}]")
+    for name in ("knn", "pagerank", "wc_hot", "wc_quiet"):
+        g = summary["per_graph"][name]
+        log(f"[tier] summarize_tier {name}: rows applied "
+            f"{g['rows_applied']}, windows {g['windows']}, sched delay p50 "
+            f"{g['sched_delay_p50_s'] * 1e3:.3f} ms p99 "
+            f"{g['sched_delay_p99_s'] * 1e3:.3f} ms, admission p99 "
+            f"{g['admission_p99_s'] * 1e3:.3f} ms, state {g['state']}, "
+            f"crashes {g['crashes']}, revives {g['revives']}, device "
+            f"{g['device']} [{card}]")
+    log(f"[tier] pool: pump_utilization {summary['pump_utilization']:.4f}, "
+        f"windows {summary['windows']}, pool crashes "
+        f"{summary['pool_crashes']}, device collisions "
+        f"{summary['device_collisions']}, live workers "
+        f"{summary['live_workers']}, worker deaths "
+        f"{summary['worker_deaths']}, respawns "
+        f"{summary['worker_respawns']} [{card}]")
+
+    def timeline(acts):
+        return [(a["kind"], a.get("graph"),
+                 int(round((a["now"] - cp_t0) / kn["interval_s"])))
+                for a in acts if a["kind"] != "wal_compact"]
+
+    log(f"[tier] control: surge of {kn['hammers']} hammers on wc_hot "
+        f"{surge_s:.2f} s ({kn['quiet_batches']} wc_quiet batches, "
+        f"admission p99 {quiet_p99 * 1e3:.3f} ms, bound "
+        f"{kn['quiet_p99_bound_s'] * 1e3:.0f} ms); wc_hot peak level "
+        f"{hot_peak}, wc_quiet {quiet_peak}; recovered in {recovery} "
+        f"intervals (bound {bound}); hot tickets {dict(statuses)} "
+        f"[{card}]")
+    log(f"[tier] control timeline (kind, graph, interval): "
+        f"{timeline(surge_actions)}")
+    log(f"[tier] crash storm (pool_window@wc_hot): breaker open after "
+        f"{open_s * 1e3:.1f} ms ({storm.crashes} crashes), closed "
+        f"{heal_s * 1e3:.1f} ms after the storm ended; transitions "
+        f"{breaker}; then: {timeline(actions[len(surge_actions):])}; "
+        f"control counters {control}; both word-count tenants == the CPU "
+        f"oracle [{card}]")
+    log(f"[tier] (topk, topk_merge) launches by path: {paths} (predicted "
+        f"{TIER_WANT} each); k-NN leg {knn_s:.1f} s; phase {phase_s:.1f} s "
+        f"[{card}]")
+    return {"tier": paths["tier"], "tier_replica": paths["tier_replica"],
+            "twin": paths["twin"], "lag_ms": _median(ins_lag) * 1e3}
+
+
+def phase_tier(card: str) -> Dict[str, object]:
+    """The serving tier and the wire (``tier_knn``) under a temp dir; the
+    top-k counts are zeroed just before its path."""
+    tmp = tempfile.mkdtemp()
+    try:
+        fs = fs_line(tmp)
+        log(f"[tier] WAL and the follower's mirror under a temp dir: {fs}")
+        return tier_knn(card, fs, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3901,9 +4587,13 @@ def main() -> int:
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
         raise AssertionError("a phase after the serving slice launched a "
                              "top-k kernel")
-    # phases 13 and 14 zero the counts themselves, just before their paths
+    # phases 13-15 zero the counts themselves, just before their paths
     durable = timed(phase_durable, card)
     replica = timed(phase_replication, card)
+    tier = timed(phase_tier, card)
+    log(f"[tier] ship lag, ms from the ack to the follower's horizon "
+        f"(insert ticks, median): over TCP {tier['lag_ms']:.3f} (phase 15),"
+        f" in process {replica['lag_ms_r0']:.3f} (phase 14, r0) [{card}]")
     log("[time] s a phase: " + ", ".join(
         f"{name[len('phase_'):]} {s:.1f}" for name, s in spent.items())
         + f"; all phases {time.perf_counter() - t_start:.1f} s [{card}]")
@@ -3912,7 +4602,9 @@ def main() -> int:
                                   else "total_merge_launches"],
                    "durable": durable["launches"][i],
                    "replica_leader": replica["leader"][i],
-                   "replica": replica["replica"][i]}
+                   "replica": replica["replica"][i],
+                   "tier": tier["tier"][i],
+                   "tier_replica": tier["tier_replica"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)

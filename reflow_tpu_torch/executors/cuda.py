@@ -17,7 +17,8 @@ in ``loop_reads``); a readback that decides a branch (the Join's
 compact-or-append, the fused loop's CSR rebuild) goes through
 ``read_branch`` and counts in ``host_syncs``. PyTorch runs eagerly, so
 there is no compiled-program cache: the program objects are built once
-per bound graph. One card needs no ``place``.
+per bound graph. :meth:`place` moves the executor to another device
+between windows (the serving tier's tenant placement).
 
 The window path (``tick_many``'s fused branch and the serve pump's
 staged windows): :meth:`stage_window` writes a K-tick window's host
@@ -59,6 +60,7 @@ from reflow_tpu_torch.executors.arena import propagate_plan_caps
 from reflow_tpu_torch.executors.base import Executor
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      bucket_capacity,
+                                                     devices_of,
                                                      resolve_device,
                                                      to_device, to_host)
 from reflow_tpu_torch.executors.fixpoint import (FixpointProgram, analyze,
@@ -174,7 +176,31 @@ class CudaExecutor(Executor):
         return type(self)(device=self.device, fixpoint=self.fixpoint,
                           linear_fixpoint=self.linear_fixpoint)
 
-    #: the obs tag of this executor's device in spans and gauges
+    def place(self, device) -> None:
+        """Commit this executor to ``device``: every state tensor moves
+        there (Map params trees and Join arenas included), and every
+        later upload, ingress queue and lowering follows. ``device`` is a
+        ``torch.device``, a string, or an index into the devices of this
+        executor's kind (``devices_of``). The CSR cache, the window cache
+        (ingress queues hold slot buffers and pinned staging for the old
+        device) and the fixpoint program are dropped and rebuilt on use.
+        Call between windows. A CUDA device with no card raises; the
+        executor never moves to the CPU unless asked."""
+        if isinstance(device, int):
+            device = devices_of(self.device.type)[device]
+        dev = resolve_device(device)
+        self.device = dev
+        self._csr_cache.clear()
+        self._window_cache.clear()
+        self._fx_program = None
+        if self.states:
+            self.states = {
+                nid: tree_map(lambda t: t.to(dev)
+                              if isinstance(t, torch.Tensor) else t, st)
+                for nid, st in self.states.items()}
+
+    #: the obs tag of this executor's device in spans and gauges: always
+    #: the device's name (``"cuda:0"``, ``"cpu"``), never None
     @property
     def device_label(self) -> Optional[str]:
         return str(self.device)

@@ -12,7 +12,7 @@ reuses a handful of shapes.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,7 +20,7 @@ import torch
 from reflow_tpu_torch.delta import DeltaBatch, Spec, host_dtype, torch_dtype
 
 __all__ = ["DeviceDelta", "bucket_capacity", "check_weight_mass",
-           "resolve_device", "to_device", "to_host",
+           "devices_of", "resolve_device", "to_device", "to_host",
            "MAX_BATCH_WEIGHT_MASS"]
 
 MIN_CAPACITY = 64
@@ -47,6 +47,20 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"the port runs on cuda or cpu, not {dev}")
     return dev
+
+
+def devices_of(kind: str) -> List[torch.device]:
+    """The devices of one kind, in index order: every CUDA device for
+    ``"cuda"`` (it raises with no card), ``[cpu]`` for ``"cpu"``. An
+    integer placement indexes this list."""
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if kind == "cpu":
+        return [torch.device("cpu")]
+    raise ValueError(f"the port runs on cuda or cpu, not {kind}")
 
 
 def bucket_capacity(n: int) -> int:

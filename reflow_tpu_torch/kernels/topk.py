@@ -51,8 +51,22 @@ TOPK_MERGE_LAUNCHES = 0
 LAUNCHES_BY_THREAD: Dict[int, List[int]] = {}
 
 
+_TALLY_LOCK = threading.Lock()
+
+
 def _tally(entry: int) -> None:
-    LAUNCHES_BY_THREAD.setdefault(threading.get_ident(), [0, 0])[entry] += 1
+    """Count one launch of entry 0 (``topk``) or 1 (``topk_merge``).
+    Many host threads launch at once (a serving tier's pool threads, a
+    replica server's handler, a twin on the main thread), so the counts
+    move under a lock."""
+    global TOPK_LAUNCHES, TOPK_MERGE_LAUNCHES
+    with _TALLY_LOCK:
+        if entry == 0:
+            TOPK_LAUNCHES += 1
+        else:
+            TOPK_MERGE_LAUNCHES += 1
+        LAUNCHES_BY_THREAD.setdefault(threading.get_ident(),
+                                      [0, 0])[entry] += 1
 
 #: the kernels index rows and columns with int32 (a cluster of up to 8
 #: blocks per row, each a tile past its segment's end): shapes stay
@@ -93,7 +107,6 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     :func:`topk_plain`; a CUDA tensor launches the kernel on the current
     stream, or raises. ``scores`` must be a contiguous float32 matrix
     with ``1 <= k <= N``."""
-    global TOPK_LAUNCHES
     if scores.dim() != 2:
         raise ValueError(f"topk takes a [Q, N] matrix, got shape "
                          f"{tuple(scores.shape)}")
@@ -119,7 +132,6 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"top-k kernel launch failed: cudaError {err} "
                            f"(shape {q}x{n}, k={k})")
-    TOPK_LAUNCHES += 1
     _tally(0)
     return vals, ids
 
@@ -179,7 +191,6 @@ def _check_merge(carry_vals, carry_ids, scores, live, lo) -> None:
 def _launch_merge(carry_vals, carry_ids, scores, live, lo, out, stream):
     """Launch the merge kernel on checked CUDA tensors, writing ``out``
     (which must alias no input)."""
-    global TOPK_MERGE_LAUNCHES
     q, k = carry_vals.shape
     n = scores.shape[1]
     vals, ids = out
@@ -190,7 +201,6 @@ def _launch_merge(carry_vals, carry_ids, scores, live, lo, out, stream):
     if err != 0:
         raise RuntimeError(f"top-k merge kernel launch failed: cudaError "
                            f"{err} (carry {q}x{k}, chunk {n})")
-    TOPK_MERGE_LAUNCHES += 1
     _tally(1)
     return out
 

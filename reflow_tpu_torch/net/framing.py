@@ -2,7 +2,14 @@
 "Replication over the wire").
 
 The port's copy of ``reflow_tpu/net/framing.py``, byte for byte on the
-wire: a frame either package encodes, the other decodes.
+wire: a frame either package encodes, the other decodes. A host
+:class:`~reflow_tpu_torch.delta.DeltaBatch` (an ingestion RPC's payload)
+is pickled under the wire name the JAX package's frames give it,
+``reflow_tpu.delta.DeltaBatch``, and that name decodes to the port's
+class: the same request makes the same frame in both packages, and
+neither end needs the other package to read it. A torch tensor never
+crosses the wire (it would unpickle onto a card at the other end); the
+encoder refuses one.
 
 One message = one length-prefixed, CRC-protected frame::
 
@@ -30,10 +37,13 @@ bad header.
 
 from __future__ import annotations
 
+import io
 import pickle
 import struct
 import zlib
 from typing import Any, Tuple
+
+from reflow_tpu_torch.delta import DeltaBatch
 
 __all__ = ["FrameError", "TransportError", "WireTimeout", "MAGIC",
            "HEADER", "MAX_FRAME", "encode_frame", "decode_frame",
@@ -64,9 +74,51 @@ class FrameError(TransportError):
     the only safe response is a reset."""
 
 
+#: wire name of each class that crosses the wire under a name of its
+#: own: the port's host batch travels as the JAX package's
+_WIRE_NAMES = {DeltaBatch: ("reflow_tpu.delta", "DeltaBatch")}
+_FROM_WIRE = {name: cls for cls, name in _WIRE_NAMES.items()}
+
+
+class _WirePickler(pickle._Pickler):
+    """The standard pickler (pure-Python, which writes the same bytes as
+    ``pickle.dumps``) with two changes: a class of :data:`_WIRE_NAMES`
+    is written under its wire name, and a torch tensor is refused."""
+
+    def reducer_override(self, obj):
+        if type(obj).__module__.partition(".")[0] == "torch":
+            raise FrameError(
+                f"a {type(obj).__name__} cannot cross the wire; send "
+                f"host numpy arrays")
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        wire = _WIRE_NAMES.get(obj)
+        if wire is None or self.proto < 4:
+            return super().save_global(obj, name)
+        self.save(wire[0])
+        self.save(wire[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _WireUnpickler(pickle.Unpickler):
+    """``pickle.loads`` that resolves a wire name to the port's class."""
+
+    def find_class(self, module, name):
+        cls = _FROM_WIRE.get((module, name))
+        return cls if cls is not None else super().find_class(module, name)
+
+
+def _dumps(obj: Any) -> bytes:
+    buf = io.BytesIO()
+    _WirePickler(buf, pickle.DEFAULT_PROTOCOL).dump(obj)
+    return buf.getvalue()
+
+
 def encode_frame(obj: Any) -> bytes:
     """Pickle ``obj`` and wrap it in one framed message."""
-    payload = pickle.dumps(obj)
+    payload = _dumps(obj)
     if len(payload) > MAX_FRAME:
         raise FrameError(f"message of {len(payload)} bytes exceeds the "
                          f"{MAX_FRAME}-byte frame bound")
@@ -97,7 +149,7 @@ def decode_frame(header: bytes, payload: bytes) -> Any:
     if zlib.crc32(payload) != crc:
         raise FrameError("frame CRC mismatch")
     try:
-        return pickle.loads(payload)
+        return _WireUnpickler(io.BytesIO(payload)).load()
     except Exception as e:  # noqa: BLE001 - framed yet unloadable
         raise FrameError(f"unpicklable frame payload ({e})") from e
 

@@ -161,3 +161,41 @@ declare("REFLOW_FLIGHT_FLUSH_EVERY", "int", 64,
         "flight recorder flushes after this many buffered events "
         "(control-plane events — fence/promote/breaker — always "
         "flush eagerly)")
+# -- replication over the wire and ingestion RPC ---------------------------
+declare("REFLOW_NET_IO_TIMEOUT_S", "float", 5.0,
+        "per-operation send/recv/accept timeout on transport "
+        "connections; no blocking wire call may wait longer")
+declare("REFLOW_NET_CONNECT_TIMEOUT_S", "float", 2.0,
+        "TCP connect() deadline when dialing a replica endpoint")
+declare("REFLOW_NET_BACKOFF_BASE_S", "float", 0.05,
+        "first reconnect delay; doubles per consecutive failure")
+declare("REFLOW_NET_BACKOFF_CAP_S", "float", 2.0,
+        "ceiling on the exponential reconnect delay")
+declare("REFLOW_NET_BACKOFF_JITTER", "float", 0.25,
+        "jitter fraction: each delay is scaled by a deterministic "
+        "factor in [1-j, 1+j] from the seeded per-link RNG")
+declare("REFLOW_NET_DEGRADED_AFTER", "int", 1,
+        "consecutive link failures before a follower's connection "
+        "state drops healthy -> degraded")
+declare("REFLOW_NET_UNREACHABLE_AFTER", "int", 4,
+        "consecutive link failures before degraded -> unreachable "
+        "(ReadTier ejects the replica; failover may count a "
+        "partition)")
+declare("REFLOW_NET_FAULT_SEED", "int", 0,
+        "seed for the wire fault-injection schedule (WireFaults); "
+        "same seed = same drops/corruptions/partitions")
+declare("REFLOW_RPC_IO_TIMEOUT_S", "float", 5.0,
+        "per-operation send/recv timeout on ingestion RPC "
+        "connections (RemoteProducer <-> RpcIngestServer)")
+declare("REFLOW_RPC_SUBMIT_TIMEOUT_S", "float", 30.0,
+        "server-side cap on how long one RPC submit may block in "
+        "frontend admission (policy='block' backpressure) before "
+        "the producer is told to retry")
+declare("REFLOW_RPC_RESOLVE_WAIT_S", "float", 0.2,
+        "server-side cap on one resolve poll's wait for a ticket to "
+        "turn terminal (client long-polls in slices of this)")
+declare("REFLOW_RPC_TICKETS", "int", 4096,
+        "ingest server ticket-table bound; oldest resolved tickets "
+        "are evicted first (an evicted in-flight ticket resolves as "
+        "'unknown' and the producer resubmits — dedup keeps it "
+        "exactly-once)")

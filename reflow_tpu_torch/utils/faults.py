@@ -1,8 +1,7 @@
 """Fault seams: the delivery-contract error, a lossy transport, and
 simulated process death.
 
-The port's copy of ``reflow_tpu/utils/faults.py`` without the wire
-faults (``WireFaults``, which only the replication transport reads):
+The port's copy of ``reflow_tpu/utils/faults.py``:
 
 - :class:`DeliveryError` — the host boundary refusing a batch that would
   break the delivery contract (the ingress queue raises it for keys
@@ -17,7 +16,11 @@ faults (``WireFaults``, which only the replication transport reads):
   append/tick seams, the WAL committer's write/fsync seams, the
   checkpoint chain's manifest-flip seams), once or at every visit;
 - :func:`tear_wal_tail` — the log's final record torn after the fact,
-  as a kill mid-write leaves it.
+  as a kill mid-write leaves it;
+- :class:`WireFaults` — the seeded per-message fault schedule of one
+  replication or RPC link (``net/faults.py`` acts on its rolls); the
+  same seed rolls the same faults at the same frames as the JAX
+  package's.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from reflow_tpu_torch.graph import Node
 from reflow_tpu_torch.utils.runtime import named_lock
 
 __all__ = ["CrashInjector", "CrashPoint", "DeliveryError", "FaultyChannel",
-           "StormInjector", "tear_wal_tail"]
+           "StormInjector", "WireFaults", "tear_wal_tail"]
 
 
 class DeliveryError(RuntimeError):
@@ -137,6 +140,155 @@ def tear_wal_tail(wal_dir: str, cut_bytes: int) -> Optional[str]:
         with open(path, "ab") as f:
             f.write((64).to_bytes(4, "little") + b"\0\0\0\0" + b"\xde\xad")
     return path
+
+
+class WireFaults:
+    """Seeded fault schedule for one replication link — the *policy*
+    half of wire fault injection (``net/faults.py``'s
+    ``FaultyTransport`` is the mechanism that acts on these rolls).
+
+    Extends the :class:`CrashInjector` seam idiom to the network: the
+    transport asks this object what happens to each message, and the
+    answer is a pure function of the seed plus the scripted partition /
+    reset state — same seed, same storm. Per-message faults are rolled
+    by :meth:`decide` (mutually exclusive outcomes, probabilities are
+    independent weights normalized against staying healthy); scripted
+    faults (:meth:`partition` / :meth:`heal` / :meth:`reset_once`) are
+    imperative switches the chaos bench throws on a timeline.
+
+    Thread-safe: one link's client may be probed from the shipper pump
+    and a read-tier prober concurrently, and counters must not tear.
+    :meth:`quiesce` zeroes every probability and heals partitions — the
+    bench's "faults stop" moment, after which replicas must converge.
+    """
+
+    #: per-message outcomes decide() can roll, in roll order
+    OUTCOMES = ("drop_c2s", "drop_s2c", "dup", "reorder",
+                "corrupt_frame", "corrupt_payload", "reset")
+
+    def __init__(self, *, seed: int = 0, drop_c2s_p: float = 0.0,
+                 drop_s2c_p: float = 0.0, dup_p: float = 0.0,
+                 reorder_p: float = 0.0, corrupt_frame_p: float = 0.0,
+                 corrupt_payload_p: float = 0.0, reset_p: float = 0.0,
+                 delay_p: float = 0.0, delay_s: float = 0.0):
+        self.p = {"drop_c2s": drop_c2s_p, "drop_s2c": drop_s2c_p,
+                  "dup": dup_p, "reorder": reorder_p,
+                  "corrupt_frame": corrupt_frame_p,
+                  "corrupt_payload": corrupt_payload_p,
+                  "reset": reset_p}
+        self.delay_p = delay_p
+        self.delay_s = delay_s
+        self.rng = np.random.default_rng(seed)
+        self._lock = named_lock("faults.wire")
+        self._partition = set()  # subset of {"c2s", "s2c"}
+        self._resets_pending = 0
+        self.stats = {k: 0 for k in self.OUTCOMES}
+        self.stats.update(ok=0, delays=0, partitioned=0,
+                          scripted_resets=0)
+
+    # -- scripted timeline controls ------------------------------------
+
+    def partition(self, direction: str = "both") -> None:
+        """Open a partition: ``"c2s"`` (requests vanish), ``"s2c"``
+        (responses vanish — the server still applies!), or ``"both"``."""
+        with self._lock:
+            dirs = {"c2s", "s2c"} if direction == "both" else {direction}
+            bad = dirs - {"c2s", "s2c"}
+            if bad:
+                raise ValueError(f"unknown partition direction {bad}")
+            self._partition |= dirs
+
+    def heal(self) -> None:
+        with self._lock:
+            self._partition.clear()
+
+    def reset_once(self, n: int = 1) -> None:
+        """Arm ``n`` scripted connection resets: the next ``n``
+        messages each kill their connection instead of transmitting."""
+        with self._lock:
+            self._resets_pending += n
+
+    def set_rates(self, *, delay_p: Optional[float] = None,
+                  delay_s: Optional[float] = None,
+                  **rates: float) -> None:
+        """Rewire per-message probabilities mid-run — the chaos
+        bench's 'storm on' switch (:meth:`quiesce` is the off switch,
+        so links can attach and handshake over a quiet wire first).
+        Keyword names are :data:`OUTCOMES` entries."""
+        with self._lock:
+            bad = set(rates) - set(self.p)
+            if bad:
+                raise ValueError(f"unknown fault outcome(s) {bad}")
+            self.p.update(rates)
+            if delay_p is not None:
+                self.delay_p = delay_p
+            if delay_s is not None:
+                self.delay_s = delay_s
+
+    def quiesce(self) -> None:
+        """Stop all faults: zero every probability, heal partitions,
+        disarm pending resets. The bench's 'faults stop' switch."""
+        with self._lock:
+            for k in self.p:
+                self.p[k] = 0.0
+            self.delay_p = 0.0
+            self._partition.clear()
+            self._resets_pending = 0
+
+    # -- per-message decisions (called by FaultyTransport) -------------
+
+    def is_partitioned(self, direction: str) -> bool:
+        with self._lock:
+            return direction in self._partition
+
+    def take_scripted_reset(self) -> bool:
+        with self._lock:
+            if self._resets_pending > 0:
+                self._resets_pending -= 1
+                self.stats["scripted_resets"] += 1
+                return True
+            return False
+
+    def decide(self) -> str:
+        """Roll one per-message outcome: an :data:`OUTCOMES` entry or
+        ``"ok"``. Outcomes are mutually exclusive per message; the
+        first winning roll in fixed order takes it (so probabilities
+        compose deterministically under one seed)."""
+        with self._lock:
+            for k in self.OUTCOMES:
+                if self.p[k] > 0.0 and self.rng.random() < self.p[k]:
+                    self.stats[k] += 1
+                    return k
+            self.stats["ok"] += 1
+            return "ok"
+
+    def delay_roll(self) -> float:
+        """Seconds to stall this message (0.0 almost always)."""
+        with self._lock:
+            if self.delay_p > 0.0 and self.rng.random() < self.delay_p:
+                self.stats["delays"] += 1
+                return self.delay_s
+            return 0.0
+
+    def count_partitioned(self) -> None:
+        with self._lock:
+            self.stats["partitioned"] += 1
+
+    def flip(self, data: bytes) -> bytes:
+        """Flip one seeded bit somewhere in ``data`` (corruption
+        payload for either the frame header or the pickled body)."""
+        if not data:
+            return data
+        with self._lock:
+            i = int(self.rng.integers(0, len(data)))
+            bit = 1 << int(self.rng.integers(0, 8))
+        out = bytearray(data)
+        out[i] ^= bit
+        return bytes(out)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.stats, partition=sorted(self._partition))
 
 
 class FaultyChannel:

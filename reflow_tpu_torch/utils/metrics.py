@@ -2,12 +2,12 @@
 into the headline numbers, summarize the WAL and the serving frontend,
 and trace or label blocks for the profiler.
 
-The port's copy of ``reflow_tpu/utils/metrics.py`` without the serving
-tier's summary (``summarize_tier`` waits for ``serve/tier.py``).
+The port's copy of ``reflow_tpu/utils/metrics.py``.
 ``TickResult`` (scheduler.py) is the raw per-tick record: deltas in/out,
 dirty-set size, pass count, wall time; :func:`summarize` turns a run's
-history into delta-ops/sec and percentile tick walls, :func:`summarize_wal`
-and :func:`summarize_serve` read the WAL's and the frontend's counters.
+history into delta-ops/sec and percentile tick walls, :func:`summarize_wal`,
+:func:`summarize_serve` and :func:`summarize_tier` read the WAL's, the
+frontend's and the serving tier's counters.
 The JAX package traces with ``jax.profiler``; here :func:`profile_trace`
 runs ``torch.profiler`` (CPU and, where there is a card, CUDA activity)
 and writes a Chrome trace, and :func:`profile_annotation` labels a block
@@ -21,14 +21,15 @@ import contextlib
 import dataclasses
 import os
 import warnings
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["MetricsSummary", "ServeMetrics", "WalMetrics", "percentile",
-           "profile_annotation", "profile_trace", "summarize",
-           "summarize_serve", "summarize_wal"]
+__all__ = ["MetricsSummary", "ServeMetrics", "TierMetrics", "WalMetrics",
+           "percentile", "profile_annotation", "profile_trace",
+           "summarize", "summarize_serve", "summarize_tier",
+           "summarize_wal"]
 
 
 def percentile(xs, q: float) -> float:
@@ -250,6 +251,103 @@ def summarize_serve(frontend) -> ServeMetrics:
         stage_overlap_frac=getattr(frontend, "stage_overlap_frac", 0.0),
     )
 
+
+@dataclasses.dataclass
+class TierMetrics:
+    """Multi-graph serving-tier observability (``serve.tier``): pool
+    health (utilization, windows, crash count), shared-budget occupancy,
+    and cross-graph scheduling delay — the time a ready graph waited for
+    a pool thread, the number QoS weighting is supposed to keep bounded
+    for quiet tenants under a hot sibling.
+
+    ``per_graph`` nests each live graph's ``ServeMetrics.to_dict()``
+    plus its QoS/budget/pool view (weight, floor/ceiling, bytes used and
+    peak, windows served, rows applied, scheduling-delay and admission
+    p99, frontend state).
+    """
+
+    graphs: int
+    pump_threads: int
+    windows: int
+    pool_crashes: int
+    pump_utilization: float
+    budget_total_bytes: int
+    budget_used_bytes: int
+    budget_peak_bytes: int
+    #: high-water shared-budget occupancy fraction (peak/total)
+    budget_occupancy_peak: float
+    sched_delay_p50_s: float
+    sched_delay_p99_s: float
+    per_graph: dict
+    #: pool supervision view: workers alive now vs the scale target,
+    #: deaths recorded and respawns performed (control-plane healing)
+    live_workers: int = 0
+    worker_deaths: int = 0
+    worker_respawns: int = 0
+    #: picks where every positive-deficit candidate's bound device
+    #: already had a window in flight (placement-aware DWRR could not
+    #: avoid stacking; persistent growth = graphs-per-device skew)
+    device_collisions: int = 0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_dict(self) -> dict:
+        """``as_dict`` with every value JSON-serializable (numpy
+        scalars coerced) — the cross-PR diffable export."""
+        return _jsonify(dataclasses.asdict(self))
+
+
+def summarize_tier(tier) -> TierMetrics:
+    """Aggregate a ``serve.ServeTier``'s pool/budget counters and every
+    live graph's frontend counters into one record."""
+    pct = percentile
+    handles = tier.graphs()
+    shares = tier.budget.shares()
+    per_graph = {}
+    all_delays: List[float] = []
+    for name, h in handles.items():
+        fe = h.frontend
+        g = summarize_serve(fe).to_dict()
+        share = shares.get(name)
+        g.update(
+            weight=h.config.weight,
+            floor_bytes=h.config.floor_bytes,
+            ceiling_bytes=(share.ceiling if share is not None
+                           else h.config.ceiling_bytes),
+            bytes_used=share.used if share is not None else 0,
+            bytes_peak=share.peak if share is not None else 0,
+            windows=h.windows,
+            rows_applied=h.rows_applied,
+            sched_delay_p50_s=pct(h.sched_delay_s, 50),
+            sched_delay_p99_s=pct(h.sched_delay_s, 99),
+            admission_p99_s=pct(fe.admission_s, 99),
+            state=fe._state,
+            policy=fe.policy,
+            crashes=h.crashes,
+            revives=fe.revives,
+            device=h.device_label,
+        )
+        per_graph[name] = g
+        all_delays.extend(h.sched_delay_s)
+    return TierMetrics(
+        graphs=len(handles),
+        pump_threads=tier.pump_threads,
+        windows=tier.windows,
+        pool_crashes=tier.pool_crashes,
+        pump_utilization=tier.pump_utilization,
+        budget_total_bytes=tier.budget.total_bytes,
+        budget_used_bytes=tier.budget.used,
+        budget_peak_bytes=tier.budget.peak,
+        budget_occupancy_peak=tier.budget.peak / tier.budget.total_bytes,
+        sched_delay_p50_s=pct(all_delays, 50),
+        sched_delay_p99_s=pct(all_delays, 99),
+        per_graph=per_graph,
+        live_workers=tier.live_workers,
+        worker_deaths=tier.worker_deaths,
+        worker_respawns=tier.worker_respawns,
+        device_collisions=tier.device_collisions,
+    )
 
 #: warn once, then stay silent: a profiler that cannot start must not
 #: spam a log line per traced block

@@ -4,10 +4,11 @@ tiles (``utils.tiles``) against ``tests/test_checkpoint.py``,
 package, on the CPU.
 
 Counterparts: the snapshot seam; every chain test that needs no replica,
-shipper or serving tier (full and delta restore parity, the replayed
-tail past the chain head, the torn final delta falling back one element,
-the broken mid-chain link failing loud, the crash at each manifest
-seam); every tiles test that needs no compactor, replica or shipper (the
+shipper (full and delta restore parity, the replayed tail past the
+chain head, the torn final delta falling back one element, the broken
+mid-chain link failing loud, the crash at each manifest seam, the serving
+tier's checkpoint barrier: one consistent cut across its graphs, and
+every graph resumed after a saver's error); every tiles test that needs no compactor, replica or shipper (the
 bucket and plan primitives, the torn final tiled delta, the crash
 between tile appends, an untiled reader of a tiled chain). The ones that
 drive a scheduler run over the port's CPU oracle and over its
@@ -67,7 +68,8 @@ from reflow_tpu_torch.workloads import image_embed as pie
 from reflow_tpu_torch.workloads import pagerank as ppr
 from reflow_tpu_torch.workloads import wordcount
 
-WORDS = [f"w{i}" for i in range(40)] + list("abcxy")
+WORDS = [f"w{i}" for i in range(40)] + list("abcxy") + [
+    "g0", "g1", "g2", "after", "barrier", "d"]
 VOCAB = {w: i for i, w in enumerate(WORDS)}
 KEY_SPACE = 64
 
@@ -344,6 +346,70 @@ def test_chain_metrics_publish_and_close(tmp_path):
     chain.close()
     assert reg.value("ck.saves") is None
     sched.close()
+
+
+def test_tier_checkpoint_barrier_consistent_cut(tmp_path, wc):
+    from reflow_tpu_torch.serve import CoalesceWindow, GraphConfig, ServeTier
+
+    window = CoalesceWindow(max_rows=256, max_ticks=8, max_latency_s=0.002)
+    tier = ServeTier(max_bytes=1 << 20, pump_threads=2)
+    handles = {}
+    for i in range(3):
+        g, src, sink = wc.build()
+        sched = wc.plain(g)
+        h = tier.register(f"g{i}", sched, GraphConfig(window=window))
+        handles[f"g{i}"] = (h, src, sink, sched)
+    for name, (h, src, _sink, _sched) in handles.items():
+        for j in range(6):
+            h.submit(src, wc.ingest([f"{name} w{j}"])).result(timeout=10)
+        h.flush(timeout=10)
+    chains = {n: CheckpointChain(str(tmp_path / n), delta_every=4)
+              for n in handles}
+
+    def saver(name, h):
+        return chains[name].save(h.frontend.sched)
+
+    out = tier.checkpoint_barrier(saver)
+    assert out["barrier"] == 1 and tier.barriers == 1
+    assert set(out["horizons"]) == set(handles)
+    for name, (h, _src, sink, sched) in handles.items():
+        # the recorded horizon is the quiesced window cut, and the chain
+        # manifest agrees with it
+        assert out["horizons"][name] == sched._tick
+        assert read_chain_manifest(str(tmp_path / name))["horizon"] \
+            == sched._tick
+        assert out["results"][name]["kind"] == "full"
+        g2, _s2, sink2 = wc.build()
+        s2 = wc.plain(g2)
+        load_chain(s2, str(tmp_path / name))
+        assert dict(s2.view(sink2.name)) == dict(sched.view(sink.name))
+    # the tier keeps serving after the barrier
+    for name, (h, src, _sink, _sched) in handles.items():
+        assert h.submit(src, wc.ingest(["after barrier"])) \
+            .result(timeout=10).applied
+    tier.close()
+
+
+def test_tier_checkpoint_barrier_resumes_after_saver_error(tmp_path, wc):
+    from reflow_tpu_torch.graph import GraphError
+    from reflow_tpu_torch.serve import CoalesceWindow, GraphConfig, ServeTier
+
+    window = CoalesceWindow(max_rows=256, max_ticks=8, max_latency_s=0.002)
+    tier = ServeTier(max_bytes=1 << 20, pump_threads=1)
+    g, src, _sink = wc.build()
+    h = tier.register("g", wc.plain(g), GraphConfig(window=window))
+    h.submit(src, wc.ingest(["a b"])).result(timeout=10)
+
+    def bad_saver(name, handle):
+        raise RuntimeError("disk full")
+
+    with pytest.raises(RuntimeError, match="disk full"):
+        tier.checkpoint_barrier(bad_saver)
+    # every frontend was resumed on the way out
+    assert h.submit(src, wc.ingest(["c d"])).result(timeout=10).applied
+    tier.close()
+    with pytest.raises(GraphError):
+        tier.checkpoint_barrier(lambda n, hh: None)
 
 
 # -- tiles (tests/test_tiles.py) ---------------------------------------------

@@ -1,15 +1,16 @@
 """The port's key-level WAL compaction (``reflow_tpu_torch.wal.compact``)
 against ``tests/test_compact.py`` and the JAX package, on the CPU.
 
-Every test of ``tests/test_compact.py`` but the control plane's
-supervision (``ControlPlane`` comes with a later slice) has a counterpart
-here: the folded log's replay parity and manifest, a re-fold extending the
+Every test of ``tests/test_compact.py`` has a counterpart here: the
+folded log's replay parity and manifest, a re-fold extending the
 range, zero-weight rows vanishing from the fold, a crash at each seam of
 write-new → manifest flip → swap → unlink, interrupted temp files rolled
 back, eligibility bounded by the checkpoint anchor, by ``min_segments`` /
 ``keep_segments`` and by an attached follower's cursor, a follower whose
 cursor lies in a compacted range re-anchoring through the checkpoint, a
-partially deduped folded record failing loud, and the metrics. The ones
+partially deduped folded record failing loud, the metrics, and the
+control plane's supervision of the compactor (a free boot, pass events
+as actions, budgeted respawns, then fail fast). The ones
 that drive a scheduler run over the port's CPU oracle (string keys) and
 over its ``"cuda"`` executor at ``device="cpu"`` (integer keys from one
 fixed vocabulary); views are held equal exactly (small integer counts).
@@ -393,6 +394,48 @@ def test_compacted_record_partial_dedup_fails_loud(wc):
     assert replay_records(sched, [(None, dict(rec, batch_ids=["x", "y"],
                                               batch_id="x"))]) \
         == (1, 0, 0, 0)
+
+
+def test_control_plane_supervises_compactor(tmp_path, wc):
+    # the ControlPlane boots a cold compactor for free, surfaces pass
+    # events as wal_compact actions, respawns a dead thread within the
+    # budget, and fails fast past it (respawn-or-fail-fast, same stance
+    # as the WAL committer)
+    from reflow_tpu_torch.serve import ControlConfig, ControlPlane, ServeTier
+
+    wal_dir = str(tmp_path / "wal")
+    build_log(wc, wal_dir, make_feed(wc, 8, 30))
+    comp = WalCompactor(wal_dir=wal_dir, interval_s=3600.0,
+                        min_segments=2, keep_segments=1)
+    tier = ServeTier(max_bytes=1 << 20, pump_threads=1)
+    cp = ControlPlane(tier, config=ControlConfig(max_compactor_restarts=2),
+                      compactor=comp, sampler=lambda now: {"graphs": {}})
+    try:
+        cp.step(0.0)
+        assert comp.alive  # free boot, no budget spent
+        ev = comp.compact_once()  # synchronous pass queues an event
+        assert ev is not None
+        actions = cp.step(1.0)
+        compacts = [a for a in actions if a["kind"] == "wal_compact"]
+        assert len(compacts) == 1
+        assert compacts[0]["covers"] == ev["covers"]
+        assert compacts[0]["reclaimed_bytes"] == ev["reclaimed_bytes"]
+        # kill the thread twice: budgeted respawns
+        for i in (1, 2):
+            comp.stop()
+            acts = cp.step(1.0 + i)
+            assert [a["kind"] for a in acts] == ["compactor_restart"]
+            assert comp.alive
+        # third death exhausts the budget: fail fast, stay failed
+        comp.stop()
+        acts = cp.step(10.0)
+        assert [a["kind"] for a in acts] == ["compactor_failed"]
+        assert not comp.alive
+        assert cp.step(11.0) == []
+    finally:
+        cp.stop()
+        comp.close()
+        tier.close()
 
 
 def test_compactor_metrics_publish_and_close(tmp_path, wc):

@@ -2,9 +2,8 @@
 ``ReplicaScheduler.promote``/``reanchor``, the log's fence) against
 ``tests/test_failover.py``, on the CPU.
 
-Every test of ``tests/test_failover.py`` but the two that need the
-serving tier or the control plane (``ServeTier``, ``ControlPlane``: later
-slices) has a counterpart here: a kill mid-window (the partial window
+Every test of ``tests/test_failover.py`` has a counterpart here: a kill
+mid-window (the partial window
 truncated, then folded once), mid-shipment (the final drain), mid-
 checkpoint (a torn ``meta.pkl.tmp``) and mid-promotion (a second
 failover at epoch 2); the zombie writer whose every fenced byte is
@@ -12,7 +11,9 @@ rejected and never merged; the read tier through the promotion window;
 the fake-clock detection (confirm intervals, flapping, heartbeat
 timeout); the epoch adopted by recovery and the fence persisted on disk;
 ``tools/wal_inspect.py`` and ``tools/trace_inspect.py`` on the failover's
-logs and spans; and the gauges. The differential oracle is a fresh
+logs and spans; the gauges; the control plane stepping the coordinator;
+and a tier-hosted leader killed mid-window, promoted and rebound in place,
+its producers' resubmissions folded exactly once. The differential oracle is a fresh
 scheduler folding the same windows: exactly-once survives a failover iff
 the promoted leader's view equals it. The ones that drive a scheduler run
 over the port's CPU oracle (string keys) and over its ``"cuda"`` executor
@@ -430,6 +431,103 @@ def test_coordinator_heartbeat_timeout_and_beat_reset():
     acts = coord.step(clk.advance(0.25))              # streak 2: fire
     assert acts[0]["reason"] == "heartbeat_timeout"
     assert calls == [("b", 1)]
+
+
+# -- the control plane steps the coordinator ---------------------------------
+
+def test_control_plane_steps_failover_coordinator(tmp_path):
+    from reflow_tpu_torch.serve import ControlPlane, ServeTier
+
+    clk = FakeClock()
+    coord, calls = _stub_coord(
+        lambda now: {"committer_dead": True, "pump_failed": False,
+                     "beat": 1},
+        confirm_intervals=1)
+    tier = ServeTier()
+    cp = ControlPlane(
+        tier, specs={}, clock=clk, failover=coord,
+        sampler=lambda now: {"graphs": {}, "ready_depth": 0,
+                             "live_workers": 1, "target_workers": 1})
+    acts = cp.step(clk.advance(0.05))
+    assert any(a["kind"] == "failover_promote" for a in acts)
+    assert calls == [("b", 1)]
+    tier.close()
+
+
+# -- end to end: tier-hosted leader killed mid-stream, rebound in place -----
+
+def test_tier_hosted_failover_resubmit_exactly_once(tmp_path, wc):
+    # the full serving path: a tier-hosted durable leader is killed
+    # mid-window by a crash seam; the coordinator detects the failed
+    # pump through its default sampler, promotes a replica, swings the
+    # ReadTier fallback and revives the SAME handle over the new
+    # leader. Producers resubmit every id: committed-and-shipped ids
+    # dedup, the orphaned window folds exactly once — differential
+    # equality against a bare fold of every batch
+    import time as _time
+
+    from reflow_tpu_torch.serve import (CoalesceWindow, FrontendClosed,
+                                        GraphConfig, PumpCrashed,
+                                        ServeTier)
+    from reflow_tpu_torch.utils.faults import CrashInjector
+
+    crash = CrashInjector(at=2, only="pump_before_tick@wal")
+    tier = ServeTier(max_bytes=8 << 20, pump_threads=2, crash=crash)
+    dsched, src, sink = make_leader(wc, tmp_path, fsync="record")
+    ship = SegmentShipper(dsched.wal, leader_tick=lambda: dsched._tick)
+    replicas = [make_replica(wc, tmp_path, f"r{i}") for i in range(2)]
+    for r in replicas:
+        ship.attach(r)
+    cfg = GraphConfig(window=CoalesceWindow(max_rows=256, max_ticks=8,
+                                            max_latency_s=0.002))
+    h = tier.register("wal", dsched, cfg)
+    read_tier = ReadTier(replicas, leader=LeaderReadAdapter(dsched))
+    coord = FailoverCoordinator(
+        replicas, shipper=ship, handle=h, read_tier=read_tier,
+        confirm_intervals=1, durable_kw={"committer": "inline"})
+
+    sent = [(f"m{j}", [f"w{j % 4} w{10 + j % 7}"]) for j in range(30)]
+    tks = []
+    for bid, lines in sent:
+        try:
+            tks.append(h.submit(src, wc.ingest(lines), batch_id=bid))
+        except FrontendClosed:
+            break
+        ship.pump_once()
+        _time.sleep(0.001)  # several windows
+    crashed = 0
+    for t in tks:
+        try:
+            t.result(timeout=10)
+        except PumpCrashed:
+            crashed += 1
+    assert crash.fired and crashed > 0
+
+    # detection through the *default* sampler: the pump is "failed"
+    acts = coord.step()
+    assert [a["kind"] for a in acts] == ["failover_promote"]
+    assert acts[0]["reason"] == "pump_failed" and acts[0]["rebound"]
+    new = coord.leader_sched
+    assert new.wal.epoch == 1
+    assert read_tier.leader.sched is new
+    assert type(new.executor) is type(dsched.executor)
+
+    # resubmit EVERY id through the same handle: exactly-once
+    results = [h.submit(src, wc.ingest(lines), batch_id=bid).result(10)
+               for bid, lines in sent]
+    h.flush(timeout=10)
+    assert any(r.status == "deduped" for r in results)
+    assert any(r.applied for r in results)
+    assert live_view(new, sink) == oracle_view(
+        wc, [[(bid, lines[0])] for bid, lines in sent])
+    # the old leader is fenced: a zombie append is rejected, counted
+    with pytest.raises(FencedWrite):
+        dsched.push(src, wc.ingest(["zombie"]), batch_id="z")
+    assert dsched.wal.fence_rejected_appends == 1
+    coord.close()
+    tier.close()
+    new.close()
+    dsched.close()
 
 
 # -- epoch persistence / recovery -------------------------------------------

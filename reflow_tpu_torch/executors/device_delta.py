@@ -18,12 +18,14 @@ import numpy as np
 import torch
 
 from reflow_tpu_torch.delta import DeltaBatch, Spec, host_dtype, torch_dtype
+from reflow_tpu_torch.utils.faults import DeliveryError
 
 __all__ = ["DeviceDelta", "bucket_capacity", "check_weight_mass",
            "devices_of", "resolve_device", "to_device", "to_host",
            "MAX_BATCH_WEIGHT_MASS"]
 
 MIN_CAPACITY = 64
+_I32 = np.iinfo(np.int32)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -131,7 +133,15 @@ def to_device(batch: DeltaBatch, spec: Spec,
 
     Host values are laid out at the Spec's host dtype (float32 for a
     ``torch.bfloat16`` Spec) and cast to the Spec's torch dtype on the
-    device, in one host->device copy per column.
+    device, in one host->device copy per column. Values are assigned as
+    numpy casts them: float rows bound for an integer Spec truncate
+    toward zero, as in the JAX package (an int8 k-NN source zeroes unit
+    float32 vectors; push pre-quantized rows).
+
+    Keys outside int32 raise :class:`DeliveryError` before anything is
+    uploaded, as :meth:`DeviceIngressQueue.write` does: the key column
+    is int32, and assigning them would wrap (the JAX ``to_device`` wraps
+    silently).
     """
     device = resolve_device(device)
     n = len(batch)
@@ -144,7 +154,12 @@ def to_device(batch: DeltaBatch, spec: Spec,
     values = np.zeros((cap,) + tuple(spec.value_shape),
                       host_dtype(spec.value_dtype))
     if n:
-        keys[:n] = batch.keys.astype(np.int64)
+        k64 = batch.keys.astype(np.int64)
+        if int(k64.max()) > _I32.max or int(k64.min()) < _I32.min:
+            raise DeliveryError(
+                f"batch keys exceed the int32 key range [{_I32.min}, "
+                f"{_I32.max}] (max {int(k64.max())}, min {int(k64.min())})")
+        keys[:n] = k64
         weights[:n] = batch.weights
         values[:n] = np.asarray(
             np.stack([np.asarray(v) for v in batch.values])

@@ -60,8 +60,8 @@ interval and records its actions alongside the other actuators.
 
 The port's copy of ``reflow_tpu/serve/failover.py``. Its ``handle`` is
 the port's :class:`~reflow_tpu_torch.serve.frontend.IngestFrontend`
-(``revive(sched=...)``); the serving tier's ``rebind`` and the control
-plane come with later slices. The promoted leader runs on a fresh
+(``revive(sched=...)``); across processes, ``proc/harness.py`` drives
+it over control-protocol proxies. The promoted leader runs on a fresh
 executor of the winner's own kind and device (``ReplicaScheduler.
 promote``).
 """

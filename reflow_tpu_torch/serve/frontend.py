@@ -234,7 +234,9 @@ class IngestFrontend:
         self.admission_s: Deque[float] = deque(maxlen=METRIC_WINDOW)
         self.ticks_per_pump: Deque[int] = deque(maxlen=METRIC_WINDOW)
         self.inflight_bytes_peak = 0
+        # obs wiring: registered metric sources (publish_metrics) and
         # the current window's ready/take stamps (trace spans)
+        self._metric_keys: List = []
         self._win_t_ready: Optional[float] = None
         self._thread: Optional[threading.Thread] = None
         if start:
@@ -608,7 +610,25 @@ class IngestFrontend:
         return (self.stage_overlap_s / self.stage_s_total
                 if self.stage_s_total > 0 else 0.0)
 
+    def publish_metrics(self, registry=None) -> str:
+        """Register this frontend's live counters (the
+        ``summarize_serve().to_dict()`` schema) as an obs metric source
+        — live snapshots and offline summaries stay one schema.
+        Unregistered automatically at :meth:`close`. Returns the source
+        key (``serve.<name>``)."""
+        from reflow_tpu_torch.obs import REGISTRY
+        from reflow_tpu_torch.utils.metrics import summarize_serve
+        reg = registry if registry is not None else REGISTRY
+        key = f"serve.{self.name or 'frontend'}"
+        reg.register_source(key,
+                            lambda: summarize_serve(self).to_dict())
+        self._metric_keys.append((reg, key))
+        return key
+
     def _seal(self) -> None:
+        for reg, key in self._metric_keys:
+            reg.unregister_source(key)
+        self._metric_keys = []
         closefn = getattr(self.sched, "close", None)
         if closefn is not None:
             closefn()

@@ -159,7 +159,7 @@ class ReadTier:
     def bind_link(self, replica, link) -> None:
         """Tie ``replica``'s rotation eligibility to ``link`` (anything
         exposing ``conn_state``, normally the
-        ``RemoteFollower`` (``net/``, a later slice) shipping to the
+        ``RemoteFollower`` (``net/``) shipping to the
         same endpoint): while the link reports ``unreachable`` the
         replica is ejected from rotation, and it is restored on the
         first probe after recovery."""

@@ -212,8 +212,8 @@ class ReplicaScheduler:
             return tuple(self._cursor) if self._cursor is not None else None
 
     def attach_hub(self, hub) -> None:
-        """Wire a subscription hub (``subs/``, a later slice) into the
-        apply path: each applied commit window is handed off as
+        """Wire a :class:`~reflow_tpu_torch.subs.hub.SubscriptionHub`
+        into the apply path: each applied commit window is handed off as
         ``hub.on_window(from_h, to_h, tick_results)`` (O(1), the hub's
         own thread does the fan-out) and non-monotonic state moves
         (bootstrap/promote/reanchor) call ``hub.rebase()``. Pass None

@@ -199,3 +199,60 @@ declare("REFLOW_RPC_TICKETS", "int", 4096,
         "are evicted first (an evicted in-flight ticket resolves as "
         "'unknown' and the producer resubmits — dedup keeps it "
         "exactly-once)")
+declare("REFLOW_TRACE_OUT", "str", None,
+        "chrome-trace export path (obs.export_chrome_trace's default)")
+# -- fleet telemetry --------------------------------------------------------
+declare("REFLOW_FLEET_INTERVAL_S", "float", 0.25,
+        "telemetry shipper beat: seconds between registry-snapshot "
+        "pushes to the fleet aggregator")
+declare("REFLOW_FLEET_RETENTION", "int", 256,
+        "fleet aggregator per-node time-series ring length "
+        "(snapshots kept)")
+declare("REFLOW_FLEET_STALE_S", "float", 2.0,
+        "aggregator stale-marks a node whose newest snapshot is older "
+        "than this (telemetry-loss display, never an error)")
+declare("REFLOW_FLEET_LAG_SPREAD_MAX", "int", 64,
+        "fleet lag-spread gauge (max-min follower horizon, ticks) "
+        "above which the control plane logs an advisory action")
+declare("REFLOW_FLIGHT", "flag", False,
+        "per-process flight recorder: tee sampled spans and "
+        "control-plane events into a bounded on-disk ring in the "
+        "node's disk corner, kill -9 recoverable "
+        "(tools/reflow_flight.py merges the corners post-mortem)")
+declare("REFLOW_FLIGHT_DIR", "str", None,
+        "flight recorder directory override (default: <node "
+        "root>/flight when run under proc/, else ./flight)")
+# -- the multi-process harness ----------------------------------------------
+declare("REFLOW_PROC_READY_TIMEOUT_S", "float", 30.0,
+        "harness deadline for a spawned child process to print its "
+        "ready line (addresses + pid)")
+declare("REFLOW_PROC_REAP_TIMEOUT_S", "float", 10.0,
+        "harness deadline for a stopping child to exit before it is "
+        "SIGKILLed (a hung child can't wedge the suite)")
+declare("REFLOW_PROC_POLL_S", "float", 0.05,
+        "harness poll slice for child liveness / barrier probes")
+declare("REFLOW_PROC_PYTHON", "str", None,
+        "interpreter used to spawn harness children "
+        "(default sys.executable)")
+# -- reactive reads ---------------------------------------------------------
+declare("REFLOW_SUB_OUTBOX", "int", 64,
+        "per-subscriber outbox bound (frames); overflow conflates the "
+        "backlog into one merged frame, and a backlog too large even "
+        "to conflate sheds the subscriber to snapshot semantics")
+declare("REFLOW_SUB_CONFLATE_MAX_ROWS", "int", 65536,
+        "row bound on a conflated frame; beyond it the subscriber is "
+        "shed (outbox cleared, fresh snapshot on the next round)")
+declare("REFLOW_SUB_IDLE_POLL_S", "float", 0.05,
+        "fan-out thread idle wakeup — the latency floor for reaping "
+        "expired subscribers when no windows arrive")
+declare("REFLOW_SUB_EXPIRE_S", "float", 30.0,
+        "wire subscriptions not polled for this long are reaped (a "
+        "reconnecting client re-registers and resumes by cursor)")
+declare("REFLOW_SUB_POLL_WAIT_S", "float", 0.2,
+        "server-side cap on one subscription long-poll's wait for "
+        "frames (clients long-poll in slices of this)")
+declare("REFLOW_SUB_MAX_FRAMES", "int", 256,
+        "max frames returned by one subscription poll")
+declare("REFLOW_SUB_IO_TIMEOUT_S", "float", 5.0,
+        "per-operation send/recv timeout on subscription "
+        "connections (Subscriber <-> SubscriptionServer)")

@@ -39,7 +39,7 @@ already excludes segments any *attached* follower still needs, so only
 detached/stale followers ever take that path — and re-anchoring is
 O(state) now, which is the point.
 
-Run it from the ``ControlPlane`` (``serve/control.py``, a later slice)
+Run it from the ``ControlPlane`` (``serve/control.py``)
 (``compactor=``): the control loop supervises the compactor thread with
 the same respawn-or-fail-fast budget as the WAL committer.
 

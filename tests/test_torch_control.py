@@ -22,9 +22,10 @@ three layers:
 
 The tests that drive a graph run over the port's CPU oracle (string keys)
 and over its ``"cuda"`` executor at ``device="cpu"`` (integer keys
-interned into one vocabulary). Beyond the reference: the ``fleet=`` and
-``subs=`` hooks, duck-typed, are driven with stand-ins (the fleet
-aggregator and the subscription hub come with a later slice).
+interned into one vocabulary). The ``fleet=`` and ``subs=`` hooks are
+driven with the port's ``FleetAggregator`` and ``SubscriptionHub``
+(counterparts of ``tests/test_fleet.py``'s and ``tests/test_subs.py``'s
+control-plane tests).
 """
 
 from __future__ import annotations
@@ -38,12 +39,15 @@ from reflow_tpu_torch.executors.cpu import CpuExecutor
 from reflow_tpu_torch.graph import GraphError
 from reflow_tpu_torch.scheduler import DirtyScheduler
 from reflow_tpu_torch.obs import MetricsRegistry
+from reflow_tpu_torch.obs.fleet import FleetAggregator
 from reflow_tpu_torch.serve import (AdmissionBudget, Autoscaler,
                                     BrownoutLadder, CircuitBreaker,
                                     CoalesceWindow, ControlConfig,
                                     ControlPlane, FrontendClosed, GraphConfig,
-                                    IngestFrontend, PumpCrashed, SLOSpec,
-                                    ServeTier, load_slo_specs)
+                                    IngestFrontend, PumpCrashed,
+                                    ReplicaScheduler, SLOSpec, ServeTier,
+                                    load_slo_specs)
+from reflow_tpu_torch.subs import SubscriptionHub
 from reflow_tpu_torch.utils.faults import (CrashInjector, CrashPoint,
                                            StormInjector)
 from reflow_tpu_torch.wal import WriteAheadLog
@@ -738,30 +742,25 @@ def test_control_plane_config_path_with_explicit_override(tmp_path, kind):
     tier.close()
 
 
-# -- the duck-typed fleet= and subs= hooks, with stand-ins ------------------
+# -- the fleet= and subs= hooks, over the ported aggregator and hub --------
 # (counterparts of tests/test_fleet.py's and tests/test_subs.py's
-# ControlPlane tests; the fleet aggregator and the subscription hub come
-# with a later slice)
+# ControlPlane tests)
+
+def _fleet_snap(mono, **gauges):
+    return {"schema": "reflow.obs.snapshot/1", "ts_mono": mono,
+            "ts_wall": 1000.0 + mono, "gauges": gauges}
+
 
 def test_control_plane_fleet_advisory_edge_triggered():
-    """The lag-spread breach surfaces exactly one advisory action per
-    episode (plus one on recovery) and never actuates anything."""
-
-    class _FakeFleet:
-        lag_spread_max = 4
-
-        def __init__(self):
-            self.spread = 10
-
-        def fleet_snapshot(self):
-            return {"gauges": {"lag_spread": self.spread,
-                               "nodes_stale": 1},
-                    "alerts": [f"lag spread {self.spread} ticks "
-                               f"exceeds 4"]}
-
+    """A port ``FleetAggregator`` behind ``ControlPlane(fleet=)``: the
+    lag-spread breach surfaces exactly one advisory action per episode
+    (plus one on recovery) and actuates nothing."""
     tier = ServeTier(max_bytes=1 << 20, pump_threads=1)
-    fleet = _FakeFleet()
     clk = FakeClock()
+    fleet = FleetAggregator(retention=4, stale_after_s=1e9, clock=clk)
+    fleet.lag_spread_max = 4
+    fleet.ingest("r0", _fleet_snap(1.0, **{"replica.r0.horizon": 10}))
+    fleet.ingest("r1", _fleet_snap(1.0, **{"replica.r1.horizon": 0}))
     reg = MetricsRegistry()
     sampler = lambda now: {"graphs": {}, "ready_depth": 0,
                            "live_workers": tier.live_workers}
@@ -771,29 +770,36 @@ def test_control_plane_fleet_advisory_edge_triggered():
     assert [a["kind"] for a in a1] == ["fleet_lag_spread"]
     assert a1[0]["advisory"] is True and a1[0]["lag_spread"] == 10
     assert cp.step(clk.advance(0.05)) == []  # still breached: no spam
-    fleet.spread = 1
+    fleet.ingest("r1", _fleet_snap(2.0, **{"replica.r1.horizon": 9}))
     a2 = cp.step(clk.advance(0.05))
     assert [a["kind"] for a in a2] == ["fleet_lag_recovered"]
     assert cp.step(clk.advance(0.05)) == []
     assert reg.value("control.fleet_lag_breaches") == 1
     cp.stop()
     tier.close()
+    fleet.close()
 
 
 def test_control_plane_tolerates_fleet_snapshot_failure():
-    class _BrokenFleet:
-        lag_spread_max = 4
-
-        def fleet_snapshot(self):
+    """A port aggregator whose snapshot raises (its lock swapped for one
+    that fails) degrades to no action, never an error."""
+    class _Weather:
+        def __enter__(self):
             raise RuntimeError("telemetry weather")
+
+        def __exit__(self, *exc):
+            return False
 
     tier = ServeTier(max_bytes=1 << 20, pump_threads=1)
     clk = FakeClock()
+    fleet = FleetAggregator(retention=4, stale_after_s=5.0, clock=clk)
+    fleet.ingest("r0", _fleet_snap(1.0, **{"replica.r0.horizon": 10}))
+    fleet._lock = _Weather()
     cp = ControlPlane(tier, registry=MetricsRegistry(), clock=clk,
                       sampler=lambda now: {"graphs": {},
                                            "ready_depth": 0,
                                            "live_workers": 0},
-                      fleet=_BrokenFleet())
+                      fleet=fleet)
     assert cp.step(clk.advance(0.05)) == []  # loss tolerated
     assert cp.errors == 0
     cp.stop()
@@ -825,8 +831,24 @@ class _FakeHub:
         self.levels.append(level)
 
 
-def test_control_plane_sub_shed_ladder_steps_and_recovers():
-    fh = _FakeHub()
+def test_control_plane_sub_shed_ladder_steps_and_recovers(tmp_path):
+    """A port ``SubscriptionHub`` (its fan-out thread unstarted, on a
+    word-count replica) behind ``ControlPlane(subs=)``: a backlog of
+    queued windows steps the hub's shed level to conflate, then pause;
+    once the backlog clears, it recovers rung by rung."""
+    g, _src, sink = wordcount.build_graph()
+    rep = ReplicaScheduler(g, str(tmp_path / "r0"), name="r0")
+    hub = SubscriptionHub(rep, name="r0", start=False)
+    for _ in range(7):
+        hub.subscribe(sink.name)
+    levels = []
+    set_level = hub.set_shed_level
+
+    def record(level):
+        levels.append(level)
+        set_level(level)
+
+    hub.set_shed_level = record
     cp = ControlPlane(
         _FakeTier(), registry=MetricsRegistry(),
         sampler=lambda now: {"graphs": {}, "ready_depth": 0,
@@ -834,7 +856,7 @@ def test_control_plane_sub_shed_ladder_steps_and_recovers():
         config=ControlConfig(sub_backlog_windows_max=4,
                              sub_breach_intervals=2,
                              sub_recover_intervals=2),
-        subs=fh)
+        subs=hub)
     now = 0.0
 
     def step():
@@ -842,25 +864,34 @@ def test_control_plane_sub_shed_ladder_steps_and_recovers():
         now += 0.05
         return cp.step(now)
 
-    fh.backlog = 10                           # breached
-    assert step() == []                       # hysteresis: 1st breach
-    acts = step()                             # 2nd -> conflate
-    assert [a["kind"] for a in acts] == ["sub_shed_step"]
-    assert acts[0]["mode"] == "conflate" and acts[0]["level"] == 1
-    assert acts[0]["active_subs"] == 7
-    step()
-    acts = step()                             # 2 more -> pause
-    assert [a["kind"] for a in acts] == ["sub_shed_step"]
-    assert acts[0]["mode"] == "pause" and cp.sub_shed_level == 2
-    fh.backlog = 0                            # healthy again
-    step()
-    acts = step()                             # recover one rung
-    assert [a["kind"] for a in acts] == ["sub_shed_recover"]
-    assert acts[0]["level"] == 1
-    step()
-    acts = step()
-    assert acts[0]["level"] == 0 and cp.sub_shed_level == 0
-    assert fh.levels == [1, 2, 1, 0]
+    try:
+        for h in range(10):                   # 10 queued windows
+            hub.on_window(h, h + 1, ())
+        assert hub.load()["backlog_windows"] == 10
+        assert step() == []                   # hysteresis: 1st breach
+        acts = step()                         # 2nd -> conflate
+        assert [a["kind"] for a in acts] == ["sub_shed_step"]
+        assert acts[0]["mode"] == "conflate" and acts[0]["level"] == 1
+        assert acts[0]["active_subs"] == 7
+        assert hub.shed_level == 1
+        step()
+        acts = step()                         # 2 more -> pause
+        assert [a["kind"] for a in acts] == ["sub_shed_step"]
+        assert acts[0]["mode"] == "pause" and cp.sub_shed_level == 2
+        assert hub.shed_level == 2
+        hub.rebase()                          # the backlog clears
+        assert hub.load()["backlog_windows"] == 0
+        step()
+        acts = step()                         # recover one rung
+        assert [a["kind"] for a in acts] == ["sub_shed_recover"]
+        assert acts[0]["level"] == 1
+        step()
+        acts = step()
+        assert acts[0]["level"] == 0 and cp.sub_shed_level == 0
+        assert levels == [1, 2, 1, 0] and hub.shed_level == 0
+    finally:
+        hub.close()
+        rep.close()
 
 
 def test_control_plane_survives_hub_load_errors():

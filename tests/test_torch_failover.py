@@ -584,31 +584,6 @@ def _load_tool(name):
     return mod
 
 
-def _export_chrome_trace(path):
-    """The port's buffered spans as a Chrome trace-event file, in the
-    JAX package's ``obs.export`` layout (the port's ``obs/`` slice brings
-    its own exporter)."""
-    raw = trace_mod.events()
-    base = min(ev[1] for _t, ev in raw)
-    tids = {}
-    spans = []
-    for track, (name, ts, dur, _override, args) in raw:
-        tid = tids.setdefault(track, len(tids) + 1)
-        e = {"name": name, "ph": "X", "cat": "reflow",
-             "ts": round((ts - base) * 1e6, 3),
-             "dur": round(dur * 1e6, 3), "pid": 1, "tid": tid}
-        if args:
-            e["args"] = args
-        spans.append(e)
-    meta = [{"ph": "M", "name": "process_name", "pid": 1, "tid": 0,
-             "args": {"name": "reflow"}}]
-    meta += [{"ph": "M", "name": "thread_name", "pid": 1, "tid": tid,
-              "args": {"name": t}} for t, tid in tids.items()]
-    with open(path, "w") as f:
-        json.dump({"traceEvents": meta + spans, "displayTimeUnit": "ms",
-                   "baseTimeS": base, "node": obs.node_id()}, f)
-
-
 def test_inspect_tools_surface_failover(tmp_path, capsys, wc):
     trace_mod.reset()
     obs.enable()
@@ -624,7 +599,7 @@ def test_inspect_tools_surface_failover(tmp_path, capsys, wc):
         apply_windows(wc, coord.leader_sched, src, gen_windows(1, start=3))
         coord.leader_sched.wal.sync()
         trace_path = str(tmp_path / "trace.json")
-        _export_chrome_trace(trace_path)
+        obs.export_chrome_trace(trace_path)
     finally:
         obs.disable()
         trace_mod.reset()

@@ -71,7 +71,17 @@ def test_importing_the_port_loads_no_jax():
               "reflow_tpu_torch.serve.failover",
               "reflow_tpu_torch.net.framing",
               "reflow_tpu_torch.obs.flight",
-              "reflow_tpu_torch.obs.wire"):
+              "reflow_tpu_torch.obs.wire",
+              "reflow_tpu_torch.obs.fleet",
+              "reflow_tpu_torch.obs.export",
+              "reflow_tpu_torch.subs.query",
+              "reflow_tpu_torch.subs.wire",
+              "reflow_tpu_torch.subs.hub",
+              "reflow_tpu_torch.subs.client",
+              "reflow_tpu_torch.subs.cli",
+              "reflow_tpu_torch.proc.ownership",
+              "reflow_tpu_torch.proc.worker",
+              "reflow_tpu_torch.proc.harness"):
         assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"

@@ -11,8 +11,8 @@ and the backoff/debounce state machines run on fake clocks with no real
 sleeps. The tests that replicate a graph run over the port's CPU oracle
 (string keys) and over its ``"cuda"`` executor at ``device="cpu"``
 (integer keys interned into one vocabulary). The trace test writes the
-Chrome trace from the port's span rings itself (the port's exporter comes
-with a later slice) and reads it with ``tools/trace_inspect.py``.
+Chrome trace with the port's ``obs.export_chrome_trace`` and reads it with
+``tools/trace_inspect.py``.
 
 Across the packages: a JAX ``SegmentShipper`` feeds a port replica over
 TCP (through a port ``RemoteFollower``, and through a JAX one to a port
@@ -657,31 +657,6 @@ def test_conn_state_gauges_and_transport_sidecar(tmp_path):
         replica.close()
 
 
-def _write_chrome_trace(path):
-    """The port's span rings as a Chrome trace-event file, in the JAX
-    exporter's layout: one ``"X"`` event a span (microseconds from the
-    earliest), one thread row a track."""
-    from reflow_tpu_torch.obs import trace as trace_mod
-
-    evs = trace_mod.events()
-    base = min(ev[1] for _t, ev in evs)
-    tids = {}
-    spans = []
-    for track, (name, ts, dur, _track, args) in evs:
-        tid = tids.setdefault(track, len(tids) + 1)
-        e = {"name": name, "ph": "X", "cat": "reflow",
-             "ts": round((ts - base) * 1e6, 3),
-             "dur": round(dur * 1e6, 3), "pid": 1, "tid": tid}
-        if args:
-            e["args"] = args
-        spans.append(e)
-    meta = [{"ph": "M", "name": "thread_name", "pid": 1, "tid": tid,
-             "args": {"name": t}} for t, tid in tids.items()]
-    with open(path, "w") as f:
-        json.dump({"traceEvents": meta + spans, "displayTimeUnit": "ms",
-                   "baseTimeS": base}, f)
-
-
 def test_net_trace_spans_surface_in_trace_inspect(tmp_path, capsys):
     from reflow_tpu_torch import obs
     obs.enable()
@@ -699,7 +674,7 @@ def test_net_trace_spans_surface_in_trace_inspect(tmp_path, capsys):
         drive(sched, src, 3)
         pump_until_caught(ship, sched, [replica])
         path = str(tmp_path / "trace.json")
-        _write_chrome_trace(path)
+        obs.export_chrome_trace(path)
         ti = _load_tool("trace_inspect")
         assert ti.main([path, "--json"]) == 0
         out = json.loads(capsys.readouterr().out)

@@ -234,8 +234,45 @@ Phases, each printing its own lines:
    delay and admission p99 a tenant and the pool's utilization, the
    control timeline in intervals, the breaker's transitions.
 
+16. **Fleet telemetry, subscriptions and the multi-process harness** —
+   leg A on the card: config 4's k-NN at full width over
+   ``DurableScheduler(fsync="tick", committer="thread")`` with a sink
+   ``nn``, window depth 2, behind an ``RpcIngestServer`` over TCP; a
+   ``SegmentShipper`` ships its log over TCP (``RemoteFollower`` ->
+   ``ReplicaServer``) to a ``ReplicaScheduler`` on a ``cuda`` executor of
+   its own, and a ``SubscriptionHub`` on that follower serves a
+   ``SubscriptionServer`` over TCP. A ``RemoteProducer`` submits the
+   queries, the 15 x 65,536-doc preload, 5 inserts, a retraction and a
+   query update; three wire ``Subscriber``s follow ``nn`` (a ``view``, a
+   ``topk`` of 16 by weight, a ``lookup`` of one (query, row) pair present
+   after the preload), the view's link partitioned over two insert ticks
+   (``FaultyTransport``) and healed. Every write of the insert leg is
+   traced. A ``TelemetryShipper`` for the leader's registry and one for
+   the follower's ship to a ``FleetAggregator`` behind a
+   ``TelemetryServer``. Checked: the follower equals the leader at every
+   tick; every subscriber's answer at every horizon it reaches equals
+   ``query_value`` over the leader's view bit for bit; after the heal no
+   subscriber counts a gap or a duplicate apply and the healed one
+   resumed from its cursor; the hub's mirror holds host values only;
+   the exported Chrome trace holds a write
+   carrying every span of ``obs.export.FULL_CHAIN``; the fleet snapshot
+   lists both nodes, none stale; the launches by path (``subs_leader``,
+   ``subs_replica``) equal the prediction. Leg B on the host: a
+   ``ProcHarness`` fleet (a leader, 3 replica and 4 producer children of
+   ``python -m reflow_tpu_torch.proc``, word-count on the CPU oracle, no
+   card visible to them); every replica killed -9, respawned and
+   rejoined through the barrier; the leader killed -9 and a replica
+   promoted across the process boundary, the producers retargeted; no
+   acknowledged write lost, the survivors equal at equal horizons, every
+   producer's in-doubt set empty, every child in the fleet snapshot.
+   Printed: subscription freshness (ack -> subscriber horizon) p50/p95,
+   frames, conflations and rebases, the heal's ms, hub fan-out ms a
+   window, telemetry bytes; spawn ms a child, respawn -> barrier ms, the
+   leader's kill -> first acked write on the promoted leader, the acked
+   writes.
+
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
-them, must stay 0. Phases 13-15 zero them again and count their own
+them, must stay 0. Phases 13-16 zero them again and count their own
 paths' launches apart from their twins'.
 
 The last lines are the kernels' JSON record, the card line, and
@@ -4563,6 +4600,519 @@ def phase_tier(card: str) -> Dict[str, object]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 16: fleet telemetry, subscriptions, the multi-process harness ---
+
+#: (topk, topk_merge) launches predicted for each of phase 16's k-NN paths
+#: (the leader's pump, the follower's replay): the queries, the retraction
+#: and the query update rescan (one merge a corpus chunk), the 15 preload
+#: ticks and the 5 insert ticks run one top-k each
+SUBS_WANT = (15 + 5, 3 * (FULL["D"] // FULL["scan_chunk"]))
+#: the insert ticks during which the view subscriber's link is partitioned
+#: (it heals after the second one's ack)
+SUBS_PARTITION = (1, 2)
+#: a wait on the follower, a subscriber or a ticket longer than this fails
+SUBS_WAIT_S = 120.0
+#: leg B: bench.py's multi-process numbers (``run_multiproc_bench``): 3
+#: replica children, 4 producers, 1.5 s a phase
+PROC = dict(replicas=3, producers=4, run_s=1.5)
+#: a wait on a child, the barrier or the promotion longer than this fails
+PROC_WAIT_S = 60.0
+
+
+class _Tail:
+    """One wire ``Subscriber`` pumped by a thread of its own, noting the
+    host time its local horizon first reached each value and the answer
+    it held there (read on that thread: the subscriber's lock is the
+    pump's, and a reader from another thread would starve behind it)."""
+
+    def __init__(self, sub):
+        self.sub = sub
+        self.reached: Dict[int, float] = {}
+        self.values: Dict[int, object] = {}
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name=f"tail-{sub.name}")
+        self._thread.start()
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                self.sub.pump(wait_s=0.05)
+                h = self.sub.horizon
+                if h not in self.reached:
+                    self.values[h] = self.sub.value()
+                    self.reached[h] = time.perf_counter()
+        except BaseException as e:  # noqa: BLE001 - raised by wait()
+            self.error = e
+
+    def wait(self, tick: int, since: float) -> float:
+        """Seconds from ``since`` until the horizon reached ``tick``."""
+        while True:
+            if self.error is not None:
+                raise AssertionError(f"{self.sub.name} failed") \
+                    from self.error
+            hit = [t for h, t in list(self.reached.items()) if h >= tick]
+            if hit:
+                return min(hit) - since
+            if time.perf_counter() - since > SUBS_WAIT_S:
+                raise AssertionError(
+                    f"{self.sub.name} at horizon {self.sub.horizon}, the "
+                    f"leader at tick {tick}")
+            time.sleep(0.0002)
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=SUBS_WAIT_S)
+        self.sub.close()
+
+
+def _holds_tensor(obj) -> bool:
+    """Whether a (nested) tuple holds a torch tensor."""
+    return isinstance(obj, torch.Tensor) or (
+        isinstance(obj, tuple) and any(map(_holds_tensor, obj)))
+
+
+def fleet_subs(card: str, fs: str, tmp: str,
+               cfg: Dict[str, int] = FULL) -> Dict[str, object]:
+    """Leg A: config 4's k-NN leader on the card behind ``RpcIngestServer``
+    over TCP, its log shipped over TCP to a follower on its own ``cuda``
+    executor, a ``SubscriptionHub`` on the follower behind a
+    ``SubscriptionServer``, three wire subscribers (one partitioned and
+    healed mid-run), the sampled writes traced end to end, and both nodes'
+    registries shipped to a ``FleetAggregator``."""
+    from reflow_tpu_torch import obs
+    from reflow_tpu_torch.net import (FaultyTransport, RemoteFollower,
+                                      ReplicaServer, TcpTransport)
+    from reflow_tpu_torch.obs import trace as trace_mod
+    from reflow_tpu_torch.obs.export import FULL_CHAIN, full_chains
+    from reflow_tpu_torch.obs.fleet import FleetAggregator, TelemetryShipper
+    from reflow_tpu_torch.obs.wire import TelemetryServer
+    from reflow_tpu_torch.serve import RemoteProducer, RpcIngestServer
+    from reflow_tpu_torch.subs import (Subscriber, SubscriptionHub,
+                                       SubscriptionServer)
+    from reflow_tpu_torch.subs.query import query_value
+    from reflow_tpu_torch.utils.faults import WireFaults
+
+    t_phase = time.perf_counter()
+    chunks = cfg["D"] // cfg["scan_chunk"]
+    feed = _knn_feed(cfg, seed=16)
+    head = feed[:1 + cfg["preload_chunks"]]
+    tail = feed[1 + cfg["preload_chunks"]:]
+    kd, kr = _knn_graph(cfg, sink=True), _knn_graph(cfg, sink=True)
+    leader = DurableScheduler(kd.graph, get_executor("cuda"),
+                              wal_dir=os.path.join(tmp, "subs-wal"),
+                              fsync="tick", committer="thread")
+    replica = ReplicaScheduler(kr.graph, os.path.join(tmp, "subs-f0"),
+                               executor=get_executor("cuda"), name="f0")
+    tally: Dict[str, List[int]] = {}
+    lock = threading.Lock()
+    _count_path(leader.executor, "subs_leader", tally, lock)
+    _count_path(replica.sched.executor, "subs_replica", tally, lock)
+    fe = _knn_frontend(leader, cfg)
+    meter, tele_meter = _Meter(), _Meter()
+    tcp = meter.wrap(TcpTransport())
+    rsrv = ReplicaServer(replica, tcp).start()
+    ship = SegmentShipper(leader.wal, leader_tick=lambda: leader._tick)
+    link = RemoteFollower(tcp, rsrv.address, name="f0", io_timeout_s=60.0)
+    ship.attach(link)
+    ship.start()
+    hub = SubscriptionHub(replica, name="f0")
+    replica.attach_hub(hub)
+    ssrv = SubscriptionServer(hub, tcp).start()
+    rpc = RpcIngestServer(fe, tcp).start()
+    prod = RemoteProducer(tcp, rpc.address, name="p-knn", io_timeout_s=60.0)
+    # the fleet: each node's own registry, shipped by its own shipper
+    regs = {"leader": obs.MetricsRegistry(), "f0": obs.MetricsRegistry()}
+    fe.publish_metrics(regs["leader"])
+    leader.wal.publish_metrics(regs["leader"])
+    ship.publish_metrics(regs["leader"])
+    replica.publish_metrics(regs["f0"])
+    hub.publish_metrics(regs["f0"])
+    agg = FleetAggregator()
+    tsrv = TelemetryServer(agg, TcpTransport(), node="aggregator").start()
+    shippers = [TelemetryShipper(reg, tele_meter.wrap(TcpTransport()),
+                                 tsrv.address, node=node).start()
+                for node, reg in regs.items()]
+    faults = WireFaults(seed=16)
+    sample_every = trace_mod.SAMPLE_EVERY
+    tails: List[_Tail] = []
+    rows: List[Dict[str, object]] = []
+    checks = 0
+
+    def check_follower(tick: int, t_ack: float) -> Dict[str, object]:
+        while replica.published_horizon() < tick:
+            if time.perf_counter() - t_ack > SUBS_WAIT_S:
+                raise AssertionError(
+                    f"the follower at {replica.published_horizon()}, the "
+                    f"leader at tick {tick}")
+            time.sleep(0.0002)
+        lag = time.perf_counter() - t_ack
+        view = {kv: w for kv, w in leader.view("nn").items() if w}
+        with replica._lock:
+            got = replica.sched.read_table(kr.index)
+        h, fview = replica.view_at("nn")
+        bad = _table_diff(got, leader.read_table(kd.index))
+        if bad or h != tick or fview != view:
+            raise AssertionError(
+                f"the follower at horizon {h} unlike the leader at tick "
+                f"{tick} (queries {bad[:8]}, views equal {fview == view})")
+        return {"lag_s": lag, "view": view}
+
+    def check_subs(tick: int, t_ack: float, view: Dict,
+                   skip=()) -> Dict[str, float]:
+        nonlocal checks
+        fresh = {}
+        for t in tails:
+            if t.sub.name in skip:
+                continue
+            fresh[t.sub.name] = t.wait(tick, t_ack)
+            if t.values.get(tick) != query_value(t.sub.query, view):
+                raise AssertionError(
+                    f"{t.sub.name} at horizon {tick}: its "
+                    f"{t.sub.query.kind} != the leader's")
+            checks += 1
+        return fresh
+
+    def rpc_step(item, skip=()):
+        bid, src, batch, kind = item
+        l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        t0 = time.perf_counter()
+        ticket = prod.submit("queries" if src == "q" else "docs", batch,
+                             batch_id=bid)
+        res = ticket.result(timeout=SUBS_WAIT_S)
+        t_ack = time.perf_counter()
+        if res.status != APPLIED:
+            raise AssertionError(f"{bid}: {res}")
+        tick = leader._tick
+        fol = check_follower(tick, t_ack)
+        fresh = check_subs(tick, t_ack, fol["view"], skip) if tails else {}
+        torch.cuda.synchronize()
+        d = _since(l0)
+        want = tuple(2 * x for x in _want_launches(kind, chunks))
+        if d != want:
+            raise AssertionError(f"{bid}: leader and follower launched {d},"
+                                 f" predicted {want}")
+        rows.append({"id": bid, "kind": kind, "tick": tick,
+                     "s": t_ack - t0, "lag_s": fol["lag_s"],
+                     "fresh": fresh})
+        return tick, t_ack, fol["view"]
+
+    try:
+        # the heap the phases before left stays out of full collections
+        gc.collect()
+        gc.freeze()
+        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+        topk_mod.LAUNCHES_BY_THREAD.clear()
+        t_leg = time.perf_counter()
+        for item in head:
+            tick, _t, view = rpc_step(item)
+        # the subscribers, after the preload: a view of nn, its top 16
+        # (by weight: nn's values are (id, score) pairs, which a rank by
+        # value cannot negate), and one (query, row) pair of the view
+        pair = sorted(view, key=str)[0]
+        part_tcp = FaultyTransport(tcp, faults)
+        for name, tr, kind, params in (
+                ("sub-view", part_tcp, "view", ()),
+                ("sub-topk", tcp, "topk", (cfg["k"], "weight")),
+                ("sub-lookup", tcp, "lookup", (pair,))):
+            tails.append(_Tail(Subscriber(tr, ssrv.address, "nn",
+                                          kind=kind, params=params,
+                                          name=name)))
+        seed_fresh = check_subs(tick, time.perf_counter(), view)
+        # the traced leg: every write sampled
+        trace_mod.SAMPLE_EVERY = 1
+        trace_mod.reset()
+        obs.enable()
+        heal = None
+        for i, item in enumerate(tail):
+            parted = item[3] == "insert" and i in SUBS_PARTITION
+            if parted and i == SUBS_PARTITION[0]:
+                faults.partition()
+            tick, t_ack, view = rpc_step(
+                item, skip=("sub-view",) if parted else ())
+            if parted and i == SUBS_PARTITION[-1]:
+                t_heal = time.perf_counter()
+                faults.heal()
+                heal = tails[0].wait(tick, t_heal)
+                check_subs(tick, t_ack, view)
+        leg_s = time.perf_counter() - t_leg
+        obs.disable()
+        launches = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        trace_path = obs.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        chains = full_chains(events)
+        if not chains:
+            raise AssertionError(f"no sampled write carries {FULL_CHAIN}")
+        for t in tails:
+            s = t.sub
+            if s.gaps_total or s.dups_skipped_total:
+                raise AssertionError(
+                    f"{s.name}: {s.gaps_total} gaps, "
+                    f"{s.dups_skipped_total} duplicate applies")
+        if tails[0].sub.mode != "resume" or tails[0].sub.rebases_total != 1:
+            raise AssertionError(
+                f"the healed subscriber came back as {tails[0].sub.mode} "
+                f"with {tails[0].sub.rebases_total} rebases")
+        mirror = hub._mirrors.get("nn")
+        if mirror is None or _holds_tensor(tuple(mirror.view)):
+            raise AssertionError("the hub's mirror holds a device tensor "
+                                 "(or no mirror of nn)")
+        time.sleep(2 * shippers[0].interval_s)
+        fleet = agg.fleet_snapshot()
+        if not {"leader", "f0"} <= set(fleet["nodes"]) \
+                or fleet["gauges"]["nodes_stale"]:
+            raise AssertionError(f"the fleet snapshot: nodes "
+                                 f"{sorted(fleet['nodes'])}, stale "
+                                 f"{fleet['gauges']['nodes_stale']}")
+        subs_stats = [(t.sub.name, t.sub.frames_applied_total,
+                       t.sub.rebases_total, t.sub.reconnects_total,
+                       t.sub.link_failures) for t in tails]
+        hub_stats = (hub.frames_total, hub.conflations_total,
+                     hub.sheds_total, hub.rebases_total,
+                     hub.freshness_pct(0.5), hub.freshness_pct(0.99))
+    finally:
+        obs.disable()
+        trace_mod.SAMPLE_EVERY = sample_every
+        for t in tails:
+            t.close()
+        for s in shippers:
+            s.close()
+        tsrv.close()
+        agg.close()
+        prod.close()
+        rpc.close()
+        ssrv.close()
+        hub.close()
+        ship.close()
+        rsrv.close()
+        fe.close()
+        replica.close()
+        gc.unfreeze()
+
+    paths = {p: tuple(tally[p]) for p in ("subs_leader", "subs_replica")}
+    for p, got in paths.items():
+        if got != SUBS_WANT:
+            raise AssertionError(f"top-k launches on the {p} path {got}, "
+                                 f"predicted {SUBS_WANT}")
+    if tuple(map(sum, zip(*paths.values()))) != launches:
+        raise AssertionError(f"top-k launches {launches} != the paths' "
+                             f"{paths}")
+
+    def ms(xs):
+        return [round(x * 1e3, 2) for x in xs]
+
+    ins = [r for r in rows if r["kind"] == "insert"]
+    fresh = [v for r in ins for v in r["fresh"].values()]
+    log(f"[fleet] leg A on {card}: config 4's k-NN leader "
+        f"(DurableScheduler(fsync='tick', committer='thread'), window depth "
+        f"2) behind RpcIngestServer over TCP, shipped over TCP to a "
+        f"follower on its own cuda executor, SubscriptionHub + "
+        f"SubscriptionServer on the follower, 3 wire subscribers; "
+        f"{len(rows)} RPC writes, the follower equal to the leader at each, "
+        f"{checks} subscriber horizons equal to query_value over the "
+        f"leader's view, bit for bit [{fs}]")
+    log(f"[fleet] subscription freshness, ms from the leader's ack to the "
+        f"subscriber's horizon (insert ticks, every unpartitioned "
+        f"subscriber): p50 {_pct(fresh, 0.5) * 1e3:.3f} p95 "
+        f"{_pct(fresh, 0.95) * 1e3:.3f} of {ms(fresh)}; the follower's "
+        f"lag, insert ticks: {ms([r['lag_s'] for r in ins])}; first "
+        f"snapshot after the preload {ms(seed_fresh.values())} [{card}]")
+    log(f"[fleet] subscribers (name, frames applied, rebases, reconnects, "
+        f"link failures): {subs_stats}; 0 gaps, 0 duplicate applies; the "
+        f"hub: frames {hub_stats[0]}, conflations {hub_stats[1]}, sheds "
+        f"{hub_stats[2]}, rebases {hub_stats[3]} [{card}]")
+    log(f"[fleet] partition of sub-view's link over insert ticks "
+        f"{list(SUBS_PARTITION)}: the heal's ms to resume (to the leader's "
+        f"tick, reconnect backoff included) {heal * 1e3:.1f}, mode "
+        f"'resume' [{card}]")
+    log(f"[fleet] hub fan-out ms a window (window hand-off -> frame emit, "
+        f"the hub's reservoir): p50 {hub_stats[4] * 1e3:.3f} p99 "
+        f"{hub_stats[5] * 1e3:.3f} [{card}]")
+    log(f"[fleet] RPC submit -> APPLIED ms: preload "
+        f"{ms([r['s'] for r in rows if r['kind'] == 'preload'])}; inserts "
+        f"{ms([r['s'] for r in ins])}; MB over the wire (RPC, shipping, "
+        f"subscriptions) {meter.sent / 1e6:.1f}; telemetry bytes "
+        f"{tele_meter.sent} ({sum(s.shipped for s in shippers)} snapshots "
+        f"shipped, {sum(s.dropped for s in shippers)} dropped) [{card}]")
+    log(f"[fleet] trace: {len(chains)} sampled writes carry the full chain "
+        f"{'->'.join(FULL_CHAIN)} (obs.export.full_chains over the exported "
+        f"Chrome trace, {len(events)} events); fleet snapshot: nodes "
+        f"{sorted(fleet['nodes'])}, stale {fleet['gauges']['nodes_stale']},"
+        f" lag spread {fleet['gauges']['lag_spread']}, subs active "
+        f"{fleet['gauges']['subs_active']} [{card}]")
+    log(f"[fleet] (topk, topk_merge) launches by path: {paths} (predicted "
+        f"{SUBS_WANT} each); leg A {leg_s:.1f} s, with set-up "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(paths)
+
+
+def fleet_proc(card: str, tmp: str, n_replicas: int = PROC["replicas"],
+               n_prod: int = PROC["producers"],
+               run_s: float = PROC["run_s"]) -> Dict[str, object]:
+    """Leg B, on the host: a ``ProcHarness`` fleet of a leader, replica
+    and paced producer children (``python -m reflow_tpu_torch.proc``,
+    word-count on the CPU oracle, no card visible); every replica killed
+    -9, respawned and rejoined through the barrier; the leader killed -9
+    and a replica promoted across the process boundary; no acked write
+    lost, the survivors equal at equal horizons."""
+    from reflow_tpu_torch.net import TcpTransport
+    from reflow_tpu_torch.proc import ProcHarness
+    from reflow_tpu_torch.proc.harness import ControlClient
+    from reflow_tpu_torch.proc.worker import producer_batch_words
+    from reflow_tpu_torch.serve import RemoteProducer
+
+    t_leg = time.perf_counter()
+    n_procs = 1 + n_replicas + n_prod
+    pace_s = 0.02 if (os.cpu_count() or 1) < n_procs else 0.0
+    h = ProcHarness(os.path.join(tmp, "proc"),
+                    child_env={"CUDA_VISIBLE_DEVICES": ""})
+    spawn_s: Dict[str, float] = {}
+
+    def spawn(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        fn(*a, **kw)
+        spawn_s[name] = time.perf_counter() - t0
+
+    probe = None
+    try:
+        spawn("leader", h.spawn_leader, fsync="tick", epoch=0)
+        rnames = [f"r{i}" for i in range(n_replicas)]
+        for nm in rnames:
+            spawn(nm, h.spawn_replica, nm)
+        h.attach_replicas()
+        for i in range(n_prod):
+            spawn(f"p{i}", h.spawn_producer, f"p{i}", index=i,
+                  pace_s=pace_s)
+        if not h.aggregator.await_nodes(n_procs, timeout_s=PROC_WAIT_S):
+            raise AssertionError(f"the aggregator saw "
+                                 f"{h.aggregator.node_count()} nodes")
+        time.sleep(run_s)
+
+        # kill -9 every replica, then respawn them and rejoin the cut
+        for nm in rnames:
+            h.kill9(nm)
+        t_re = time.perf_counter()
+        for nm in rnames:
+            spawn(f"{nm}'", h.respawn, nm)
+        h.attach_replicas(rnames)
+        cut = h.barrier(timeout_s=PROC_WAIT_S)
+        rejoin_s = time.perf_counter() - t_re
+        time.sleep(run_s / 2)
+
+        # kill -9 the leader: promotion across the process boundary
+        coord = h.coordinator(epoch=0, confirm_intervals=2,
+                              drain_timeout_s=10.0)
+        h.kill9("leader")
+        t_kill = time.perf_counter()
+        promoted, now = None, 0.0
+        while promoted is None:
+            for e in coord.step(now):
+                if e.get("kind") == "failover_promote":
+                    promoted = e
+            if time.perf_counter() - t_kill > PROC_WAIT_S:
+                raise AssertionError("the leader's death never promoted")
+            now += 1.0
+            time.sleep(0.02)
+        promote_s = time.perf_counter() - t_kill
+        if promoted["winner"] not in rnames or promoted["epoch"] != 1 \
+                or h.leader_name != promoted["winner"]:
+            raise AssertionError(f"promotion {promoted}")
+        probe = RemoteProducer(TcpTransport(), h.ingest_address,
+                               name="probe")
+        res = probe.submit("words", wordcount.ingest_lines(
+            [" ".join(producer_batch_words(n_prod, 0))]),
+            batch_id="probe-0").result(timeout=PROC_WAIT_S)
+        first_ack_s = time.perf_counter() - t_kill
+        if res.status != APPLIED:
+            raise AssertionError(f"the probe write on the promoted leader: "
+                                 f"{res}")
+        time.sleep(run_s)
+
+        exits = []
+        for i in range(n_prod):
+            st = h.child(f"p{i}").stop()
+            if st is None or not st.get("ok") or st["in_doubt"]:
+                raise AssertionError(f"producer p{i} exited {st!r}")
+            exits.append(st)
+        reconnects = sum(s["reconnects"] for s in exits)
+        resubmits = sum(s["resubmits"] for s in exits)
+        if reconnects < n_prod or resubmits < 1:
+            raise AssertionError(f"the leader's kill forced {reconnects} "
+                                 f"reconnects, {resubmits} resubmits")
+        g, src, sink = wordcount.build_graph()
+        ingest = ControlClient(h.ingest_address, io_timeout_s=30.0)
+        ingest.call("flush", 20.0)
+        _ok, leader_tick, leader_view = ingest.call("view", sink.name)
+        oracle = DirtyScheduler(g)
+        acked = [(i, seq) for i, st in enumerate(exits)
+                 for seq, _status in st["acked"]] + [(n_prod, 0)]
+        for i, seq in acked:
+            oracle.push(src, wordcount.ingest_lines(
+                [" ".join(producer_batch_words(i, seq))]),
+                batch_id=f"p{i}-{seq}")
+        oracle.tick()
+        want = {kv: w for kv, w in oracle.view(sink.name).items() if w}
+        got = {kv: w for kv, w in leader_view.items() if w}
+        if got != want:
+            raise AssertionError(f"acked writes lost or doubled: "
+                                 f"{len(got)} rows, {len(want)} expected")
+        survivors = [nm for nm in rnames if nm != h.leader_name]
+        h.barrier(names=survivors, min_horizon=leader_tick,
+                  timeout_s=PROC_WAIT_S)
+        for nm in survivors:
+            _ok, rh, rv = h.control(nm).call("view", sink.name)
+            if rh != leader_tick or {kv: w for kv, w in rv.items()
+                                     if w} != got:
+                raise AssertionError(f"{nm} at horizon {rh} unlike the "
+                                     f"new leader at {leader_tick}")
+        nodes = set(h.aggregator.fleet_snapshot()["nodes"])
+        if not {"leader", *rnames, *(f"p{i}" for i in range(n_prod))} \
+                <= nodes:
+            raise AssertionError(f"the fleet snapshot's nodes {nodes}")
+    finally:
+        if probe is not None:
+            probe.close()
+        h.close()
+    leg_s = time.perf_counter() - t_leg
+    log(f"[fleet] leg B on the host: ProcHarness, a leader, {n_replicas} "
+        f"replica and {n_prod} producer children (python -m "
+        f"reflow_tpu_torch.proc, word-count on the CPU oracle, "
+        f"CUDA_VISIBLE_DEVICES empty), producer pace {pace_s} s, phases of "
+        f"{run_s} s; {os.cpu_count()} host cores")
+    log(f"[fleet] spawn ms a child (to its ready line): "
+        + ", ".join(f"{k} {v * 1e3:.0f}" for k, v in spawn_s.items()))
+    log(f"[fleet] kill -9 of every replica: respawn -> barrier "
+        f"{rejoin_s * 1e3:.0f} ms (the cut {cut}); the leader's kill -> "
+        f"promotion {promote_s * 1e3:.0f} ms (winner {promoted['winner']}, "
+        f"epoch {promoted['epoch']}), -> the first acked write on the "
+        f"promoted leader {first_ack_s * 1e3:.0f} ms")
+    log(f"[fleet] acked writes {len(acked)} (the probe's included), none "
+        f"lost (the new leader's view == the fold of every acked batch), "
+        f"{len(survivors)} survivors equal at horizon {leader_tick}; "
+        f"producers: {reconnects} reconnects, {resubmits} resubmits, "
+        f"{sum(s['deduped'] for s in exits)} deduped, in doubt 0; fleet "
+        f"nodes {len(nodes)}; leg B {leg_s:.1f} s")
+    return {"acked": len(acked), "leg_s": leg_s}
+
+
+def phase_fleet(card: str) -> Dict[str, object]:
+    """Fleet telemetry, standing-query subscriptions (leg A, on the card;
+    the top-k counts are zeroed just before its path) and the
+    multi-process harness (leg B, on the host), under a temp dir."""
+    tmp = tempfile.mkdtemp()
+    try:
+        fs = fs_line(tmp)
+        log(f"[fleet] WAL, mirrors and children's state under a temp dir: "
+            f"{fs}")
+        subs = fleet_subs(card, fs, tmp)
+        fleet_proc(card, tmp)
+        return subs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     spent: Dict[str, float] = {}
@@ -4587,10 +5137,11 @@ def main() -> int:
     if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
         raise AssertionError("a phase after the serving slice launched a "
                              "top-k kernel")
-    # phases 13-15 zero the counts themselves, just before their paths
+    # phases 13-16 zero the counts themselves, just before their paths
     durable = timed(phase_durable, card)
     replica = timed(phase_replication, card)
     tier = timed(phase_tier, card)
+    fleet = timed(phase_fleet, card)
     log(f"[tier] ship lag, ms from the ack to the follower's horizon "
         f"(insert ticks, median): over TCP {tier['lag_ms']:.3f} (phase 15),"
         f" in process {replica['lag_ms_r0']:.3f} (phase 14, r0) [{card}]")
@@ -4604,7 +5155,9 @@ def main() -> int:
                    "replica_leader": replica["leader"][i],
                    "replica": replica["replica"][i],
                    "tier": tier["tier"][i],
-                   "tier_replica": tier["tier_replica"][i]}
+                   "tier_replica": tier["tier_replica"][i],
+                   "subs_leader": fleet["subs_leader"][i],
+                   "subs_replica": fleet["subs_replica"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)

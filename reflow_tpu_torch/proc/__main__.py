@@ -4,16 +4,17 @@ The process harness (``proc/harness.py``) spawns every child as this
 module, so a "replica process" in a test is *exactly* what an operator
 would start by hand::
 
-    python -m reflow_tpu_torch.proc --role replica --name r0 --root /data/r0
-    python -m reflow_tpu_torch.proc --role leader  --name leader --root /data/L
-    python -m reflow_tpu_torch.proc --role producer --name p0 --index 0 \\
-        --connect 127.0.0.1:45123
+    python -m reflow_tpu_torch.proc --role replica --name r0 \\
+        --root /data/r0
+    python -m reflow_tpu_torch.proc --role leader  --name leader \\
+        --root /data/L
+    python -m reflow_tpu_torch.proc --role producer --name p0 \\
+        --index 0 --connect 127.0.0.1:45123
 
 Protocol: JSON lines on stdout (first = ready line with the
 OS-assigned addresses, last = exit status when ``--json``), JSON
 commands on stdin (``{"cmd": "stop"}`` / ``attach`` / ``connect`` —
-see ``proc/worker.py``). ``tools/reflow_proc.py`` wraps this module
-for checkout-relative invocation.
+see ``proc/worker.py``).
 
 The port's copy of ``reflow_tpu/proc/__main__.py``: the same argv.
 """

@@ -1,7 +1,8 @@
 """Child-process role runners for the multi-process harness.
 
-``tools/reflow_proc.py`` parses argv and hands a plain options dict to
-one of :func:`run_leader` / :func:`run_replica` / :func:`run_producer`.
+``python -m reflow_tpu_torch.proc`` parses argv and hands a plain
+options dict to one of :func:`run_leader` / :func:`run_replica` /
+:func:`run_producer`.
 Each runner owns its role's whole in-process stack (the same classes
 the single-process tests drive — nothing is forked *logic*, only
 forked *processes*), speaks a line protocol with the parent, and

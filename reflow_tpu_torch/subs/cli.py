@@ -7,10 +7,10 @@ one line per applied commit window. Human mode renders the
 reconstructed answer compactly; ``--json`` emits one
 ``reflow.sub/1`` document per update for scripting::
 
-    python tools/reflow_sub.py --connect 127.0.0.1:45131 \\
-        --sink counts --kind topk --k 5
-    python tools/reflow_sub.py --connect 127.0.0.1:45131 \\
-        --sink counts --kind lookup --key the,2 --json
+    python -m reflow_tpu_torch.subs --connect 127.0.0.1:45131 \\
+        --sink out --kind topk --k 5
+    python -m reflow_tpu_torch.subs --connect 127.0.0.1:45131 \\
+        --sink out --kind lookup --key the,2 --json
 
 Exit is clean on ``--rounds`` / ``--duration`` expiry or Ctrl-C; a
 down link is survived silently (the subscriber resumes from its

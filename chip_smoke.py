@@ -293,7 +293,7 @@ import threading
 import time
 import zlib
 from collections import Counter
-from typing import Callable, Dict, FrozenSet, List, Set
+from typing import Callable, Dict, FrozenSet, List, Set, Tuple
 
 import numpy as np
 import torch
@@ -837,8 +837,30 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else None)
 
-    # brute force over the same device tables, plain torch
     st = ex.states[kg.index.id]
+    recall, score_diff = knn_vs_brute_force(st, table, Q, k)
+    return {"preload_s": preload_s, "insert_s": insert_s,
+            "insert_ops": insert_ops, "rescan_s": rescan_s,
+            "query_update_s": qupdate_s, "launches": launches,
+            "window": window,
+            "traces": traces,
+            "tickets": len(tickets), "recall": recall,
+            "score_max_abs_diff": score_diff,
+            "forced_syncs": sched.forced_syncs, "peak_bytes": peak,
+            "live_docs": int(st["dlive"].sum())}
+
+
+#: a k-NN sink table against brute force: the least recall and the
+#: largest score difference it may show
+BRUTE_RECALL, BRUTE_SCORE_DIFF = 0.99, 1e-2
+
+
+def knn_vs_brute_force(st: Dict, table: Dict, Q: int,
+                       k: int) -> Tuple[float, float]:
+    """Recall and the largest score difference of a k-NN sink table
+    against plain torch top-k over the same device tables (``st``'s
+    ``qvec``, ``dvec`` and ``dlive``). Raises unless ``table`` holds
+    ``Q`` finite ``[k, 2]`` rows."""
     full = scores(st["qvec"], st["dvec"])
     full = torch.where(st["dlive"][None, :], full, NEG)
     bvals, bids = topk_plain(full, k)
@@ -850,17 +872,20 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
     bids_h, bvals_h = bids.cpu().numpy(), bvals.cpu().numpy()
     hits = sum(len(set(got[q, :, 0].astype(np.int64)) & set(bids_h[q]))
                for q in range(Q))
-    recall = hits / (Q * k)
-    score_diff = float(np.abs(got[:, :, 1] - bvals_h).max())
-    return {"preload_s": preload_s, "insert_s": insert_s,
-            "insert_ops": insert_ops, "rescan_s": rescan_s,
-            "query_update_s": qupdate_s, "launches": launches,
-            "window": window,
-            "traces": traces,
-            "tickets": len(tickets), "recall": recall,
-            "score_max_abs_diff": score_diff,
-            "forced_syncs": sched.forced_syncs, "peak_bytes": peak,
-            "live_docs": int(st["dlive"].sum())}
+    return hits / (Q * k), float(np.abs(got[:, :, 1] - bvals_h).max())
+
+
+def check_brute_force(label: str, st: Dict, table: Dict, Q: int,
+                      k: int) -> Tuple[float, float]:
+    """``knn_vs_brute_force``, raising outside ``BRUTE_RECALL`` and
+    ``BRUTE_SCORE_DIFF``."""
+    recall, score_diff = knn_vs_brute_force(st, table, Q, k)
+    if recall < BRUTE_RECALL or score_diff > BRUTE_SCORE_DIFF:
+        raise AssertionError(
+            f"{label} vs brute force: recall {recall:.4f} (need >= "
+            f"{BRUTE_RECALL}), score max_abs_diff {score_diff:.3g} (need "
+            f"<= {BRUTE_SCORE_DIFF})")
+    return recall, score_diff
 
 
 #: host-side ops that chunked_corpus_topk must not issue once per chunk
@@ -990,11 +1015,12 @@ def phase_serve(card: str) -> Dict[str, object]:
             raise AssertionError(
                 f"{kind} tick launched topk {n} and topk_merge {nm} times, "
                 f"expected {want[0]} and {want[1]}")
-    if out["recall"] < 0.99 or out["score_max_abs_diff"] > 1e-2:
+    if (out["recall"] < BRUTE_RECALL
+            or out["score_max_abs_diff"] > BRUTE_SCORE_DIFF):
         raise AssertionError(
-            f"table vs brute force: recall {out['recall']:.4f} (need "
-            f">= 0.99), score max_abs_diff {out['score_max_abs_diff']:.3g} "
-            f"(need <= 1e-2)")
+            f"table vs brute force: recall {out['recall']:.4f} (need >= "
+            f"{BRUTE_RECALL}), score max_abs_diff "
+            f"{out['score_max_abs_diff']:.3g} (need <= {BRUTE_SCORE_DIFF})")
     win = out["window"]
     kinds = [kind for kind, _, _ in out["launches"]]
     staged = sum(kind != "preload" for kind in kinds)
@@ -3023,20 +3049,8 @@ def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
         raise AssertionError(f"queries {bad[:8]}: the recovered table != "
                              f"the uncrashed twin's")
     live_ids = sum(int((table[q][:, 1] > NEG).sum()) for q in range(Q))
-    st = sched2.executor.states[k2.index.id]
-    full = scores(st["qvec"], st["dvec"])
-    full = torch.where(st["dlive"][None, :], full, NEG)
-    bvals, bids = topk_plain(full, k)
-    del full
-    got = np.stack([table[q] for q in range(Q)])
-    bids_h, bvals_h = bids.cpu().numpy(), bvals.cpu().numpy()
-    recall = sum(len(set(got[q, :, 0].astype(np.int64)) & set(bids_h[q]))
-                 for q in range(Q)) / (Q * k)
-    score_diff = float(np.abs(got[:, :, 1] - bvals_h).max())
-    if recall < 0.99 or score_diff > 1e-2:
-        raise AssertionError(f"recovered table vs brute force: recall "
-                             f"{recall:.4f}, score max_abs_diff "
-                             f"{score_diff:.3g}")
+    recall, score_diff = check_brute_force(
+        "recovered table", sched2.executor.states[k2.index.id], table, Q, k)
 
     ins = [r for r in rows[n_head:] if r["kind"] == "insert"]
     med = _median([r["s"] for r in ins])
@@ -4809,7 +4823,9 @@ def fleet_subs(card: str, fs: str, tmp: str,
             tick, _t, view = rpc_step(item)
         # the subscribers, after the preload: a view of nn, its top 16
         # (by weight: nn's values are (id, score) pairs, which a rank by
-        # value cannot negate), and one (query, row) pair of the view
+        # value cannot negate; every live row weighs 1, so the rank is
+        # the tie-break on the pair's string form), and one (query, row)
+        # pair of the view
         pair = sorted(view, key=str)[0]
         part_tcp = FaultyTransport(tcp, faults)
         for name, tr, kind, params in (
@@ -4839,6 +4855,13 @@ def fleet_subs(card: str, fs: str, tmp: str,
         leg_s = time.perf_counter() - t_leg
         obs.disable()
         launches = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        # the kernel's answer itself: the follower (equal to the leader and
+        # the subscribers' source) against plain top-k over its own tables
+        with replica._lock:
+            brute = check_brute_force(
+                "the follower's table", replica.sched.executor.states[
+                    kr.index.id], replica.sched.read_table(kr.index),
+                cfg["Q"], cfg["k"])
         trace_path = obs.export_chrome_trace(os.path.join(tmp, "trace.json"))
         with open(trace_path) as f:
             events = json.load(f)["traceEvents"]
@@ -4912,7 +4935,9 @@ def fleet_subs(card: str, fs: str, tmp: str,
         f"SubscriptionServer on the follower, 3 wire subscribers; "
         f"{len(rows)} RPC writes, the follower equal to the leader at each, "
         f"{checks} subscriber horizons equal to query_value over the "
-        f"leader's view, bit for bit [{fs}]")
+        f"leader's view, bit for bit; the follower's table vs brute force "
+        f"over its tables: recall {brute[0]:.6f}, score max_abs_diff "
+        f"{brute[1]:.6g} [{fs}]")
     log(f"[fleet] subscription freshness, ms from the leader's ack to the "
         f"subscriber's horizon (insert ticks, every unpartitioned "
         f"subscriber): p50 {_pct(fresh, 0.5) * 1e3:.3f} p95 "

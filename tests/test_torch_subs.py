@@ -263,6 +263,52 @@ def test_inprocess_parity_all_kinds(tmp_path):
         close_stack(sched, ship, hub)
 
 
+@pytest.mark.parametrize("path", ["hub", "wire"])
+def test_topk_by_value_ranks_varying_counts(tmp_path, path):
+    """Every word-count row has weight 1, so a topk by weight ranks by its
+    tie-break alone. By value it ranks the counts, which differ: at each
+    horizon the answer is the k largest counts in order (ties on the
+    pair's string form), held against a plain sort of the pull view and
+    the JAX package's ``topk_rows``."""
+    k = 6
+    sched, ship, rep, hub, src, sink = make_stack(tmp_path)
+    lt = srv = None
+    try:
+        drive(sched, src, 3)
+        pump_until_caught(ship, sched, rep)
+        if path == "hub":
+            sub = hub.open(sink.name, "topk", (k, "value"))
+        else:
+            lt = LoopbackTransport()
+            srv = SubscriptionServer(hub, lt).start()
+            sub = Subscriber(lt, srv.address, sink.name, kind="topk",
+                             params=(k, "value"),
+                             policy=wire_policy("sub-rank"))
+        for leg in range(4):
+            drive(sched, src, 3, start=3 + 3 * leg)
+            pump_until_caught(ship, sched, rep)
+            horizon = rep.published_horizon()
+            if path == "hub":
+                assert sub.wait_horizon(horizon)
+            else:
+                pump_to(sub, horizon)
+            view = rep.view_at(sink.name)[1]
+            want = sorted(view.items(),
+                          key=lambda it: (-it[0][1], str(it[0])))[:k]
+            got = sub.value()
+            assert list(got) == want, f"horizon {horizon}"
+            assert got == jquery.topk_rows(view, k, "value")
+            counts = [kv[1] for kv, _w in got]
+            assert counts == sorted((kv[1] for kv in view),
+                                    reverse=True)[:k]
+            assert len(set(counts)) > 1, "the rank saw only ties"
+    finally:
+        if path == "wire":
+            sub.close()
+            srv.close()
+        close_stack(sched, ship, hub)
+
+
 def test_changeless_windows_advance_horizon_without_frames(tmp_path):
     sched, ship, rep, hub, src, sink = make_stack(tmp_path)
     try:

@@ -271,9 +271,27 @@ Phases, each printing its own lines:
    leader's kill -> first acked write on the promoted leader, the acked
    writes.
 
+17. **The lockcheck leg** — the runtime half of ``python -m
+   reflow_tpu_torch.analysis``: a child process (``chip_smoke.py
+   --lockcheck-child OUT``) started with ``REFLOW_LOCKCHECK=1`` in its
+   environment, so that every ``named_lock`` of the port, module-level
+   ones too, reports to the lock-order monitor. The child runs phase 13's
+   k-NN leg, phase 14 (followers, compaction, failover) and phase 15 (the
+   tier with its PageRank and word-count tenants under the control plane)
+   at config 4's full width, the preload cut to 2 chunks, each holding its
+   tables to their twins as the full phases do. The script fails if the
+   child fails, if any acquisition on any thread raised
+   ``LockOrderError``, or if no monitored edge involves a ``serve.tier``,
+   a ``wal.*`` or a ``serve.frontend.*`` lock. Printed: the monitor's
+   edges, the ones the static lock graph
+   (``reflow_tpu_torch.analysis.locks.static_lock_edges``) lacks,
+   ``cycles_checked``, the seconds, the child's top-k launches (its own
+   paths', the twins' left out: ``lockcheck`` in ``launches_by_path``).
+
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
 them, must stay 0. Phases 13-16 zero them again and count their own
-paths' launches apart from their twins'.
+paths' launches apart from their twins'; phase 17 counts them in its
+child.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -377,8 +395,12 @@ PAGERANK_HOST_OPS = ("aten::item", "aten::sort", "aten::index_add_",
                      "aten::nonzero")
 
 
+#: put before every printed line: the lockcheck leg's child marks its own
+LOG_PREFIX = ""
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(LOG_PREFIX + msg, flush=True)
 
 
 # -- phase 1: device ------------------------------------------------------
@@ -2819,6 +2841,30 @@ def _dir_bytes(path: str) -> int:
                for d, _dirs, files in os.walk(path) for f in files)
 
 
+#: where the k-NN paths of phases 13-15 (and the lockcheck leg, which
+#: reuses them) put their executors: None is the card; the leg's CPU run
+#: (``--lockcheck-child --device cpu``) sets "cpu", where the top-k
+#: wrappers take their plain versions and count no launch
+DEVICE = None
+
+
+def _executor():
+    return get_executor("cuda", device=DEVICE)
+
+
+def _on_card() -> bool:
+    return DEVICE is None
+
+
+def _device_type() -> str:
+    return "cuda" if _on_card() else torch.device(DEVICE).type
+
+
+def _sync() -> None:
+    if _on_card():
+        torch.cuda.synchronize()
+
+
 def _launches() -> tuple:
     return topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES
 
@@ -2864,6 +2910,8 @@ def _knn_feed(cfg: Dict[str, int], seed: int) -> List[tuple]:
 def _want_launches(kind: str, chunks: int) -> tuple:
     """(topk, topk_merge) launches of one k-NN tick: a rescan merges once
     a corpus chunk, an incremental tick runs one top-k."""
+    if not _on_card():
+        return (0, 0)
     rescan = kind in ("retract", "query update", "query insert")
     return (0, chunks) if rescan else (1, 0)
 
@@ -2879,8 +2927,11 @@ def _knn_graph(cfg: Dict[str, int], sink: bool = False):
     return kg
 
 
-def _knn_frontend(sched, cfg: Dict[str, int]) -> IngestFrontend:
-    return IngestFrontend(sched, depth=2, admission="device",
+def _knn_frontend(sched, cfg: Dict[str, int],
+                  name=None) -> IngestFrontend:
+    """Config 4's frontend; ``name`` names its lock
+    (``serve.frontend.<name>``) for the lockcheck leg's monitor."""
+    return IngestFrontend(sched, depth=2, admission="device", name=name,
                           window=CoalesceWindow(
                               max_rows=cfg["preload_chunk"], max_ticks=8,
                               max_latency_s=0.005),
@@ -2902,10 +2953,10 @@ def _table_diff(got: Dict, want: Dict) -> List[int]:
     return bad
 
 
-def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
+def durable_knn(card: str, fs: str, tmp: str,
+                cfg: Dict[str, int] = FULL) -> Dict[str, object]:
     """Config 4 served durably at full width beside a non-durable twin,
     killed inside the last window, recovered and resent."""
-    cfg = FULL
     Q, D, dim, k = cfg["Q"], cfg["D"], cfg["dim"], cfg["k"]
     chunks = D // cfg["scan_chunk"]
     feed = _knn_feed(cfg, seed=13)
@@ -2916,8 +2967,8 @@ def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     def graph():
         return _knn_graph(cfg)
 
-    def frontend(sched):
-        return _knn_frontend(sched, cfg)
+    def frontend(sched, name):
+        return _knn_frontend(sched, cfg, name)
 
     def submit(fe, kg, item):
         bid, src, batch, _kind = item
@@ -2927,15 +2978,15 @@ def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
                            batch_id=bid)
         fe.flush(timeout=600)
         res = ticket.result(timeout=600)
-        torch.cuda.synchronize()
+        _sync()
         return res, time.perf_counter() - t0, _since(l0)
 
     kt, kd = graph(), graph()
-    twin = DirtyScheduler(kt.graph, get_executor("cuda"))
+    twin = DirtyScheduler(kt.graph, _executor())
     crash = CrashInjector(1 << 62, only="after_append")
-    dur = DurableScheduler(kd.graph, get_executor("cuda"), wal_dir=wal_dir,
+    dur = DurableScheduler(kd.graph, _executor(), wal_dir=wal_dir,
                            fsync="tick", committer="thread", crash=crash)
-    fe_t, fe_d = frontend(twin), frontend(dur)
+    fe_t, fe_d = frontend(twin, "twin"), frontend(dur, "durable")
     rows: List[Dict[str, object]] = []
     try:
         for i, item in enumerate(feed[:-1]):
@@ -2996,22 +3047,22 @@ def durable_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     # a fresh process: new executor and scheduler on the same dirs
     k2 = graph()
     t0 = time.perf_counter()
-    sched2 = DurableScheduler(k2.graph, get_executor("cuda"),
+    sched2 = DurableScheduler(k2.graph, _executor(),
                               wal_dir=wal_dir, fsync="tick",
                               committer="thread")
     l0 = _launches()
     rep = recover(sched2, wal_dir, ckpt_dir)
-    torch.cuda.synchronize()
+    _sync()
     recover_s = time.perf_counter() - t0
     replay_launches = _since(l0)
     pending = sum(len(v) for v in sched2._pending.values())
     l0 = _launches()
     t1 = time.perf_counter()
     sched2.tick()       # the logged, undispatched last window
-    torch.cuda.synchronize()
+    _sync()
     first_s = time.perf_counter() - t1
     first_launches = _since(l0)
-    fe2 = frontend(sched2)
+    fe2 = frontend(sched2, "recovered")
     try:
         l0 = _launches()
         resent = [fe2.submit(k2.queries if src == "q" else k2.docs, b,
@@ -3437,7 +3488,7 @@ class _Counted:
             raise
         h1 = self.inner.published_horizon()
         if h1 > h0:
-            torch.cuda.synchronize()
+            _sync()
             self.apply_s.append((time.perf_counter() - t0, h1 - h0))
         d = _since_on(me, l0)
         self.replay = [self.replay[0] + d[0], self.replay[1] + d[1]]
@@ -3451,7 +3502,7 @@ class _Counted:
         first = self.promote_s is None
         l0, t0 = _on_thread(me), time.perf_counter()
         sched = self.inner.promote(**kw)
-        torch.cuda.synchronize()
+        _sync()
         if first:
             self.promote_t0 = t0
             self.promote_s = time.perf_counter() - t0
@@ -3510,16 +3561,19 @@ def replicate_knn(card: str, fs: str, tmp: str,
     graphs = {n: _knn_graph(cfg, sink=True)
               for n in ("leader", "twin", "r0", "r1")}
     kd, kt = graphs["leader"], graphs["twin"]
-    leader = DurableScheduler(kd.graph, get_executor("cuda"),
+    leader = DurableScheduler(kd.graph, _executor(),
                               wal_dir=wal_dir, fsync="tick",
-                              committer="thread")
-    twin = DirtyScheduler(kt.graph, get_executor("cuda"))
-    fe, fe_t = _knn_frontend(leader, cfg), _knn_frontend(twin, cfg)
+                              committer="thread",
+                              segment_bytes=cfg.get("segment_bytes",
+                                                    16 << 20))
+    twin = DirtyScheduler(kt.graph, _executor())
+    fe, fe_t = (_knn_frontend(leader, cfg, "leader"),
+                _knn_frontend(twin, cfg, "twin"))
     ship = SegmentShipper(leader.wal, ckpt_dir=ckpt_dir,
                           leader_tick=lambda: leader._tick)
     r0 = _Counted(ReplicaScheduler(graphs["r0"].graph,
                                    os.path.join(tmp, "r0"),
-                                   executor=get_executor("cuda"), name="r0"))
+                                   executor=_executor(), name="r0"))
     ship.attach(r0)
     if r0.bootstraps:
         raise AssertionError("r0 bootstrapped: no checkpoint existed yet")
@@ -3546,7 +3600,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
     def twin_step(item):
         l0 = _on_thread(fe_t._thread.ident)
         submit(fe_t, kt, item)
-        torch.cuda.synchronize()
+        _sync()
         add("twin", _since_on(fe_t._thread.ident, l0))
 
     def check(tag: str, sched, g, among: List[_Counted]):
@@ -3584,7 +3638,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
             while not ship.fully_shipped():
                 ship.pump_once()
         lag = _wait_horizon(followers, tick, t_ack)
-        torch.cuda.synchronize()
+        _sync()
         mine = _since_on(pump, l0)
         add("leader", mine)
         want = _want_launches(item[3], chunks)
@@ -3609,12 +3663,12 @@ def replicate_knn(card: str, fs: str, tmp: str,
         ckpt_s = time.perf_counter() - t0
         r1 = _Counted(ReplicaScheduler(graphs["r1"].graph,
                                        os.path.join(tmp, "r1"),
-                                       executor=get_executor("cuda"),
+                                       executor=_executor(),
                                        name="r1"))
         l0 = _launches()
         t0 = time.perf_counter()
         ship.attach(r1)
-        torch.cuda.synchronize()
+        _sync()
         boot_s = time.perf_counter() - t0
         if _since(l0) != (0, 0) or r1.bootstraps != 1 \
                 or r1.published_horizon() != leader._tick:
@@ -3652,8 +3706,8 @@ def replicate_knn(card: str, fs: str, tmp: str,
             l0 = _on_thread(main)
             t0 = time.perf_counter()
             inner = ReplicaScheduler(graphs["r0"].graph, r0_dir,
-                                     executor=get_executor("cuda"), name="r0")
-            torch.cuda.synchronize()
+                                     executor=_executor(), name="r0")
+            _sync()
             restart_s = time.perf_counter() - t0
             counts["restart"] = _since_on(main, l0)
             r0 = _Counted(inner)
@@ -3739,11 +3793,11 @@ def replicate_knn(card: str, fs: str, tmp: str,
         walk_s = time.perf_counter() - t0
         # recovery from the checkpoint and the compacted log
         gc_ = _knn_graph(cfg, sink=True)
-        rc = DirtyScheduler(gc_.graph, get_executor("cuda"))
+        rc = DirtyScheduler(gc_.graph, _executor())
         l0 = _on_thread(main)
         t0 = time.perf_counter()
         rep = recover(rc, wal_dir, ckpt_dir)
-        torch.cuda.synchronize()
+        _sync()
         rc_s = time.perf_counter() - t0
         counts["recover"] = _since_on(main, l0)
         bad = _table_diff(rc.read_table(gc_.index),
@@ -3760,7 +3814,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
         ship.attach(r1)
         followers.append(r1)
         _wait_horizon([r1], leader._tick, t0)
-        torch.cuda.synchronize()
+        _sync()
         reanchor_s = time.perf_counter() - t0
         if r1.bootstraps != b0 + 1:
             raise AssertionError("r1 did not re-anchor on the checkpoint")
@@ -3776,13 +3830,14 @@ def replicate_knn(card: str, fs: str, tmp: str,
         t0 = time.perf_counter()
         coord.promote_now(reason="leader stopped")
         new = coord.leader_sched
-        torch.cuda.synchronize()
+        _sync()
         fail_s = time.perf_counter() - t0
         win = coord.winner
         fail_drain_s = win.promote_t0 - t0
         survivor = r1 if win is r0 else r0
         if new.wal.epoch != 1 or type(new.executor).__name__ \
-                != "CudaExecutor" or new.executor.device.type != "cuda" \
+                != "CudaExecutor" \
+                or new.executor.device.type != _device_type() \
                 or new.executor is win.inner.sched.executor:
             raise AssertionError(f"the promoted leader: epoch "
                                  f"{new.wal.epoch}, executor "
@@ -3791,7 +3846,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
         if _since_on(main, l0) != win.promote_launches:
             raise AssertionError("launches outside the promotion's "
                                  "recovery during the failover")
-        fe2 = _knn_frontend(new, cfg)
+        fe2 = _knn_frontend(new, cfg, "promoted")
         try:
             firsts = []
             for item in after:
@@ -3802,7 +3857,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
                 if item is after[0]:
                     to_first_write = t_ack - t0
                 _wait_horizon([survivor], new._tick, t_ack)
-                torch.cuda.synchronize()
+                _sync()
                 add("new_leader", _since_on(fe2._thread.ident, l0))
                 twin_step(item)
                 check(f"after {item[0]}", new, graphs[win.name],
@@ -3852,7 +3907,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
     for p in (r1, r0):
         replica = [replica[0] + p.replay[0], replica[1] + p.replay[1]]
     replica = [replica[0] + old_replay[0], replica[1] + old_replay[1]]
-    if not replica[0] or not replica[1]:
+    if _on_card() and not (replica[0] and replica[1]):
         raise AssertionError(f"the replicas launched {replica}: both "
                              f"top-k entries must run on the replica path")
     tail_rows = steps[len(head):]
@@ -3991,13 +4046,20 @@ TIER_PR_CHURN = 4
 WC_WORDS, WC_KEYS = 1000, 1024
 #: a wait on the tier, the follower or a ticket longer than this fails
 TIER_WAIT_S = 120.0
-#: (topk, topk_merge) launches predicted for each k-NN path (the tier's
-#: pool threads, the TCP follower's replay, the twin): the queries and
-#: the retraction and the query update rescan (128 merges each), the 15
-#: preload ticks and the 8 insert ticks run one top-k each; the
-#: resubmitted insert is deduped and runs no tick
-TIER_WANT = (15 + TIER_LOCAL_INSERTS + 5,
-             3 * (FULL["D"] // FULL["scan_chunk"]))
+
+
+def tier_want(cfg: Dict[str, int]) -> tuple:
+    """(topk, topk_merge) launches predicted for each k-NN path of the
+    tier (the pool threads, the TCP follower's replay, the twin): the
+    queries and the retraction and the query update rescan (one merge a
+    corpus chunk: 128 each at full width), the preload ticks (15) and
+    the insert ticks (3 in process, 5 over RPC) run one top-k each; the
+    resubmitted insert is deduped and runs no tick. Off the card no
+    launch is counted."""
+    if not _on_card():
+        return (0, 0)
+    return (cfg["preload_chunks"] + TIER_LOCAL_INSERTS + cfg["insert_ticks"],
+            3 * (cfg["D"] // cfg["scan_chunk"]))
 
 
 class _Meter:
@@ -4088,7 +4150,8 @@ def _wc_lines(tag: int, producer: int, j: int) -> List[str]:
     return [" ".join(f"w{int(x)}" for x in rng.integers(0, WC_WORDS, 8))]
 
 
-def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
+def tier_knn(card: str, fs: str, tmp: str, cfg: Dict[str, int] = FULL,
+             pr_cfg: Dict[str, object] = PAGERANK) -> Dict[str, object]:
     """One ``ServeTier(pump_threads=2)`` on the card hosting config 4's
     k-NN (durable, fed in process and over TCP by a ``RemoteProducer``,
     its log shipped over TCP to a follower), config 3's PageRank and two
@@ -4103,10 +4166,11 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     from reflow_tpu_torch.utils.faults import StormInjector, WireFaults
     from reflow_tpu_torch.utils.metrics import percentile, summarize_tier
 
-    cfg, kn = FULL, CONTROL
+    kn = CONTROL
     t_phase = time.perf_counter()
     feed = _knn_feed(cfg, seed=15)
-    head, ins, ret, qup = feed[:16], feed[16:21], feed[21], feed[22]
+    n_head = 1 + cfg["preload_chunks"]
+    head, ins, (ret, qup) = feed[:n_head], feed[n_head:-2], feed[-2:]
     rng = np.random.default_rng(16)
     lo = cfg["preload_chunks"] * cfg["preload_chunk"] \
         + cfg["insert_ticks"] * cfg["per_tick"]
@@ -4123,20 +4187,21 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     tally: Dict[str, List[int]] = {}
     lock = threading.Lock()
     kd, kt, kr = (_knn_graph(cfg) for _ in range(3))
-    leader = DurableScheduler(kd.graph, get_executor("cuda"),
+    leader = DurableScheduler(kd.graph, _executor(),
                               wal_dir=os.path.join(tmp, "knn-wal"),
                               fsync="tick", committer="thread")
-    twin = DirtyScheduler(kt.graph, get_executor("cuda"))
+    twin = DirtyScheduler(kt.graph, _executor())
     replica = ReplicaScheduler(kr.graph, os.path.join(tmp, "f0"),
-                               executor=get_executor("cuda"), name="f0")
+                               executor=_executor(), name="f0")
     _count_path(leader.executor, "tier", tally, lock)
     _count_path(replica.sched.executor, "tier_replica", tally, lock)
     _count_path(twin.executor, "twin", tally, lock)
-    pg, web, _pex, pr_sched, _arena = pagerank_setup(PAGERANK, {})
+    pg, web, _pex, pr_sched, _arena = pagerank_setup(pr_cfg,
+                                                     {"device": DEVICE})
     wc = {}
     for name in ("wc_hot", "wc_quiet"):
         g, src, sink = wordcount.build_graph(WC_KEYS)
-        wc[name] = (DirtyScheduler(g, get_executor("cuda")), src, sink)
+        wc[name] = (DirtyScheduler(g, _executor()), src, sink)
     vocab = {f"w{i}": i for i in range(WC_WORDS)}
 
     storm = StormInjector(only="pool_window@wc_hot")
@@ -4152,7 +4217,7 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     h_knn = tier.register("knn", leader, GraphConfig(
         window=window, admission="device", window_depth=2))
     h_pr = tier.register("pagerank", pr_sched, GraphConfig(
-        window=CoalesceWindow(max_rows=2 * PAGERANK["n_edges"], max_ticks=8,
+        window=CoalesceWindow(max_rows=2 * pr_cfg["n_edges"], max_ticks=8,
                               max_latency_s=0.005)))
     h_hot = tier.register("wc_hot", wc["wc_hot"][0], GraphConfig(
         weight=1.0, ceiling_bytes=budget // 2, window=wc_window))
@@ -4172,11 +4237,12 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
     try:
         for h in (h_knn, h_pr, h_hot, h_quiet):
             ex = h.frontend.sched.executor
-            if ex.device.type != "cuda" or h.device_label != str(ex.device):
+            if ex.device.type != _device_type() \
+                    or h.device_label != str(ex.device):
                 raise AssertionError(f"{h.name}: executor on {ex.device}, "
                                      f"label {h.device_label}")
         for ex in (replica.sched.executor, twin.executor):
-            if ex.device.type != "cuda":
+            if ex.device.type != _device_type():
                 raise AssertionError(f"an executor on {ex.device}")
 
         # PageRank on its own producer thread, beside the k-NN preload
@@ -4186,7 +4252,7 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
             try:
                 t0 = time.perf_counter()
                 a = h_pr.submit(pg.teleport,
-                                pagerank.teleport_batch(PAGERANK["n_nodes"]))
+                                pagerank.teleport_batch(pr_cfg["n_nodes"]))
                 b = h_pr.submit(pg.edges, web.initial_batch())
                 for t in (a, b):
                     if not t.result(timeout=TIER_WAIT_S).applied:
@@ -4194,7 +4260,7 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
                 pr_ticks.append(time.perf_counter() - t0)
                 for _ in range(TIER_PR_CHURN):
                     t0 = time.perf_counter()
-                    t = h_pr.submit(pg.edges, web.churn(PAGERANK["churn"]))
+                    t = h_pr.submit(pg.edges, web.churn(pr_cfg["churn"]))
                     if not t.result(timeout=TIER_WAIT_S).applied:
                         raise AssertionError("pagerank: churn batch")
                     pr_ticks.append(time.perf_counter() - t0)
@@ -4295,7 +4361,8 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
         for item in head + local:
             local_submit(item)
         for i, item in enumerate(ins):
-            rpc_submit(item, reset=(i == TIER_RESET_AT))
+            rpc_submit(item, reset=(i == min(TIER_RESET_AT,
+                                             len(ins) - 1)))
         for item in (ret, qup):
             rpc_submit(item)
         knn_s = time.perf_counter() - t_knn
@@ -4306,7 +4373,7 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
         if pr_thread.is_alive():
             raise AssertionError("pagerank producer still running")
         h_pr.flush(timeout=TIER_WAIT_S)
-        pr_err = rank_error(pr_sched, pg, web, PAGERANK["n_nodes"])
+        pr_err = rank_error(pr_sched, pg, web, pr_cfg["n_nodes"])
         if pr_err["rel_err"] > PAGERANK_MAX_REL_ERR:
             raise AssertionError(f"pagerank in the tier: relative error "
                                  f"{pr_err['rel_err']:.3g}")
@@ -4497,10 +4564,11 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
 
     # the launches by path, against the prediction and the global counts
     paths = {p: tuple(tally[p]) for p in ("tier", "tier_replica", "twin")}
+    want = tier_want(cfg)
     for p, got in paths.items():
-        if got != TIER_WANT:
+        if got != want:
             raise AssertionError(f"top-k launches on the {p} path {got}, "
-                                 f"predicted {TIER_WANT}")
+                                 f"predicted {want}")
     total = tuple(map(sum, zip(*paths.values())))
     if total != launches:
         raise AssertionError(f"top-k launches {launches} != the paths' "
@@ -4596,7 +4664,7 @@ def tier_knn(card: str, fs: str, tmp: str) -> Dict[str, object]:
         f"control counters {control}; both word-count tenants == the CPU "
         f"oracle [{card}]")
     log(f"[tier] (topk, topk_merge) launches by path: {paths} (predicted "
-        f"{TIER_WANT} each); k-NN leg {knn_s:.1f} s; phase {phase_s:.1f} s "
+        f"{want} each); k-NN leg {knn_s:.1f} s; phase {phase_s:.1f} s "
         f"[{card}]")
     return {"tier": paths["tier"], "tier_replica": paths["tier_replica"],
             "twin": paths["twin"], "lag_ms": _median(ins_lag) * 1e3}
@@ -5138,7 +5206,178 @@ def phase_fleet(card: str) -> Dict[str, object]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 17: the lockcheck leg ----------------------------------------------
+
+#: phases 13-15's k-NN paths at config 4's full width, the preload cut
+#: from 15 chunks to 2 (the inserts, retractions and query updates kept)
+LOCKCHECK = dict(FULL, preload_chunks=2)
+#: the same leg at a few ticks and small widths, on the CPU
+#: (``tests/test_torch_lint.py``); 8 KB log segments give the
+#: replication path's compaction sealed segments to fold
+LOCKCHECK_CPU = dict(Q=16, D=2048, dim=32, k=4, scan_chunk=512,
+                     per_tick=128, preload_chunk=256, preload_chunks=2,
+                     insert_ticks=5, retract=64, query_update=4,
+                     segment_bytes=8 << 10)
+LOCKCHECK_CPU_PAGERANK = dict(n_nodes=2000, n_edges=20_000, churn=0.01,
+                              tol=1e-4, seed=7)
+#: the child's whole run, build and imports included, may take this long
+LOCKCHECK_TIMEOUT_S = 600
+#: a lock of each of these families must be on an edge the monitor saw,
+#: or the leg held nothing that matters against the monitor
+LOCKCHECK_FAMILIES = ("serve.tier", "wal.", "serve.frontend.")
+
+
+def lockcheck_leg(card: str) -> Dict[str, object]:
+    """The tier (phase 15), the durable path (phase 13's k-NN leg) and the
+    failover (phase 14) in a process whose locks report to the runtime
+    lock-order monitor. Runs in the child that ``phase_lockcheck`` starts
+    with ``REFLOW_LOCKCHECK=1`` in its environment, set before the port
+    was imported (module-level locks read it at import). Returns the
+    monitor's edges, the ``LockOrderError``s raised on any thread (a
+    swallowed one counts), ``cycles_checked``, the seconds and the top-k
+    launches of the leg's own paths (the twins' left out). On the card
+    unless ``DEVICE`` names another device."""
+    from reflow_tpu_torch.utils.runtime import (LOCK_MONITOR, LockOrderError,
+                                                NamedLock, lockcheck_enabled)
+
+    if not (lockcheck_enabled()
+            and isinstance(topk_mod._TALLY_LOCK, NamedLock)):
+        raise AssertionError("the lockcheck child's locks are not wrapped: "
+                             "REFLOW_LOCKCHECK=1 must be set before the "
+                             "port is imported")
+    raised: List[str] = []
+    real = LOCK_MONITOR.on_acquire
+
+    def on_acquire(lock):
+        try:
+            return real(lock)
+        except LockOrderError as e:
+            raised.append(str(e))
+            raise
+
+    LOCK_MONITOR.on_acquire = on_acquire
+    if _on_card():
+        cfg, pr_cfg = LOCKCHECK, PAGERANK
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        cfg, pr_cfg = LOCKCHECK_CPU, LOCKCHECK_CPU_PAGERANK
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        fs = fs_line(tmp)
+        dirs = {}
+        for leg in ("durable", "replica", "tier"):
+            dirs[leg] = os.path.join(tmp, leg)
+            os.mkdir(dirs[leg])
+        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+        dur = durable_knn(card, fs, dirs["durable"], cfg)
+        rep = replicate_knn(card, fs, dirs["replica"], cfg)
+        tier = tier_knn(card, fs, dirs["tier"], cfg, pr_cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    own = [dur["launches"], rep["leader"], rep["replica"], tier["tier"],
+           tier["tier_replica"]]
+    return {"edges": {a: sorted(b) for a, b in
+                      sorted(LOCK_MONITOR.edges().items())},
+            "lock_order_errors": raised,
+            "cycles_checked": LOCK_MONITOR.cycles_checked,
+            "seconds": time.perf_counter() - t0,
+            "launches": [sum(x[0] for x in own), sum(x[1] for x in own)]}
+
+
+def lockcheck_child(argv: List[str]) -> int:
+    """``chip_smoke.py --lockcheck-child OUT [--device cpu]``: run
+    ``lockcheck_leg`` and write its result to OUT as JSON."""
+    global DEVICE, LOG_PREFIX
+    out = argv[0]
+    if "--device" in argv:
+        DEVICE = argv[argv.index("--device") + 1]
+    LOG_PREFIX = "[lockcheck] "
+    card = card_line() if _on_card() else f"{DEVICE} (no card)"
+    res = lockcheck_leg(card)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 1 if res["lock_order_errors"] else 0
+
+
+def _static_match(name: str, nodes: Set[str]) -> Set[str]:
+    """The static graph's nodes a runtime lock name falls under: itself,
+    or a dynamic family ``prefix*`` it extends."""
+    return {n for n in nodes if n == name
+            or (n.endswith("*") and name.startswith(n[:-1]))}
+
+
+def lockcheck_unseen(runtime: Dict[str, List[str]],
+                     static: Dict[str, Set[str]]) -> List[tuple]:
+    """The runtime held-before edges the static lock graph lacks: the
+    orders the AST cannot see (callbacks, calls across modules)."""
+    nodes = set(static) | {b for tos in static.values() for b in tos}
+    unseen = []
+    for a, tos in sorted(runtime.items()):
+        for b in tos:
+            if not any(bb in static.get(aa, ())
+                       for aa in _static_match(a, nodes)
+                       for bb in _static_match(b, nodes)):
+                unseen.append((a, b))
+    return unseen
+
+
+def phase_lockcheck(card: str) -> Dict[str, object]:
+    """The lockcheck leg: ``lockcheck_leg`` in a child process started with
+    ``REFLOW_LOCKCHECK=1``; fails unless the child exits 0, no acquisition
+    raised ``LockOrderError``, and the monitor saw an edge of every family
+    in ``LOCKCHECK_FAMILIES``. Prints the edges, the ones the static lock
+    graph lacks, ``cycles_checked`` and the seconds."""
+    from reflow_tpu_torch.analysis import Corpus
+    from reflow_tpu_torch.analysis.locks import static_lock_edges
+
+    tmp = tempfile.mkdtemp()
+    try:
+        out = os.path.join(tmp, "lockcheck.json")
+        env = dict(os.environ)
+        env["REFLOW_LOCKCHECK"] = "1"
+        log("[lockcheck] phases 13-15's k-NN paths (config 4 at full width, "
+            "the preload cut to 2 chunks), the tier's PageRank and word-count "
+            "tenants, in a child process with REFLOW_LOCKCHECK=1")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--lockcheck-child",
+             out], env=env, timeout=LOCKCHECK_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        res = json.load(open(out)) if os.path.exists(out) else None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0 or res is None or res["lock_order_errors"]:
+        raise AssertionError(
+            f"the lockcheck child exited {proc.returncode}; lock-order "
+            f"errors: {res and res['lock_order_errors']}")
+    edges = res["edges"]
+    missing = [fam for fam in LOCKCHECK_FAMILIES
+               if not any(a.startswith(fam) or any(b.startswith(fam)
+                                                   for b in tos)
+                          for a, tos in edges.items())]
+    if missing:
+        raise AssertionError(f"no monitored edge involves a {missing} lock: "
+                             f"{edges}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    unseen = lockcheck_unseen(edges, static_lock_edges(Corpus(root)))
+    n = sum(len(tos) for tos in edges.values())
+    log(f"[lockcheck] held-before edges the monitor recorded ({n}): "
+        + "; ".join(f"{a} -> {', '.join(tos)}" for a, tos in edges.items()))
+    log(f"[lockcheck] of them not in the static lock graph ({len(unseen)}): "
+        + "; ".join(f"{a} -> {b}" for a, b in unseen))
+    log(f"[lockcheck] no LockOrderError; cycles_checked "
+        f"{res['cycles_checked']}; the leg {res['seconds']:.1f} s in the "
+        f"child, {secs:.1f} s with its start; (topk, topk_merge) launches "
+        f"{res['launches']} [{card}]")
+    res["unseen"] = unseen
+    return res
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--lockcheck-child"]:
+        return lockcheck_child(sys.argv[2:])
     t_start = time.perf_counter()
     spent: Dict[str, float] = {}
 
@@ -5167,6 +5406,7 @@ def main() -> int:
     replica = timed(phase_replication, card)
     tier = timed(phase_tier, card)
     fleet = timed(phase_fleet, card)
+    lockcheck = timed(phase_lockcheck, card)
     log(f"[tier] ship lag, ms from the ack to the follower's horizon "
         f"(insert ticks, median): over TCP {tier['lag_ms']:.3f} (phase 15),"
         f" in process {replica['lag_ms_r0']:.3f} (phase 14, r0) [{card}]")
@@ -5182,7 +5422,8 @@ def main() -> int:
                    "tier": tier["tier"][i],
                    "tier_replica": tier["tier_replica"][i],
                    "subs_leader": fleet["subs_leader"][i],
-                   "subs_replica": fleet["subs_replica"][i]}
+                   "subs_replica": fleet["subs_replica"][i],
+                   "lockcheck": lockcheck["launches"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)

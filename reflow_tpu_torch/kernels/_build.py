@@ -16,9 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict
+
+from reflow_tpu_torch.utils.runtime import named_lock
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "nvcc"]
 
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = named_lock("kernels.build")
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

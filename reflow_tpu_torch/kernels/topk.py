@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from reflow_tpu_torch.utils.runtime import named_lock
+
 __all__ = ["topk", "topk_plain", "topk_merge", "topk_merge_plain",
            "chunked_corpus_topk", "score_form", "scores", "NEG",
            "INT8_EMBED_SCALE", "TOPK_LAUNCHES", "TOPK_MERGE_LAUNCHES",
@@ -51,7 +53,7 @@ TOPK_MERGE_LAUNCHES = 0
 LAUNCHES_BY_THREAD: Dict[int, List[int]] = {}
 
 
-_TALLY_LOCK = threading.Lock()
+_TALLY_LOCK = named_lock("kernels.topk.tally")
 
 
 def _tally(entry: int) -> None:

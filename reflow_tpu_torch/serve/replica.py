@@ -457,6 +457,7 @@ class ReplicaScheduler:
             with open(tmp, "wb") as f:
                 pickle.dump(meta, f)
                 f.flush()
+                # reflow-lint: waive lock-blocking-call -- checkpoint-meta fsync on the replica's own apply thread; readers never park on this lock mid-read (horizon snapshot is taken before)
                 os.fsync(f.fileno())
             os.replace(tmp, meta_path)
             self._persist_cursor()

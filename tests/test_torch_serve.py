@@ -21,8 +21,11 @@ from reflow_tpu.executors.tpu import TpuExecutor
 from reflow_tpu.serve import IngestFrontend as JIngestFrontend
 from reflow_tpu.workloads import knn as jknn
 from reflow_tpu_torch.executors.device_delta import to_device
-from reflow_tpu_torch.serve import APPLIED, DEDUPED
+from reflow_tpu_torch.serve import (APPLIED, DEDUPED, FrontendClosed,
+                                    PumpCrashed)
+from reflow_tpu_torch.utils.faults import CrashInjector, CrashPoint
 from reflow_tpu_torch.workloads import knn as pknn
+from reflow_tpu_torch.workloads import wordcount as pwc
 
 Q, D, DIM, K = 16, 512, 32, 4
 
@@ -151,3 +154,110 @@ def test_streaming_ticks_make_no_readback_but_the_branch():
     assert sched.executor.host_syncs == len(res)
     assert torch.count_nonzero(
         sched.executor.states[sched.graph.nodes[-1].id]["em_has"]) == Q
+
+
+# -- the frontend's crash seams (counterparts of tests/test_serve.py) -------
+
+WC_WINDOW = P.serve.CoalesceWindow(max_rows=256, max_ticks=8,
+                                   max_latency_s=0.002)
+
+
+def _wc(kind):
+    """Word-count on the port's oracle (string keys) or on its ``cuda``
+    executor at ``device="cpu"`` (words interned to integer keys)."""
+    if kind == "oracle":
+        g, src, sink = pwc.build_graph()
+        return g, src, sink, P.CpuExecutor(), None
+    g, src, sink = pwc.build_graph(key_space=64)
+    return g, src, sink, P.get_executor("cuda", device="cpu"), {}
+
+
+def _lines(vocab, *words):
+    return pwc.ingest_lines([" ".join(words)], vocab=vocab)
+
+
+def _view(sched, sink, vocab):
+    """The sink's view with words for keys on either executor."""
+    names = {i: w for w, i in (vocab or {}).items()}
+    return {(names.get(k, k), float(v)): w
+            for (k, v), w in sched.view(sink.name).items() if w}
+
+
+@pytest.mark.parametrize("kind", ["oracle", "cuda"])
+def test_producer_admitted_crash_batch_survives_and_resend_dedups(kind):
+    """producer_admitted fires after the batch is queued and its id
+    noted: the producer dies, the pump still applies the batch, and the
+    upstream's resend dedups."""
+    g, src, sink, ex, vocab = _wc(kind)
+    sched = P.DirtyScheduler(g, ex)
+    crash = CrashInjector(1, only="producer_admitted")
+    fe = P.IngestFrontend(sched, crash=crash, window=WC_WINDOW)
+    with pytest.raises(CrashPoint):
+        fe.submit(src, _lines(vocab, "a"), batch_id="k0")
+    assert crash.fired and crash.fired_seam == "producer_admitted"
+    r = fe.submit(src, _lines(vocab, "a"), batch_id="k0").result(timeout=5)
+    assert r.status == DEDUPED
+    fe.flush()
+    fe.close()
+    assert _view(sched, sink, vocab) == {("a", 1.0): 1}
+
+
+@pytest.mark.parametrize("kind", ["oracle", "cuda"])
+def test_pump_coalesce_crash_fails_window_tickets(kind):
+    """pump_coalesce cuts between the host-side merge and everything
+    durable or device-side: the drained window's tickets fail
+    ``PumpCrashed`` and nothing was pushed."""
+    g, src, _sink, ex, vocab = _wc(kind)
+    sched = P.DirtyScheduler(g, ex)
+    crash = CrashInjector(1, only="pump_coalesce")
+    fe = P.IngestFrontend(sched, crash=crash, window=WC_WINDOW)
+    t = fe.submit(src, _lines(vocab, "a"))
+    with pytest.raises(PumpCrashed):
+        t.result(timeout=5)
+    assert crash.fired and crash.fired_seam == "pump_coalesce"
+    assert isinstance(fe.pump_error, CrashPoint)
+    assert sched._tick == 0
+    fe.close()
+
+
+@pytest.mark.parametrize("kind", ["oracle", "cuda"])
+def test_durable_pump_crash_then_recover_exactly_once(kind, tmp_path):
+    """Kill the pump after its third tick on a durable scheduler, recover
+    a fresh one, resend everything: the batches the first run applied
+    dedup, and the views equal a clean run's."""
+    g, src, sink, ex, vocab = _wc(kind)
+    batches = [(f"b{i}", _lines(vocab, f"w{i % 3}", "c"))
+               for i in range(12)]
+    wal = str(tmp_path / "wal")
+    sched = P.DurableScheduler(g, ex, wal_dir=wal)
+    crash = CrashInjector(3, only="pump_after_tick")
+    fe = P.IngestFrontend(sched, crash=crash, window=P.serve.CoalesceWindow(
+        max_rows=4, max_ticks=2, max_latency_s=0.001))
+    outcomes = {}
+    for bid, b in batches:
+        try:
+            outcomes[bid] = fe.submit(src, b, batch_id=bid).result(timeout=5)
+        except (PumpCrashed, FrontendClosed):
+            break
+    assert crash.fired
+    fe.close()
+
+    g2, src2, sink2, ex2, _ = _wc(kind)
+    fresh = P.DurableScheduler(g2, ex2, wal_dir=wal)
+    report = P.recover(fresh, wal)
+    fe2 = P.IngestFrontend(fresh, window=WC_WINDOW)
+    statuses = {bid: fe2.submit(src2, b, batch_id=bid).result(timeout=5)
+                for bid, b in batches}
+    fe2.flush()
+    fe2.close()
+    for bid, r in outcomes.items():
+        if r.applied:
+            assert statuses[bid].status == DEDUPED, bid
+
+    g3, src3, sink3, ex3, _ = _wc(kind)
+    clean = P.DirtyScheduler(g3, ex3)
+    for bid, b in batches:
+        clean.push(src3, b, batch_id=bid)
+        clean.tick()
+    assert _view(fresh, sink2, vocab) == _view(clean, sink3, vocab)
+    assert report.wal_records > 0

@@ -18,7 +18,9 @@ Phases, each printing its own lines:
    ``torch.profiler`` trace) and CUDA-event times of each entry, warm
    (back to back, input in L2) and cold (L2 flushed by a 64 MB write
    between calls, the flush left out of both), beside the plain
-   version's and the one-call library yardstick's.
+   version's and the one-call library yardstick's. The cases include
+   the sharded k-NN's shapes (phase 18): the ring merge's [256, 32] and
+   an incremental tick's [256, 16 + 8192]; the first is timed too.
 4. **Serving slice at full width** — the k-NN re-index workload
    (BASELINE.md config 4: 256 queries, a 2^20-id corpus of 768-dim int8
    embeddings, k = 16, scan chunk 8192) served through
@@ -288,9 +290,32 @@ Phases, each printing its own lines:
    ``cycles_checked``, the seconds, the child's top-k launches (its own
    paths', the twins' left out: ``lockcheck`` in ``launches_by_path``).
 
+18. **The mesh** — ``reflow_tpu_torch.parallel`` on a mesh of
+   ``MESH_SHARDS`` = 4 shards, every one on the card (no shard on the
+   CPU). Leg A: config 4 at full width through ``IngestFrontend`` at
+   depth 2 over ``ShardedCudaExecutor`` (the corpus row-sharded, the
+   queries and the emitted table on every shard), the queries, the
+   15 × 65,536-doc preload, 5 inserts, a retraction and a query update,
+   each batch also fed to a single-device twin; after every tick the
+   two tables must be equal bit for bit (else within config 4's limits,
+   which the line then says), the final table is checked against brute
+   force, and each tick's launches must be the sharded callers': a
+   rescan 4 × 32 ``topk_merge`` (each shard's scan) and 4 × 3 ``topk``
+   (the ring merge on [256, 32]), an incremental tick 4 ``topk`` (each
+   shard's [256, 16 + 8192]); ``mesh_knn`` in ``launches_by_path``.
+   Leg B: config 3 (100k nodes, 1M edges) on the mesh's fused loop, 3
+   churn ticks, then ``defer_passes=2`` and a drain, each beside a
+   single-device twin: the ranks within 1e-3 relative of the float64
+   reference and of the twin; passes and readbacks a tick. Leg C:
+   ``dryrun_multichip(8)``; TF-IDF at config 2's widths on
+   ``StagedCudaExecutor`` (two stages) equal to a twin's tables; one
+   sharded ``tick_many`` window equal to its per-tick twin. Printed:
+   each leg's tick ms beside its twin's, the collectives by kind (calls,
+   MB), the launches a tick. Legs B and C launch no top-k kernel.
+
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
-them, must stay 0. Phases 13-16 zero them again and count their own
-paths' launches apart from their twins'; phase 17 counts them in its
+them, must stay 0. Phases 13-16 and 18 zero them again and count their
+own paths' launches apart from their twins'; phase 17 counts them in its
 child.
 
 The last lines are the kernels' JSON record, the card line, and
@@ -551,6 +576,11 @@ def topk_cases(device, seed: int = 0) -> List[tuple]:
         ("partly NEG 32x513 k16", partly, 16),
         ("ties 64x2000 k32", ties, 32),
         ("ragged multi-tile 8x20001 k16", randn(8, 20001), 16),
+        # the sharded k-NN's shapes: the ring merge's [Q, 2k], and an
+        # incremental tick's [Q, k + Cd] (Cd the gathered delta docs)
+        ("mesh ring merge 256x32 k16", randn(256, 32), 16),
+        (f"mesh incremental 256x{16 + FULL['per_tick']} k16",
+         randn(256, 16 + FULL["per_tick"]), 16),
     ]
 
 
@@ -642,6 +672,16 @@ def phase_kernels(device) -> List[Dict[str, object]]:
                                          topk_merge_plain(*args)))
         log(f"[kernels] topk_merge {label}: kernel == plain (values and "
             f"ids exact)")
+
+    # the ring merge's shape, timed warm beside its plain version
+    ring = torch.randn((MAIN_Q, 2 * MAIN_K), device=device)
+    ring_dev = device_ms(lambda: topk(ring, MAIN_K), iters=50)
+    ring_plain = device_ms(lambda: topk_plain(ring, MAIN_K), iters=50)
+    ring_ev = time_ms(lambda: topk(ring, MAIN_K), 100)
+    log(f"[kernels] topk mesh ring-merge shape [{MAIN_Q}, {2 * MAIN_K}] "
+        f"k{MAIN_K}: warm device {ring_dev:.5f} ms, events {ring_ev:.5f} "
+        f"ms; plain device {ring_plain:.5f} ms; bound "
+        f"{_bound(MAIN_Q * 2 * MAIN_K * 4 + MAIN_Q * MAIN_K * 8, MAIN_Q * 2 * MAIN_K)[0]:.5f} ms")
 
     l2 = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
 
@@ -5375,6 +5415,352 @@ def phase_lockcheck(card: str) -> Dict[str, object]:
     return res
 
 
+# -- phase 18: the single-controller mesh -----------------------------------
+
+#: shards of the mesh legs (all on cuda:0 with one card)
+MESH_SHARDS = 4
+#: leg A: config 4 at full width, the preload and traffic of phase 4
+MESH_KNN = FULL
+#: leg B: config 3 at full width; churn ticks a run (fused, then deferred)
+MESH_PR = dict(PAGERANK, churn_ticks=3)
+#: leg C: TF-IDF at config 2's widths on two stages: the initial load of
+#: half the docs, then edit ticks of 8 docs
+MESH_TFIDF = dict(TFIDF, edit_ticks=8, per_tick=8)
+#: leg C: one sharded window of K ticks of the window-parity graph
+MESH_WINDOW = dict(WINDOW_PARITY, k=4)
+
+
+def _mesh():
+    from reflow_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(MESH_SHARDS, device=DEVICE)
+    if _on_card() and any(d.type != "cuda" for d in mesh.device_list):
+        raise AssertionError(f"a mesh shard is off the card: {mesh}")
+    return mesh
+
+
+def _mesh_want(kind: str, chunks: int, n: int) -> tuple:
+    """(topk, topk_merge) launches of one sharded k-NN tick: a rescan
+    scans every shard's corpus slice (``chunks / n`` merges each) and
+    ring-merges (``n - 1`` top-k each); an incremental tick runs one
+    top-k a shard."""
+    if not _on_card():
+        return (0, 0)
+    rescan = kind in ("retract", "query update", "query insert")
+    return (n * (n - 1), chunks) if rescan else (n, 0)
+
+
+def _tally_lines(tally: Dict, card: str) -> List[str]:
+    return [f"{kind} over {'x'.join(axis) or 'host'}: {calls} calls, "
+            f"{nbytes / 1e6:.3f} MB" for (kind, axis), (calls, nbytes)
+            in sorted(tally.items())]
+
+
+def mesh_knn(card: str, cfg: Dict[str, int] = MESH_KNN,
+             seed: int = 18) -> Dict[str, object]:
+    """Leg A: config 4 through ``IngestFrontend`` (depth 2) on a sharded
+    executor of ``MESH_SHARDS`` shards and on a single-device twin, the
+    same feed; the tables compared bit for bit after every tick."""
+    from reflow_tpu_torch.parallel import spmd
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    n = MESH_SHARDS
+    chunks = cfg["D"] // cfg["scan_chunk"]
+    kg_s, kg_t = _knn_graph(cfg), _knn_graph(cfg)
+    ex = ShardedCudaExecutor(_mesh())
+    sched_s = DirtyScheduler(kg_s.graph, ex)
+    sched_t = DirtyScheduler(kg_t.graph, _executor())
+    fe_s, fe_t = _knn_frontend(sched_s, cfg), _knn_frontend(sched_t, cfg)
+    feed = _knn_feed(cfg, seed)
+    ticks: List[Dict[str, object]] = []
+    launches = [0, 0]
+    spmd.reset_collective_tally()
+    # the main path's counts: zeroed here, read after the last mesh tick
+    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+    try:
+        for bid, src, batch, kind in feed:
+            rec: Dict[str, object] = {"kind": kind}
+            for tag, fe, kg in (("mesh", fe_s, kg_s), ("twin", fe_t, kg_t)):
+                l0 = _launches()
+                s0 = fe.sched.forced_syncs
+                t0 = time.perf_counter()
+                tk = fe.submit(kg.queries if src == "q" else kg.docs, batch,
+                               batch_id=bid)
+                fe.flush()
+                res = tk.result(timeout=600)
+                _sync()
+                rec[tag + "_ms"] = (time.perf_counter() - t0) * 1e3
+                if res.status != APPLIED:
+                    raise AssertionError(f"{tag} {kind} ticket {res.status}")
+                rec[tag + "_launches"] = _since(l0)
+                rec[tag + "_syncs"] = fe.sched.forced_syncs - s0
+            got = rec["mesh_launches"]
+            launches[0] += got[0]
+            launches[1] += got[1]
+            if got != _mesh_want(kind, chunks, n):
+                raise AssertionError(
+                    f"mesh {kind} tick launched (topk, topk_merge) {got}, "
+                    f"expected {_mesh_want(kind, chunks, n)}")
+            if rec["twin_launches"] != _want_launches(kind, chunks):
+                raise AssertionError(f"twin {kind} tick launched "
+                                     f"{rec['twin_launches']}")
+            rec["diff"] = _table_diff(sched_s.read_table(kg_s.index),
+                                      sched_t.read_table(kg_t.index))
+            ticks.append(rec)
+        fe_s.flush()
+        fe_t.flush()
+    finally:
+        fe_s.close()
+        fe_t.close()
+    tally = spmd.collective_tally()
+    # every batch is a host batch: each tick is one window staged through
+    # the sharded ingress queue (its capacity split over the shards)
+    wins = {tag: (sc.megatick_windows, sc.megatick_fallbacks,
+                  fe.windows_staged, fe.windows_pipelined)
+            for tag, sc, fe in (("mesh", sched_s, fe_s),
+                                ("twin", sched_t, fe_t))}
+    if wins["mesh"][:3] != (len(feed), 0, len(feed)):
+        raise AssertionError(f"mesh windows (windows, fallbacks, staged, "
+                             f"pipelined) {wins['mesh']} over {len(feed)} "
+                             f"host ticks")
+    queues = [q for key, q in ex._window_cache.items()
+              if key[0] == "ingress_q"]
+    log(f"[mesh] knn window path (windows, fallbacks, staged, pipelined): "
+        f"mesh {wins['mesh']}, twin {wins['twin']}; the mesh's "
+        f"{len(queues)} ingress queues hold {sum(q.nbytes for q in queues)}"
+        f" B on the card in {MESH_SHARDS} shard buffers a source")
+    Q, k = cfg["Q"], cfg["k"]
+    table_s = sched_s.read_table(kg_s.index)
+    table_t = sched_t.read_table(kg_t.index)
+    bit_equal = all(not r["diff"] for r in ticks)
+    held = "bit for bit at every tick"
+    if not bit_equal:
+        # a shard's GEMM shapes may pick another cuBLAS kernel: then the
+        # twin's own limits (config 4's) hold instead
+        recall, diff = knn_vs_brute_force(sched_t.executor.states[
+            kg_t.index.id], table_s, Q, k)
+        if recall < BRUTE_RECALL or diff > BRUTE_SCORE_DIFF:
+            raise AssertionError(
+                f"mesh table vs twin: queries differ at ticks "
+                f"{[(i, r['diff'][:4]) for i, r in enumerate(ticks) if r['diff']]}"
+                f"; recall {recall:.4f}, score diff {diff:.3g}")
+        held = (f"within config 4's limits (recall {recall:.6f}, score "
+                f"max_abs_diff {diff:.3g}); ticks differing bit-wise "
+                f"{[i for i, r in enumerate(ticks) if r['diff']]}")
+    st = {key: ex.states[kg_s.index.id][key]
+          for key in ("qvec", "dvec", "dlive")}
+    recall, score_diff = check_brute_force("mesh k-NN table", st, table_s,
+                                           Q, k)
+    del st
+    if _table_diff(table_s, table_t) and bit_equal:
+        raise AssertionError("mesh table drifted from the twin at the end")
+    by_kind: Dict[str, List[tuple]] = {}
+    for r in ticks:
+        by_kind.setdefault(r["kind"], []).append((r["mesh_ms"], r["twin_ms"]))
+    for kind, ms in by_kind.items():
+        mesh_med = _median([a for a, _ in ms])
+        twin_med = _median([b for _, b in ms])
+        log(f"[mesh] knn {kind} tick ({len(ms)}): mesh[{n}] median "
+            f"{mesh_med:.3f} ms, single-device twin {twin_med:.3f} ms "
+            f"({mesh_med / twin_med:.2f}x) [{card}]")
+    log(f"[mesh] knn (topk, topk_merge) launches a tick, mesh: "
+        f"{[r['mesh_launches'] for r in ticks]}; twin: "
+        f"{[r['twin_launches'] for r in ticks]}; mesh totals {launches}")
+    log(f"[mesh] knn forced syncs a tick, mesh {[r['mesh_syncs'] for r in ticks]}"
+        f", twin {[r['twin_syncs'] for r in ticks]}")
+    log(f"[mesh] knn table vs the single-device twin: {held}; vs brute "
+        f"force: recall {recall:.6f}, score max_abs_diff {score_diff:.6g} "
+        f"[{card}]")
+    for line in _tally_lines(tally, card):
+        log(f"[mesh] knn collectives: {line} [{card}]")
+    return {"launches": launches, "ticks": ticks, "tally": tally,
+            "bit_equal": bit_equal, "recall": recall}
+
+
+def _mesh_pagerank(card: str, cfg: Dict[str, object], defer=None
+                   ) -> Dict[str, object]:
+    """Config 3 on the mesh beside a single-device twin: the initial tick
+    and ``churn_ticks`` churn ticks (``defer``: streamed, then drained)."""
+    from reflow_tpu_torch.parallel import spmd
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    n_nodes, e, churn = cfg["n_nodes"], cfg["n_edges"], cfg["churn"]
+    head = 8 * bucket_capacity(2 * int(churn * e) + 2)
+
+    def graph(arena):
+        return (pagerank.build_graph(n_nodes, tol=cfg["tol"],
+                                     arena_capacity=arena,
+                                     defer_passes=defer),
+                pagerank.WebGraph.random(n_nodes, e, seed=cfg["seed"]))
+
+    # the sharded executor's static check holds one tick's whole delta
+    # against ONE shard's arena slice (worst-case skew), so each shard's
+    # slice is bench.py's arena; the twin keeps bench.py's arena
+    pg, web = graph(MESH_SHARDS * (bucket_capacity(e) + head))
+    ex = ShardedCudaExecutor(_mesh())
+    sched = DirtyScheduler(pg.graph, ex)
+    pg_t, web_t = graph(bucket_capacity(e) + head)
+    ex_t = _executor()
+    twin = DirtyScheduler(pg_t.graph, ex_t)
+    spmd.reset_collective_tally()
+    rows: List[Dict[str, object]] = []
+    for t in range(1 + cfg["churn_ticks"]):
+        for tag, s, g, w, e in (("mesh", sched, pg, web, ex),
+                                ("twin", twin, pg_t, web_t, ex_t)):
+            if t == 0:
+                s.push(g.teleport, pagerank.teleport_batch(n_nodes))
+                s.push(g.edges, w.initial_batch())
+            else:
+                s.push(g.edges, w.churn(churn))
+            r0, h0 = e.loop_reads, e.host_syncs
+            t0 = time.perf_counter()
+            res = s.tick(sync=defer is None)
+            _sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if tag == "mesh":
+                rows.append({"ms": ms, "passes": res.passes,
+                             "reads": e.loop_reads - r0 + e.host_syncs - h0})
+            else:
+                rows[-1].update(twin_ms=ms, twin_passes=res.passes,
+                                twin_reads=e.loop_reads - r0
+                                + e.host_syncs - h0)
+    if not isinstance(ex._fx_program, LinearFixpointProgram):
+        raise AssertionError("the mesh leg did not run the fused loop")
+    drain = None
+    if defer is not None:
+        probe = 2 * int(churn * cfg["n_edges"])
+        drain = sched.drain(pg.edges, probe_rows=probe)
+        twin.drain(pg_t.edges, probe_rows=probe)
+    err = rank_error(sched, pg, web, n_nodes)
+    err_t = rank_error(twin, pg_t, web_t, n_nodes)
+    a = pagerank.ranks_to_array(sched.read_table(pg.new_rank), n_nodes)
+    b = pagerank.ranks_to_array(twin.read_table(pg_t.new_rank), n_nodes)
+    vs_twin = float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
+    tag = "fused" if defer is None else f"defer_passes={defer}"
+    log(f"[mesh] pagerank {tag} mesh[{MESH_SHARDS}]: tick ms "
+        f"{[round(r['ms'], 3) for r in rows]}, twin "
+        f"{[round(r['twin_ms'], 3) for r in rows]}; passes "
+        f"{[r['passes'] for r in rows]}, twin "
+        f"{[r['twin_passes'] for r in rows]}; readbacks a tick "
+        f"{[r['reads'] for r in rows]}, twin "
+        f"{[r['twin_reads'] for r in rows]}"
+        + (f"; drain {drain} ticks" if drain is not None else "")
+        + f" [{card}]")
+    log(f"[mesh] pagerank {tag}: max|rank - ref| / max(ref, 1) mesh "
+        f"{err['rel_err']:.6g}, twin {err_t['rel_err']:.6g}; mesh vs twin "
+        f"{vs_twin:.6g} (bound {PAGERANK_MAX_REL_ERR:g}); CSR rebuilds "
+        f"{dict(ex.csr_rebuilds)} (per shard) [{card}]")
+    for line in _tally_lines(spmd.collective_tally(), card):
+        log(f"[mesh] pagerank {tag} collectives: {line} [{card}]")
+    if max(err["rel_err"], vs_twin) > PAGERANK_MAX_REL_ERR:
+        raise AssertionError(f"mesh pagerank {tag}: rel err {err['rel_err']:.3g}"
+                             f", vs twin {vs_twin:.3g}")
+    return {"rows": rows, "rel_err": err["rel_err"], "vs_twin": vs_twin}
+
+
+def mesh_misc(card: str) -> Dict[str, object]:
+    """Leg C: ``dryrun_multichip(8)``; TF-IDF on two stages beside a
+    single-device twin; one sharded ``tick_many`` window beside its
+    per-tick twin."""
+    from reflow_tpu_torch.parallel import dryrun_multichip
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+    from reflow_tpu_torch.parallel.topo import StagedCudaExecutor
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(8, device=DEVICE)
+    log(f"[mesh] dryrun_multichip(8): ranks within {dry['rel_err']:.6g} "
+        f"(deferred {dry['rel_err_deferred']:.6g}) of the reference, bound "
+        f"5e-4; passes {dry['passes']}; {time.perf_counter() - t0:.3f} s "
+        f"[{card}]")
+
+    cfg = MESH_TFIDF
+    rng = np.random.default_rng(cfg["seed"])
+    words = np.array([f"t{i}" for i in range(cfg["vocab"])])
+    corpus = tfidf.Corpus(cfg["n_pairs"], cfg["n_terms"])
+    staged = StagedCudaExecutor(device=DEVICE)
+    tg = tfidf.build_graph(cfg["n_pairs"], cfg["n_terms"], cfg["docs"])
+    for node in tg.graph.nodes:
+        if node.kind == "op":
+            node.stage = 0 if node.name in ("ones", "tf", "term_of",
+                                            "pair_presence") else 1
+    sched = DirtyScheduler(tg.graph, staged)
+    tg2 = tfidf.build_graph(cfg["n_pairs"], cfg["n_terms"], cfg["docs"])
+    twin = DirtyScheduler(tg2.graph, _executor())
+
+    def text():
+        return " ".join(rng.choice(words, size=rng.integers(20, 60)))
+
+    feeds = [DeltaBatch.concat([corpus.edit(d, text())
+                                for d in range(cfg["docs"] // 2)])]
+    feeds += [DeltaBatch.concat([corpus.edit(int(rng.integers(
+        0, cfg["docs"])), text()) for _ in range(cfg["per_tick"])])
+        for _ in range(cfg["edit_ticks"])]
+    ms_s, ms_t = [], []
+    for b in feeds:
+        for s, g, acc in ((sched, tg, ms_s), (twin, tg2, ms_t)):
+            t0 = time.perf_counter()
+            s.push(g.tokens, b)
+            s.tick()
+            _sync()
+            acc.append((time.perf_counter() - t0) * 1e3)
+    for name in ("tf", "df", "ndocs"):
+        a = sched.read_table(getattr(tg, name))
+        b = twin.read_table(getattr(tg2, name))
+        if set(a) != set(b) or any(float(np.asarray(a[k]).reshape(()))
+                                   != float(np.asarray(b[k]).reshape(()))
+                                   for k in a):
+            raise AssertionError(f"staged tfidf {name} != the twin's")
+    log(f"[mesh] staged tfidf (stages 0/1 on {sorted(set(map(str, staged.stage_devices.values())))}"
+        f"): load {ms_s[0]:.3f} ms (twin {ms_t[0]:.3f}), edit ticks median "
+        f"{_median(ms_s[1:]):.3f} ms (twin {_median(ms_t[1:]):.3f}); tf, df, "
+        f"ndocs equal the twin's exactly [{card}]")
+
+    w = MESH_WINDOW
+    KS, R, K = w["key_space"], w["rows"], w["k"]
+    rng = np.random.default_rng(w["seed"])
+    batches = [DeltaBatch(rng.integers(0, KS, R).astype(np.int64),
+                          rng.integers(0, 8, R).astype(np.float32),
+                          np.ones(R, np.int64)) for _ in range(K)]
+    g, s, r = _fuzz_graph(KS)
+    msched = DirtyScheduler(g, ShardedCudaExecutor(_mesh()))
+    t0 = time.perf_counter()
+    msched.tick_many([{s: b} for b in batches]).block()
+    _sync()
+    win_ms = (time.perf_counter() - t0) * 1e3
+    g2, s2, r2 = _fuzz_graph(KS)
+    tsched = DirtyScheduler(g2, _executor())
+    t0 = time.perf_counter()
+    for b in batches:
+        tsched.push(s2, b)
+        tsched.tick()
+    _sync()
+    tick_ms = (time.perf_counter() - t0) * 1e3
+    if (msched.megatick_windows != 1 or msched.megatick_fallbacks
+            or not np.array_equal(_table_array(msched, r, KS),
+                                  _table_array(tsched, r2, KS),
+                                  equal_nan=True)):
+        raise AssertionError("the sharded window != its per-tick twin")
+    log(f"[mesh] sharded window: {K} ticks of {R} rows in one tick_many on "
+        f"mesh[{MESH_SHARDS}] {win_ms:.3f} ms, the single-device per-tick "
+        f"twin {tick_ms:.3f} ms; tables equal exactly [{card}]")
+    return {"dryrun": dry, "window_ms": win_ms}
+
+
+def phase_mesh(card: str) -> Dict[str, object]:
+    """Phase 18: leg A (k-NN), leg B (PageRank, fused and deferred), leg
+    C (the dry run, the staged executor, a sharded window)."""
+    knn_out = mesh_knn(card)
+    # legs B and C launch no top-k kernel
+    l0 = _launches()
+    pr = _mesh_pagerank(card, MESH_PR)
+    prd = _mesh_pagerank(card, MESH_PR, defer=2)
+    misc = mesh_misc(card)
+    if _since(l0) != (0, 0):
+        raise AssertionError("mesh legs B and C launched a top-k kernel")
+    return {"launches": knn_out["launches"], "knn": knn_out, "pagerank": pr,
+            "deferred": prd, "misc": misc}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--lockcheck-child"]:
         return lockcheck_child(sys.argv[2:])
@@ -5407,6 +5793,7 @@ def main() -> int:
     tier = timed(phase_tier, card)
     fleet = timed(phase_fleet, card)
     lockcheck = timed(phase_lockcheck, card)
+    mesh = timed(phase_mesh, card)
     log(f"[tier] ship lag, ms from the ack to the follower's horizon "
         f"(insert ticks, median): over TCP {tier['lag_ms']:.3f} (phase 15),"
         f" in process {replica['lag_ms_r0']:.3f} (phase 14, r0) [{card}]")
@@ -5423,7 +5810,8 @@ def main() -> int:
                    "tier_replica": tier["tier_replica"][i],
                    "subs_leader": fleet["subs_leader"][i],
                    "subs_replica": fleet["subs_replica"][i],
-                   "lockcheck": lockcheck["launches"][i]}
+                   "lockcheck": lockcheck["launches"][i],
+                   "mesh_knn": mesh["launches"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)

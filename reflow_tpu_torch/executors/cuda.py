@@ -44,6 +44,14 @@ two-arena multiset form.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do): on the CPU every kernel wrapper takes its plain PyTorch
 version, because the tensors it is given lie on the CPU.
+
+Seams for the mesh executors (``parallel/shard.py``, ``parallel/
+topo.py``): :meth:`_lower` (one node's lowering), :meth:`build_pass_body`
+and :meth:`run_region` (a pass or a fixpoint tick as a body of the SPMD
+runtime, run here on one device with every collective the identity),
+:meth:`_op_states`/:meth:`_set_op_states` (the state container the
+programs thread: this executor's ``states`` dict), and
+:meth:`_ingress_placement` (where ingress queue buffers live).
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from reflow_tpu_torch.executors.lowerings import (LOWERINGS, join_state,
                                                   reduce_state)
 from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
+from reflow_tpu_torch.parallel.spmd import SOLO, run_solo
 from reflow_tpu_torch.utils.config import env_int
 from reflow_tpu_torch.utils.metrics import profile_annotation
 from reflow_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -169,6 +178,9 @@ class CudaExecutor(Executor):
         self.megatick_max_rows = env_int("REFLOW_MEGATICK_MAX_ROWS")
         #: windows dispatched through the device ingress queue
         self.window_dispatches = 0
+        #: Join arenas are split over this many shards (the static
+        #: capacity check is per shard)
+        self._arena_divisor = 1
 
     def fresh(self) -> "CudaExecutor":
         """A new, unbound executor on this one's device, with its loop
@@ -204,6 +216,18 @@ class CudaExecutor(Executor):
     @property
     def device_label(self) -> Optional[str]:
         return str(self.device)
+
+    def _ingress_placement(self):
+        """Where ingress queue buffers live: this executor's device (the
+        sharded executor's is its ``(mesh, axis)``)."""
+        return self.device
+
+    def _op_states(self):
+        """The state container the pass and fixpoint programs thread."""
+        return self.states
+
+    def _set_op_states(self, states) -> None:
+        self.states = states
 
     def _reset_fixpoint(self) -> None:
         self._fx_structure = None
@@ -352,8 +376,8 @@ class CudaExecutor(Executor):
         self._track_arena(plan, {nid: d.capacity
                                  for nid, d in dev_ingress.items()})
         states, egress = self.build_pass_fn(list(plan))(
-            self.states, dev_ingress)
-        self.states = states
+            self._op_states(), dev_ingress)
+        self._set_op_states(states)
         if _trace.ENABLED:
             _trace.evt("device_dispatch", t0, time.perf_counter() - t0,
                        args={"kind": "pass", "device": str(self.device)})
@@ -388,8 +412,8 @@ class CudaExecutor(Executor):
                 list(st.exit_plan),
                 {n.id: 2 * n.inputs[0].spec.key_space for n in st.boundary})
         states, sink_egress, carry, iters, rows, converged = \
-            self._fx_program(self.states, plan, dev_ingress, max_iters)
-        self.states = states
+            self._fx_program(self._op_states(), plan, dev_ingress, max_iters)
+        self._set_op_states(states)
         if _trace.ENABLED:
             _trace.evt("device_dispatch", t0, time.perf_counter() - t0,
                        args={"kind": "fixpoint", "device": str(self.device)})
@@ -534,7 +558,7 @@ class CudaExecutor(Executor):
             self._track_arena(plan, caps)
             queue = DeviceIngressQueue(
                 {nid: self.graph.nodes[nid].spec for nid in node_ids},
-                caps, K, placement=self.device)
+                caps, K, placement=self._ingress_placement())
             self._window_cache[qsig] = queue
 
         t_h0 = time.perf_counter() if _trace.ENABLED else 0.0
@@ -604,14 +628,14 @@ class CudaExecutor(Executor):
                 pass_fn = self._window_cache[sig] = self.build_pass_fn(
                     list(plan))
             self._track_arena(plan, caps)
-            states = dict(self.states)
+            states = self._op_states()
             with profile_annotation(f"reflow.window[{K}]"):
                 for t in range(K):
                     states, egress = pass_fn(states, slot_ingress(stack, t))
                     if egress:
                         raise RuntimeError("loop-free sink-free pass "
                                            "produced egress")
-            self.states = states
+            self._set_op_states(states)
             sw.fresh = stack
             if _trace.ENABLED:
                 _trace.evt("device_dispatch", t_d0,
@@ -631,12 +655,12 @@ class CudaExecutor(Executor):
                 {n.id: 2 * n.inputs[0].spec.key_space for n in st.boundary})
         with profile_annotation(f"reflow.window[{K}]"):
             new_states, (iters, rows, conv), sw.fresh = prog.call_many(
-                dict(self.states), plan, stack, K, sw.max_iters)
+                self._op_states(), plan, stack, K, sw.max_iters)
         if _trace.ENABLED:
             _trace.evt("device_dispatch", t_d0, time.perf_counter() - t_d0,
                        args={"kind": "window", "ticks": K,
                              "device": self.device_label})
-        self.states = new_states
+        self._set_op_states(new_states)
         extra_dirty = set(st.region_ids) | {n.id for n in st.exit_plan}
         passes_base = K * (1 + (1 if st.exit_plan else 0))
         return passes_base, iters, rows, conv, extra_dirty
@@ -647,16 +671,41 @@ class CudaExecutor(Executor):
         tell two histories apart whose counters line up."""
         self._csr_cache.clear()
 
-    def build_pass_fn(self, plan: Sequence[Node]):
+    def _lower(self, ctx, node: Node, state, ins):
+        """One node's lowering as a region body: here on this executor's
+        device with no collective (the sharded executor's keyed lowerings
+        yield theirs)."""
+        return lower_node(node, state, ins, on_sync=self._note_sync)
+        yield  # pragma: no cover - makes this a generator
+
+    def run_region(self, body, op_states, dev_ingress, *args):
+        """Run a program body (a pass, a fixpoint tick) over the state
+        container: here on one device, every collective the identity."""
+        return run_solo(body(SOLO, op_states, dev_ingress, *args))
+
+    def build_pass_fn(self, plan: Sequence[Node], extra_egress=()):
         """The pass over ``plan``: ``(states, ingress) -> (states',
         egress)`` over DeviceDelta inputs. Ingress seeds any node's output
-        (sources/loops); sink inputs and loop back-edges are returned."""
+        (sources/loops); sink inputs and loop back-edges are returned, and
+        the outputs of the ``extra_egress`` node ids (a stage boundary)."""
+        body = self.build_pass_body(plan, extra_egress)
+
+        def pass_fn(states, ingress):
+            return self.run_region(body, states, ingress)
+
+        return pass_fn
+
+    def build_pass_body(self, plan: Sequence[Node], extra_egress=()):
+        """The pass over ``plan`` as a body of the SPMD runtime (one
+        traversal for one device and for every shard of a mesh):
+        ``body(ctx, states, ingress) -> (states', egress)``."""
         graph = self.graph
         sink_inputs = [(s.inputs[0].id, s.id) for s in graph.sinks]
         back_edges = [(l.back_input.id, l.id) for l in graph.loops
                       if l.back_input is not None]
+        extra = tuple(extra_egress)
 
-        def pass_fn(states, ingress):
+        def body(ctx, states, ingress):
             outs: Dict[int, DeviceDelta] = dict(ingress)
             new_states = dict(states)
             for node in plan:
@@ -666,8 +715,8 @@ class CudaExecutor(Executor):
                 ins = [outs.get(i.id) for i in node.inputs]
                 if all(x is None for x in ins):
                     continue
-                out, st = lower_node(node, new_states.get(node.id), ins,
-                                     on_sync=self._note_sync)
+                out, st = yield from self._lower(
+                    ctx, node, new_states.get(node.id), ins)
                 if st is not None:
                     new_states[node.id] = st
                 outs[node.id] = out
@@ -678,9 +727,12 @@ class CudaExecutor(Executor):
             for back_id, loop_id in back_edges:
                 if back_id in outs:
                     egress[loop_id] = outs[back_id]
+            for nid in extra:
+                if nid in outs:
+                    egress[nid] = outs[nid]
             return new_states, egress
 
-        return pass_fn
+        return body
 
     # -- host boundary out -------------------------------------------------
 
@@ -703,6 +755,9 @@ class CudaExecutor(Executor):
             tuple(node.spec.value_shape),
             torch_dtype(node.spec.value_dtype), self.states[node.id], d)
 
+    def _error_reason(self, node: Node) -> str:
+        return _error_reason(node)
+
     def check_errors(self) -> None:
         """Raise if a state's sticky ``error`` flag is set (a Join's arena
         or product budget, a min/max Reduce's buffer), naming the node
@@ -711,26 +766,31 @@ class CudaExecutor(Executor):
                    if "error" in st]
         if not flagged:
             return
-        vals = torch.stack([e for _, e in flagged]).cpu().tolist()
+        vals = torch.stack([e.to(self.device) for _, e in flagged]
+                           ).cpu().tolist()
         for (nid, _), v in zip(flagged, vals):
             if v:
                 node = self.graph.nodes[nid]
-                raise RuntimeError(f"{node}: {_error_reason(node)}")
+                raise RuntimeError(f"{node}: {self._error_reason(node)}")
 
     def _track_arena(self, plan, ingress_caps: Dict[int, int]) -> None:
         """Static per-pass capacity sanity for Join arenas: reject one
         pass's right-delta capacity exceeding the whole arena. The dynamic
         high-water check is the Join lowering's (compact, else the sticky
         error)."""
-        propagate_plan_caps(plan, ingress_caps)
+        propagate_plan_caps(plan, ingress_caps, self._arena_divisor)
+
+    def _node_state(self, nid: int):
+        """One node's state tree as ``read_table`` reads it."""
+        return self.states.get(nid)
 
     def read_table(self, node: Node):
-        st = self.states.get(node.id)
+        st = self._node_state(node.id)
         if st is None:
             raise KeyError(f"{node} holds no materialized state")
         if node.op.kind in ("reduce", "join"):
             if "error" in st and bool(st["error"]):
-                raise RuntimeError(f"{node}: {_error_reason(node)}")
+                raise RuntimeError(f"{node}: {self._error_reason(node)}")
             if "lkeys" in st:
                 raise KeyError(
                     f"{node}: a multiset-left join has no unique left "

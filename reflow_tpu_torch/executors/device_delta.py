@@ -20,7 +20,7 @@ import torch
 from reflow_tpu_torch.delta import DeltaBatch, Spec, host_dtype, torch_dtype
 from reflow_tpu_torch.utils.faults import DeliveryError
 
-__all__ = ["DeviceDelta", "bucket_capacity", "check_weight_mass",
+__all__ = ["DeviceDelta", "ShardedDelta", "bucket_capacity", "check_weight_mass",
            "devices_of", "resolve_device", "to_device", "to_host",
            "MAX_BATCH_WEIGHT_MASS"]
 
@@ -107,6 +107,27 @@ class DeviceDelta(NamedTuple):
             weights=torch.zeros((capacity,), dtype=torch.int32,
                                 device=device),
         )
+
+
+class ShardedDelta(tuple):
+    """A row-sharded delta whose shards live on different devices: one
+    :class:`DeviceDelta` per shard, in rank order (the global batch is
+    their concatenation). On a one-device mesh the port keeps the global
+    batch as one ``DeviceDelta`` instead."""
+
+    @property
+    def capacity(self) -> int:
+        return sum(p.capacity for p in self)
+
+    @property
+    def weights(self) -> torch.Tensor:
+        d0 = self[0].weights.device
+        return torch.cat([p.weights.to(d0) for p in self])
+
+    def nonzero(self) -> torch.Tensor:
+        """Live rows over every shard, a device scalar."""
+        d0 = self[0].weights.device
+        return sum(p.nonzero().to(d0) for p in self)
 
 
 #: per-batch |w| mass bound: the JAX package folds weights through

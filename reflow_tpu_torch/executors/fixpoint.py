@@ -40,6 +40,17 @@ K ticks in one call (the window path): :func:`make_scan_program` runs a
 tick program over the K slots of a ``[K, cap]`` ingress stack in an
 eager loop, where JAX ``lax.scan``s it; both programs take it through
 :class:`_MacroTickMixin.call_many`.
+
+One tick body for one device and for a mesh: a program's tick is a
+generator body of the SPMD runtime (``parallel/spmd.py``) that the
+executor runs through ``run_region``. On one device every collective is
+the identity and the body adds no device work. Under the sharded
+executor the whole tick is ONE region: each shard runs phase A, the
+loop and the exit pass over its slices, its passes' keyed lowerings
+yield their collectives, and the loop's readback of a pass reads every
+shard's live count in one transfer, so every shard takes the same
+branch (a uniform quiescence test: one readback a pass, not one per
+shard).
 """
 
 from __future__ import annotations
@@ -49,12 +60,13 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from reflow_tpu_torch.executors.device_delta import DeviceDelta
+from reflow_tpu_torch.executors.device_delta import DeviceDelta, ShardedDelta
 from reflow_tpu_torch.executors.lowerings import _differs
 from reflow_tpu_torch.graph import FlowGraph, Node
 
 __all__ = ["FixpointProgram", "FixpointStructure", "analyze",
-           "collect_sink_egress", "make_scan_program", "slot_ingress"]
+           "collect_sink_egress", "exit_pass_body", "make_scan_program",
+           "slot_ingress"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +120,9 @@ def analyze(graph: FlowGraph) -> Optional[FixpointStructure]:
 
 
 def _emitted_diff(snap: Tuple[torch.Tensor, torch.Tensor], state: dict,
-                  node: Node) -> DeviceDelta:
-    """Telescoped boundary delta: diff of a Reduce's emitted table.
+                  node: Node, key_offset: int = 0) -> DeviceDelta:
+    """Telescoped boundary delta: diff of a Reduce's emitted table (a
+    shard's slice when ``key_offset``, its first global key, is given).
 
     Unchanged keys keep bit-identical stored values (the lowering writes
     through where-masks), so exact inequality is the right changed-test.
@@ -121,6 +134,8 @@ def _emitted_diff(snap: Tuple[torch.Tensor, torch.Tensor], state: dict,
     ins = has_f & (~has_a | differ)
     K = em_a.shape[0]
     keys = torch.arange(K, dtype=torch.int32, device=em_a.device)
+    if key_offset:
+        keys = keys + key_offset
     return DeviceDelta(
         keys=torch.cat([keys, keys]),
         values=torch.cat([em_a, em_f]),
@@ -136,13 +151,17 @@ def snapshot_boundary(states, boundary: Sequence[Node]) -> dict:
                    states[n.id]["emitted_has"].clone()) for n in boundary}
 
 
-def run_exit_pass(exit_pass, states, snaps: dict, boundary: Sequence[Node]):
-    """Phase C: the exit plan fed each boundary Reduce's table diff."""
-    if exit_pass is None:
+def exit_pass_body(ctx, exit_body, states, snaps: dict,
+                   boundary: Sequence[Node]):
+    """Phase C (a region body): the exit plan fed each boundary Reduce's
+    table diff, global keys on a shard."""
+    if exit_body is None:
         return states, {}
-    diffs = {n.id: _emitted_diff(snaps[n.id], states[n.id], n)
-             for n in boundary}
-    return exit_pass(states, diffs)
+    r = ctx.axis_index()
+    diffs = {n.id: _emitted_diff(
+        snaps[n.id], states[n.id], n,
+        r * states[n.id]["emitted"].shape[0]) for n in boundary}
+    return (yield from exit_body(ctx, states, diffs))
 
 
 def collect_sink_egress(sink_ids: Sequence[int], eg_a: dict,
@@ -159,9 +178,14 @@ def collect_sink_egress(sink_ids: Sequence[int], eg_a: dict,
 def slot_ingress(ing_stack: Dict[int, DeviceDelta], t: int
                  ) -> Dict[int, DeviceDelta]:
     """Tick ``t``'s ingress: a view of slot ``t`` of every source's
-    ``[K, cap]`` stack (no copy)."""
-    return {nid: DeviceDelta(d.keys[t], d.values[t], d.weights[t])
-            for nid, d in ing_stack.items()}
+    ``[K, cap]`` stack (no copy; of every shard's stack for a
+    :class:`ShardedDelta`)."""
+    def slot(d):
+        if isinstance(d, ShardedDelta):
+            return ShardedDelta(slot(p) for p in d)
+        return DeviceDelta(d.keys[t], d.values[t], d.weights[t])
+
+    return {nid: slot(d) for nid, d in ing_stack.items()}
 
 
 def make_scan_program(tick_fn):
@@ -198,7 +222,9 @@ def make_scan_program(tick_fn):
             if sink_eg:
                 raise RuntimeError("macro-tick requires a sink-free graph")
             ys.append((int(iters), int(rows), bool(conv)))
-        dev = next(iter(ing_stack.values())).keys.device
+        first = next(iter(ing_stack.values()))
+        dev = (first[0] if isinstance(first, ShardedDelta)
+               else first).keys.device
         cols = list(zip(*ys)) if ys else [(), (), ()]
         return states, (
             torch.tensor(cols[0], dtype=torch.int32, device=dev),
@@ -237,9 +263,9 @@ class FixpointProgram(_MacroTickMixin):
         self.structure = structure
         self.sink_ids = [s.id for s in graph.sinks]
         self._executor = executor
-        self._body_pass = executor.build_pass_fn(list(structure.loop_plan))
-        self._exit_pass = (executor.build_pass_fn(list(structure.exit_plan))
-                           if structure.exit_plan else None)
+        self._body_pass = executor.build_pass_body(list(structure.loop_plan))
+        self._exit_pass = (executor.build_pass_body(
+            list(structure.exit_plan)) if structure.exit_plan else None)
 
     def __call__(self, op_states, plan: Sequence[Node],
                  dev_ingress: Dict[int, DeviceDelta], max_iters: int):
@@ -247,27 +273,37 @@ class FixpointProgram(_MacroTickMixin):
         iters, loop_rows, converged), all but the tensors host values.
         The carry is the live loop delta a ``max_iters`` halt leaves in
         flight (the scheduler stashes it, so the next tick resumes)."""
+        return self._executor.run_region(self._tick, op_states, dev_ingress,
+                                         list(plan), max_iters)
+
+    def _tick(self, ctx, op_states, dev_ingress, plan, max_iters: int):
+        """One tick on one shard (the whole mesh's state on one device)."""
         ex, st = self._executor, self.structure
-        states, eg_a = ex.build_pass_fn(list(plan))(op_states, dev_ingress)
+        states, eg_a = yield from ex.build_pass_body(plan)(ctx, op_states,
+                                                           dev_ingress)
         carry = {l.id: eg_a[l.id] for l in st.loops if l.id in eg_a}
         snaps = snapshot_boundary(states, st.boundary)
 
         iters = rows = 0
         while True:
-            # the pass's one readback: the carry's live-row count
-            live = (ex.read_scalars(torch.stack(
-                [torch.count_nonzero(d.weights) for d in carry.values()]
-            ).sum().reshape(1))[0] if carry else 0)
+            # the pass's one readback: the carry's live-row count (every
+            # shard's, in one transfer)
+            live = 0
+            if carry:
+                got = yield ctx.host_gather(torch.stack(
+                    [torch.count_nonzero(d.weights) for d in carry.values()]
+                ).sum().reshape(1), ex.read_scalars)
+                live = sum(row[0] for row in got)
             if live == 0 or iters >= max_iters:
                 break
             rows += live
-            states, eg = self._body_pass(states, carry)
+            states, eg = yield from self._body_pass(ctx, states, carry)
             carry = {lid: eg[lid] for lid in carry if lid in eg}
             iters += 1
         converged = live == 0
 
-        states, eg_b = run_exit_pass(self._exit_pass, states, snaps,
-                                     st.boundary)
+        states, eg_b = yield from exit_pass_body(ctx, self._exit_pass,
+                                                 states, snaps, st.boundary)
         sink_egress = collect_sink_egress(self.sink_ids, eg_a, eg_b)
         return (states, sink_egress, {} if converged else carry, iters,
                 rows, converged)

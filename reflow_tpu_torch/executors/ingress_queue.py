@@ -52,9 +52,14 @@ depth-D pump allocates at most D sets.
 
 ``placement`` is the device the buffers live on (a ``torch.device`` or
 its name; None = the current CUDA device, as every entry point of the
-port). The JAX package also takes a ``(mesh, axis)`` pair to shard the
-capacity axis; that is the multi-device step of ROADMAP.md and raises
-``NotImplementedError`` here.
+port), or a ``(mesh, axis)`` pair: the sharded executor's queue splits
+each source's capacity axis over the mesh's shards, as the JAX
+package's sharded queue does. Shard ``j`` then holds rows ``[j*cap/n,
+(j+1)*cap/n)`` of every slot in its own ``[K, cap/n]`` buffer on its
+own device, a slot write copies each shard's rows straight into that
+shard's buffer, and :meth:`stacked` hands the window a
+:class:`~reflow_tpu_torch.executors.device_delta.ShardedDelta` per
+source (the row slices the sharded pass consumes as they are).
 
 ``slot_nbytes`` is the admission-side view of the same reservation: the
 device bytes one host batch will occupy in its queue slot, used by the
@@ -71,6 +76,7 @@ import torch
 
 from reflow_tpu_torch.delta import host_dtype, torch_dtype
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
+                                                     ShardedDelta,
                                                      bucket_capacity,
                                                      check_weight_mass,
                                                      resolve_device)
@@ -110,15 +116,24 @@ class DeviceIngressQueue:
 
     def __init__(self, specs: Dict[int, object], caps: Dict[int, int],
                  k: int, placement=None):
-        if isinstance(placement, tuple):
-            raise NotImplementedError(
-                "a (mesh, axis) placement shards the queue over a device "
-                "mesh; the multi-device executors are not ported yet "
-                "(ROADMAP.md Queue 1 step 10)")
         self.k = int(k)
         self.caps = dict(caps)
         self._specs = dict(specs)
-        self.placement = resolve_device(placement)
+        if isinstance(placement, tuple):
+            mesh, _axis = placement
+            #: one device per shard (the capacity axis is split over them)
+            self.shard_devices = list(mesh.device_list)
+            n = len(self.shard_devices)
+            for nid, cap in self.caps.items():
+                if cap % n:
+                    raise ValueError(
+                        f"node {nid}: queue capacity {cap} is not a "
+                        f"multiple of the mesh size {n}")
+            self.placement = self.shard_devices[0]
+        else:
+            self.placement = resolve_device(placement)
+            self.shard_devices = [self.placement]
+        self._sharded = isinstance(placement, tuple)
         self._cuda = self.placement.type == "cuda"
         self.writes = 0
         self.zero_writes = 0
@@ -137,9 +152,9 @@ class DeviceIngressQueue:
         #: generation -> {nid: (keys, values, weights)} host staging
         #: tensors (pinned on the card)
         self._host: List[Dict[int, tuple]] = []
-        #: generation -> {nid: [rows a slot may hold on the device]}: the
-        #: rows past a new batch's that must be zeroed
-        self._dirty: List[Dict[int, List[int]]] = []
+        #: generation -> {nid: [[rows a slot may hold on the device] per
+        #: shard]}: the rows past a new batch's that must be zeroed
+        self._dirty: List[Dict[int, List[List[int]]]] = []
         #: generation -> the event recorded after its last slot copy (the
         #: host waits on it before refilling the generation's staging)
         self._copied: List[Optional[object]] = []
@@ -149,18 +164,22 @@ class DeviceIngressQueue:
         self._alloc_gen()  # generation 0, eagerly — same memory as before
 
     def _alloc_gen(self) -> int:
-        dev, pin = self.placement, self._cuda
-        bufs: Dict[int, DeviceDelta] = {}
+        pin = self._cuda
+        n = len(self.shard_devices)
+        bufs: Dict[int, List[DeviceDelta]] = {}
         host: Dict[int, tuple] = {}
         for nid, cap in sorted(self.caps.items()):
             spec = self._specs[nid]
             vshape = tuple(spec.value_shape)
             shape, vfull = (self.k, cap), (self.k, cap) + vshape
-            bufs[nid] = DeviceDelta(
-                torch.zeros(shape, dtype=torch.int32, device=dev),
-                torch.zeros(vfull, dtype=torch_dtype(spec.value_dtype),
-                            device=dev),
-                torch.zeros(shape, dtype=torch.int32, device=dev))
+            # one [K, cap/n] buffer per shard, on the shard's device
+            cl = cap // n
+            bufs[nid] = [DeviceDelta(
+                torch.zeros((self.k, cl), dtype=torch.int32, device=dev),
+                torch.zeros((self.k, cl) + vshape,
+                            dtype=torch_dtype(spec.value_dtype), device=dev),
+                torch.zeros((self.k, cl), dtype=torch.int32, device=dev))
+                for dev in self.shard_devices]
             hvals = torch.from_numpy(np.zeros(0, host_dtype(
                 spec.value_dtype))).dtype
             cols = (torch.empty(shape, dtype=torch.int32, pin_memory=pin),
@@ -172,7 +191,8 @@ class DeviceIngressQueue:
         gen = len(self._gens)
         self._gens.append(bufs)
         self._host.append(host)
-        self._dirty.append({nid: [0] * self.k for nid in self.caps})
+        self._dirty.append({nid: [[0] * self.k for _ in range(n)]
+                            for nid in self.caps})
         self._copied.append(None)
         self._free.append(gen)
         self.generations += 1
@@ -227,10 +247,16 @@ class DeviceIngressQueue:
                 f"retire stack keys {sorted(stacked)} != queue sources "
                 f"{sorted(self.caps)}")
         old = self._gens[gen]
+        n = len(self.shard_devices)
+        adopted = {}
         for nid, dd in stacked.items():
-            if any(a is not b for a, b in zip(dd, old[nid])):
-                self._dirty[gen][nid] = [self.caps[nid]] * self.k
-        self._gens[gen] = dict(stacked)
+            parts = list(dd) if isinstance(dd, ShardedDelta) else [dd]
+            if any(a is not b for p, q in zip(parts, old[nid])
+                   for a, b in zip(p, q)):
+                self._dirty[gen][nid] = [[self.caps[nid] // n] * self.k
+                                         for _ in range(n)]
+            adopted[nid] = parts
+        self._gens[gen] = adopted
         self._inflight.remove(gen)
         self._free.append(gen)
 
@@ -275,30 +301,41 @@ class DeviceIngressQueue:
                     f"key range [{_I32.min}, {_I32.max}] "
                     f"(max {int(bkeys.max())}, min {int(bkeys.min())})")
         gen = self._ensure_staging()
-        dev = self._gens[gen][nid]
-        dirty = self._dirty[gen][nid]
+        parts = self._gens[gen][nid]
+        cl = cap // len(parts)
         if n:
             hk, hv, hw = self._host[gen][nid]
             vshape = tuple(self._specs[nid].value_shape)
             hk[t, :n].numpy()[:] = bkeys
             hw[t, :n].numpy()[:] = batch.weights
             hv[t, :n].numpy()[:] = _host_values(batch, n, vshape)
-            for d, h in zip(dev, (hk, hv, hw)):
-                src = h[t, :n]
-                if src.dtype != d.dtype:
-                    # a bfloat16 Spec stages float32 on the host and casts
-                    # on the device
-                    src = src.to(self.placement, non_blocking=True)
-                d[t, :n].copy_(src, non_blocking=True)
         else:
             self.zero_writes += 1
-        if dirty[t] > n:
-            for d in dev:
-                d[t, n:dirty[t]].zero_()
-        dirty[t] = n
+        # shard j takes rows [j*cl, (j+1)*cl) of the slot (one shard, the
+        # whole slot, without a mesh)
+        for j, (dev, dirty) in enumerate(zip(parts,
+                                             self._dirty[gen][nid])):
+            lo = j * cl
+            m = min(max(n - lo, 0), cl)
+            if m:
+                for d, h in zip(dev, (hk, hv, hw)):
+                    src = h[t, lo:lo + m]
+                    if src.dtype != d.dtype:
+                        # a bfloat16 Spec stages float32 on the host and
+                        # casts on the device
+                        src = src.to(d.device, non_blocking=True)
+                    d[t, :m].copy_(src, non_blocking=True)
+            if dirty[t] > m:
+                for d in dev:
+                    d[t, m:dirty[t]].zero_()
+            dirty[t] = m
         self.writes += 1
 
-    def stacked(self) -> Dict[int, DeviceDelta]:
+    def stacked(self) -> Dict[int, object]:
         """The staging generation's contents as the [K, cap] ingress
-        stack the window's tick loop reads."""
-        return dict(self._gens[self._ensure_staging()])
+        stack the window's tick loop reads (a ``ShardedDelta`` of the
+        shards' [K, cap/n] stacks under a mesh placement)."""
+        gen = self._gens[self._ensure_staging()]
+        if self._sharded:
+            return {nid: ShardedDelta(p) for nid, p in gen.items()}
+        return {nid: p[0] for nid, p in gen.items()}

@@ -84,9 +84,20 @@ K times over the slots of the window's ingress stack; the CSR cache
 threads through them as it threads through K single calls (JAX carries
 it through its ``lax.scan``).
 
-Left out: the shard context (the loop inside one ``shard_map`` region
-with ``psum_scatter``/``pmax``) waits for the multi-device port; it
-raises.
+**The shard context.** Under the sharded executor the whole tick is one
+SPMD region (``fixpoint.py``), as in the JAX package: each shard keeps
+its own CSR cache over its local arena slice (the routed Join stores
+shard-local keys), pushes its frontier rows into a GLOBAL-key ``[KR,
+P+1]`` table and combines it with one ``psum_scatter`` a pass onto the
+owned key slice, where the fold, the emission diff and the next pass's
+observables are local. The packed readback of a pass reads every
+shard's ``[base edges, tail edges, rows, live]`` in one transfer; the
+host takes the max edge counts, the summed rows and the any-live, so
+every shard picks the same tier and leaves the loop on the same pass —
+JAX's ``pmax``/``psum`` tier and predicate combines, done on the host
+after the one readback a pass the port makes anyway. The ``(gen,
+rcount)`` readback of a tick reads every shard's pair at once too. On
+one device every collective is the identity.
 """
 
 from __future__ import annotations
@@ -101,7 +112,7 @@ from reflow_tpu_torch.executors.device_delta import MIN_CAPACITY, DeviceDelta
 from reflow_tpu_torch.executors.fixpoint import (FixpointStructure,
                                                  _MacroTickMixin,
                                                  collect_sink_egress,
-                                                 run_exit_pass,
+                                                 exit_pass_body,
                                                  snapshot_boundary)
 from reflow_tpu_torch.executors.lowerings import (SPREAD_ROWS, _agg_tables,
                                                   _apply_rowfn, _as, _bcast_w,
@@ -289,10 +300,6 @@ class LinearFixpointProgram(_MacroTickMixin):
 
     def __init__(self, executor, *, structure: FixpointStructure,
                  linear: LinearStructure):
-        if getattr(executor, "mesh", None) is not None:
-            raise NotImplementedError(
-                "the sharded fused loop (shard_map region, psum_scatter) "
-                "is not ported yet")
         graph = executor.graph
         self.structure = structure
         self.linear = linear
@@ -300,7 +307,15 @@ class LinearFixpointProgram(_MacroTickMixin):
         self._executor = executor
 
         L, J, R = linear.loop, linear.join, linear.reduce
-        Ft = min(J.op.arena_capacity, max(2048, J.op.arena_capacity // 8))
+        #: shards of the executor's mesh (1 on one device): the CSR, its
+        #: tail window and the gather tiers are per-shard, over the
+        #: shard's arena slice
+        nsh = getattr(executor, "n", 1)
+        if L.spec.key_space % nsh or J.op.arena_capacity % nsh:
+            raise ValueError("key space / arena not divisible by the mesh "
+                             "size")
+        Rl = J.op.arena_capacity // nsh
+        Ft = min(Rl, max(2048, Rl // 8))
         # (the arena plus its tail window: a joined base+tail gather
         # offsets tail rows past the base ones)
         if (L.spec.key_space >= _F32_EXACT
@@ -318,8 +333,8 @@ class LinearFixpointProgram(_MacroTickMixin):
                     f"exactly through the fused loop's float32 columns; "
                     f"using the row-based fixpoint")
 
-        self._exit_pass = (executor.build_pass_fn(list(structure.exit_plan))
-                           if structure.exit_plan else None)
+        self._exit_pass = (executor.build_pass_body(
+            list(structure.exit_plan)) if structure.exit_plan else None)
         self._gb = linear.groupby
         self._KR = R.inputs[0].spec.key_space
         self._odtype = torch_dtype(J.spec.value_dtype)
@@ -335,7 +350,7 @@ class LinearFixpointProgram(_MacroTickMixin):
             self._Q *= s
         #: cross-tick residual deferral (close_loop defer_passes)
         self._defer = L.defer_passes
-        self.tiers = _edge_budget_tiers(J.op.arena_capacity)
+        self.tiers = _edge_budget_tiers(Rl)
         #: tail window capacity: appends since the last full CSR rebuild
         #: accumulate here; overflow forces a rebuild
         self.Ft = Ft
@@ -399,7 +414,7 @@ class LinearFixpointProgram(_MacroTickMixin):
         wv = _masked_contrib(ew, _as(val, torch.float32, dev))
         return okey, wv, (dwx * ew).to(torch.float32)
 
-    def _push_tab(self, parts, dtgt=None):
+    def _push_tab(self, parts, dtgt=None, base: int = 0):
         """Push the rows one pass gathered from its segments (each part a
         ``(src, x, dwx, vb, ew)`` tuple), all through ONE push, and
         scatter-add their contributions into one ``[KR, P+1]`` table —
@@ -410,10 +425,14 @@ class LinearFixpointProgram(_MacroTickMixin):
         (the destination-sorted dense tier); its live rows' runtime keys
         are checked against them. -> (table, mismatch flag or None): a
         mismatch is a violated ``stable_key`` declaration, which goes
-        into the Join's sticky error."""
+        into the Join's sticky error. The parts carry local source keys;
+        ``base`` (a shard's first global key) makes them global for the
+        merge and the re-key, so the table is in the global key domain."""
         cols = ([p[i] for p in parts] for i in range(5))
         src, x, dwx, vb, ew = (c[0] if len(parts) == 1 else torch.cat(c)
                                for c in cols)
+        if base:
+            src = src + base
         okey, wv, wc = self._push(src, x, dwx, vb, ew)
         n, KR, dev = okey.shape[0], self._KR, okey.device
         n0 = 0 if dtgt is None else dtgt.shape[0]
@@ -582,7 +601,8 @@ class LinearFixpointProgram(_MacroTickMixin):
                 "svalw": torch.cat([base["svalw"], tail["svalw"]]),
                 "copies": 2}
 
-    def _build_base(self, jstate, Klc: int, rc: int, gen: int) -> dict:
+    def _build_base(self, jstate, Klc: int, rc: int, gen: int,
+                    base: int = 0) -> dict:
         """Full rebuild: sort the whole arena by key (dead rows to the
         sentinel ``Klc``), per-key (start, degree) by a histogram and a
         cumsum; and, for stable destinations, the destination-sorted copy
@@ -601,6 +621,8 @@ class LinearFixpointProgram(_MacroTickMixin):
             # outside [0, KR) mirror the scatter's drop
             KR = self._KR
             gk = torch.clamp(rk, 0, Klc - 1)
+            if base:
+                gk = gk + base
             x0 = torch.zeros((Rcap,) + self._vshape, dtype=torch.float32,
                              device=dev)
             merged0 = _as(self.linear.join.op.merge(gk, x0, rv),
@@ -642,22 +664,27 @@ class LinearFixpointProgram(_MacroTickMixin):
                          0.0)[:, None]], dim=1)
         return self._segment(self._degrees(tk, Klc), svalw)
 
-    def _take_csr(self) -> dict:
-        """The ONE sorted-arena cache this join keeps across ticks, held on
-        the executor; an empty cache (no tensors, ``gen`` -1) forces the
-        first loop tick to build it."""
-        csr = self._executor._csr_cache.pop(self._join_id, None)
+    def _csr_key(self, ctx):
+        return self._join_id if ctx.solo else (self._join_id, ctx.rank)
+
+    def _take_csr(self, ctx) -> dict:
+        """The ONE sorted-arena cache this join keeps across ticks (one
+        per shard), held on the executor; an empty cache (no tensors,
+        ``gen`` -1) forces the first loop tick to build it."""
+        csr = self._executor._csr_cache.pop(self._csr_key(ctx), None)
         return csr if csr is not None else {"count": 0, "gen": -1}
 
     # -- the loop ------------------------------------------------------------
 
-    def _observables(self, ld: DeviceDelta, Klc: int, resid):
+    def _observables(self, ld: DeviceDelta, Klc: int, resid, base: int = 0):
         """Loop delta rows -> the dense ``[Klc, P+1]`` observables (plus the
         carried residue under ``defer_passes``: it joins at the first
         pass, pushed against the post-churn arena — the schedule a host
-        loop resuming its stashed back-edge rows would run)."""
+        loop resuming its stashed back-edge rows would run). ``ld`` is a
+        Reduce emission over this shard's keys (global ids from
+        ``base``)."""
         C, dev = ld.capacity, ld.keys.device
-        idx, inb = _table_index(ld.keys, Klc)
+        idx, inb = _table_index(ld.keys - base if base else ld.keys, Klc)
         tgt = torch.where(inb & (ld.weights != 0), idx,
                           self._spare(Klc, C, dev))
         contrib = _masked_contrib(ld.weights, ld.values.to(torch.float32))
@@ -668,20 +695,25 @@ class LinearFixpointProgram(_MacroTickMixin):
                          ).index_add_(0, tgt, upd)[:Klc]
         return xw if resid is None else xw + resid
 
-    def _loop_region(self, jstate, rstate, ld, has_entry, resid,
+    def _loop_region(self, ctx, jstate, rstate, ld, has_entry, resid,
                      max_iters: int):
+        """Phase B on one shard's slices (a region body)."""
         ex = self._executor
         Klc = rstate["emitted_has"].shape[0]
+        base = ctx.axis_index() * Klc
         dev = ld.keys.device
         with span("linear.observables"):
-            xw = self._observables(ld, Klc, resid)
+            xw = self._observables(ld, Klc, resid, base)
 
         # CSR cache validity: the base ordering survives only while the
         # arena is append-only past ``count`` under the same generation,
-        # and the un-sorted tail must fit its window
-        gen, rc = ex.read_branch(torch.stack(
-            [jstate["gen"].reshape(()), jstate["rcount"].reshape(())]))
-        csr = self._take_csr()
+        # and the un-sorted tail must fit its window (every shard's pair
+        # in one readback; each decides for its own slice)
+        got = yield ctx.host_gather(torch.stack(
+            [jstate["gen"].reshape(()), jstate["rcount"].reshape(())]),
+            ex.read_branch)
+        gen, rc = got[ctx.rank]
+        csr = self._take_csr(ctx)
         cause = None
         if "geo" not in csr:
             cause = "initial"
@@ -693,7 +725,7 @@ class LinearFixpointProgram(_MacroTickMixin):
             cause = "tail"
         if cause is not None:
             with span("linear.csr.rebuild"):
-                csr = self._build_base(jstate, Klc, rc, gen)
+                csr = self._build_base(jstate, Klc, rc, gen, base)
             ex.csr_rebuilds[cause] += 1
         bcount = csr["count"]
         tail = joined = None
@@ -701,8 +733,9 @@ class LinearFixpointProgram(_MacroTickMixin):
             with span("linear.csr.tail"):
                 tail = self._build_tail(jstate, Klc, bcount, rc)
                 joined = self._joined(csr, tail)
-        self.last_tick = {"csr": cause, "tail_rows": rc - bcount,
-                          "tiers": []}
+        last = {"csr": cause, "tail_rows": rc - bcount, "tiers": []}
+        if ctx.rank == 0:
+            self.last_tick = last
 
         tiers, dense_ix = self.tiers, len(self.tiers)
         # per key: base and tail degree, for the frontier's edge counts
@@ -715,14 +748,26 @@ class LinearFixpointProgram(_MacroTickMixin):
             with span("linear.read"):
                 fmask = torch.any(xw != 0, dim=1)
                 edges = torch.where(fmask[:, None], degs, 0).sum(0)
-                nb, nt, rows, live = ex.read_scalars(torch.cat(
-                    [edges, rows_dev,
-                     fmask.any().reshape(1).to(torch.int64)]))
+                stats = torch.cat([edges, rows_dev,
+                                   fmask.any().reshape(1).to(torch.int64)])
+            # (no span is held across a yield: the other shards run there)
+            got = yield ctx.host_gather(stats, ex.read_scalars)
+            # uniform across shards: the worst shard's edge counts pick
+            # the tiers, rows add up, any live shard keeps the loop going
+            nb = max(r[0] for r in got)
+            nt = max(r[1] for r in got)
+            rows = sum(r[2] for r in got)
+            live = max(r[3] for r in got)
             if not live or iters >= max_iters:
                 break
             ix_b = pick_base_tier(tiers, nb)
             ix_t = pick_tail_tier(self.tail_tiers, nt, ix_b == dense_ix,
                                   self.stable_dst)
+            if ix_t is not None and tail is None:
+                # another shard's tail picked the tier: this shard's
+                # append-free window takes it over an empty tail
+                tail = self._build_tail(jstate, Klc, bcount, bcount)
+                joined = self._joined(csr, tail)
             dtgt = None
             if ix_b < dense_ix:
                 with span("linear.budget"):
@@ -747,15 +792,22 @@ class LinearFixpointProgram(_MacroTickMixin):
                         parts.append(self._budget_rows(
                             self.tail_tiers[ix_t], tail, xw, fmask))
             with span("linear.push"):
-                tab, bad = self._push_tab(parts, dtgt)
+                tab, bad = self._push_tab(parts, dtgt, base)
                 if bad is not None:
                     err = err | bad
+            if not ctx.solo:
+                # sum the shards' global-key tables; each keeps its slice
+                tab = yield ctx.psum_scatter(tab)
             with span("linear.fold"):
                 rstate, xw, prows = self._fold(rstate, tab)
                 rows_dev = rows_dev + prows
-            self.last_tick["tiers"].append((ix_b, ix_t))
+            last["tiers"].append((ix_b, ix_t))
             iters += 1
         converged = not live
+        if not ctx.solo:
+            # the join's error leaf is replicated: every shard holds the
+            # mesh-wide flag
+            err = (yield ctx.pmax(err.to(torch.int32))) > 0
 
         with span("linear.patch"):
             # patch the Join's left table densely (per-pass retract/insert
@@ -784,7 +836,7 @@ class LinearFixpointProgram(_MacroTickMixin):
                                   ).to(torch.int32)
                 new_jstate["lw"] = (lw + has_f.to(torch.int32)
                                     - has_entry.to(torch.int32) - ddw)
-        ex._csr_cache[self._join_id] = csr
+        ex._csr_cache[self._csr_key(ctx)] = csr
         return new_jstate, rstate, iters, rows, converged, xw
 
     def __call__(self, op_states, plan: Sequence[Node],
@@ -794,13 +846,19 @@ class LinearFixpointProgram(_MacroTickMixin):
         is None: the in-flight loop state is dense observables, carried
         in the loop node's ``resid`` state under defer_passes; a
         ``max_iters`` halt without defer_passes does not resume."""
-        ex, st = self._executor, self.structure
         self.last_tick = {}
+        return self._executor.run_region(self._tick, op_states, dev_ingress,
+                                         list(plan), max_iters)
+
+    def _tick(self, ctx, op_states, dev_ingress, plan, max_iters: int):
+        """One tick on one shard (the whole mesh's state on one device)."""
+        ex, st = self._executor, self.structure
         # the loop folds every emission from phase A's onward into the
         # join's left table, so the exit patch diffs existence against the
         # PRE-tick table (copied: the sparse Reduce writes it in place)
         has_entry = op_states[self._red_id]["emitted_has"].clone()
-        states, eg_a = ex.build_pass_fn(list(plan))(op_states, dev_ingress)
+        states, eg_a = yield from ex.build_pass_body(plan)(ctx, op_states,
+                                                           dev_ingress)
         snaps = (snapshot_boundary(states, st.boundary)
                  if self._exit_pass is not None else {})
         defer = self._defer
@@ -811,12 +869,13 @@ class LinearFixpointProgram(_MacroTickMixin):
             # carried residue may still be live when phase A emitted no
             # loop delta: run the loop with an empty delta
             ld = DeviceDelta.empty(self._loop_spec, MIN_CAPACITY,
-                                   device=ex.device)
+                                   device=has_entry.device)
         if ld is not None:
             resid = states[self._loop_id]["resid"] if defer else None
-            jst, rst, iters, rows, converged, xw = self._loop_region(
-                states[self._join_id], states[self._red_id], ld, has_entry,
-                resid, mi)
+            jst, rst, iters, rows, converged, xw = yield from \
+                self._loop_region(ctx, states[self._join_id],
+                                  states[self._red_id], ld, has_entry, resid,
+                                  mi)
             states = dict(states)
             states[self._join_id] = jst
             states[self._red_id] = rst
@@ -828,7 +887,7 @@ class LinearFixpointProgram(_MacroTickMixin):
             # stays, and phase-A appends land in the next loop tick's tail
             iters, rows, converged = 0, 0, True
 
-        states, eg_b = run_exit_pass(self._exit_pass, states, snaps,
-                                     st.boundary)
+        states, eg_b = yield from exit_pass_body(ctx, self._exit_pass, states,
+                                                 snaps, st.boundary)
         sink_egress = collect_sink_egress(self.sink_ids, eg_a, eg_b)
         return states, sink_egress, None, iters, rows, converged

@@ -65,6 +65,7 @@ from reflow_tpu_torch.kernels.topk import (NEG, chunked_corpus_topk, scores,
 
 __all__ = ["lower_node", "knn_state", "reduce_state", "join_state",
            "join_core", "minmax_state", "minmax_core", "minmax_refresh_core",
+           "reduce_core", "reduce_dense_fold",
            "LOWERINGS", "LINEAR_DEVICE_REDUCERS"]
 
 #: the reducers that lower to linear scatter-adds (min and max lower to
@@ -501,11 +502,48 @@ def _lower_reduce(op, node: Node, state, ins, *, on_sync=None
                   ) -> Tuple[DeviceDelta, dict]:
     (d,) = ins
     K = node.inputs[0].spec.key_space
-    C = d.capacity
     vdtype = torch_dtype(node.spec.value_dtype)
     if op.how not in LINEAR_DEVICE_REDUCERS:
         return minmax_core(op, K, tuple(node.spec.value_shape), vdtype,
                            state, d)
+    return reduce_core(op, K, vdtype, state, d)
+
+
+def _gkeys(K: int, key_offset: int, dev) -> torch.Tensor:
+    """Global ids of the key slice ``[key_offset, key_offset + K)``."""
+    keys = torch.arange(K, dtype=torch.int32, device=dev)
+    return keys + key_offset if key_offset else keys
+
+
+def reduce_dense_fold(op, vdtype, state, dws, dwc, key_offset: int = 0
+                      ) -> Tuple[DeviceDelta, dict]:
+    """Fold one pass's ``[K]`` contribution tables into a linear
+    Reduce's running tables and emit the dense diff over the whole key
+    range (global ids from ``key_offset``)."""
+    emitted, em_has = state["emitted"], state["emitted_has"]
+    wsum = state["wsum"] + dws
+    wcnt = state["wcnt"] + dwc
+    with span("reduce.diff"):
+        agg, exists = _agg_tables(op, wsum, wcnt, vdtype)
+        changed = _differs(agg, emitted, op.tol)
+        ins_m = exists & (~em_has | changed)
+        ret_m = em_has & (~exists | changed)
+        out = _emit(_gkeys(wsum.shape[0], key_offset, wsum.device),
+                    emitted, agg, ret_m, ins_m)
+        new_emitted = torch.where(_bcast_w(ins_m, agg), agg, emitted)
+        new_has = torch.where(ins_m, True,
+                              torch.where(ret_m & ~exists, False, em_has))
+    return out, {"wsum": wsum, "wcnt": wcnt, "emitted": new_emitted,
+                 "emitted_has": new_has}
+
+
+def reduce_core(op, K: int, vdtype, state, d: DeviceDelta,
+                key_offset: int = 0) -> Tuple[DeviceDelta, dict]:
+    """One pass of a linear Reduce over keys ``[0, K)`` (a shard's slice
+    when ``key_offset`` gives its first global id: ``d`` carries local
+    keys, the emission global ones). Dense mode when the delta's
+    capacity covers the key range, sparse mode below it."""
+    C = d.capacity
     dev = d.keys.device
     emitted, em_has = state["emitted"], state["emitted_has"]
 
@@ -514,20 +552,7 @@ def _lower_reduce(op, node: Node, state, ins, *, on_sync=None
         # emitted — no sort, pure vector ops (the PageRank-iteration shape)
         with span("reduce.scatter_add"):
             dws, dwc = _scatter_contribs(d, K)
-            wsum = state["wsum"] + dws
-            wcnt = state["wcnt"] + dwc
-        with span("reduce.diff"):
-            agg, exists = _agg_tables(op, wsum, wcnt, vdtype)
-            changed = _differs(agg, emitted, op.tol)
-            ins_m = exists & (~em_has | changed)
-            ret_m = em_has & (~exists | changed)
-            out = _emit(torch.arange(K, dtype=torch.int32, device=dev),
-                        emitted, agg, ret_m, ins_m)
-            new_emitted = torch.where(_bcast_w(ins_m, agg), agg, emitted)
-            new_has = torch.where(ins_m, True,
-                                  torch.where(ret_m & ~exists, False, em_has))
-        return out, {"wsum": wsum, "wcnt": wcnt, "emitted": new_emitted,
-                     "emitted_has": new_has}
+        return reduce_dense_fold(op, vdtype, state, dws, dwc, key_offset)
 
     # sparse mode: O(C) end to end, never O(K) — contributions scatter-add
     # straight into the persistent tables (in place), and aggregation and
@@ -560,7 +585,9 @@ def _lower_reduce(op, node: Node, state, ins, *, on_sync=None
         changed = _differs(agg, em, op.tol)
         ins_m = first & exists & (~has | changed)
         ret_m = first & has & (~exists | changed)
-        out = _emit(tk.to(torch.int32), em, agg, ret_m, ins_m)
+        okeys = tk.to(torch.int32)
+        out = _emit(okeys + key_offset if key_offset else okeys, em, agg,
+                    ret_m, ins_m)
         _masked_set_(emitted, tk, ins_m, agg)
         _masked_set_(em_has, tk, ins_m, torch.ones_like(ins_m))
         gone = ret_m & ~exists
@@ -628,9 +655,11 @@ def _lex_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(has, av < bv, False)
 
 
-def minmax_core(op, K: int, out_vshape, odtype, state, d: DeviceDelta
-                ) -> Tuple[DeviceDelta, dict]:
-    """One tick of the buffered min/max over keys ``[0, K)``.
+def minmax_core(op, K: int, out_vshape, odtype, state, d: DeviceDelta,
+                key_offset: int = 0) -> Tuple[DeviceDelta, dict]:
+    """One tick of the buffered min/max over keys ``[0, K)`` (a shard's
+    slice: ``key_offset`` is its first global id, which the emission
+    carries; ``d``'s keys are local).
 
     As in the JAX package: compact the tick's touched keys into slots,
     gather their buffers, merge buffer rows and delta rows by (slot,
@@ -792,8 +821,7 @@ def minmax_core(op, K: int, out_vshape, odtype, state, d: DeviceDelta
         changed = _differs(aggv, emitted, op.tol)
         ins_m = exists & ~unknown & (~em_has | changed)
         ret_m = em_has & ((~exists | changed) & ~unknown)
-        out = _emit(torch.arange(K, dtype=torch.int32, device=dev),
-                    emitted, aggv, ret_m, ins_m)
+        out = _emit(_gkeys(K, key_offset, dev), emitted, aggv, ret_m, ins_m)
         new_emitted = torch.where(_bcast_w(ins_m, aggv), aggv, emitted)
         new_has = torch.where(ins_m, True,
                               torch.where(ret_m & ~exists, False, em_has))
@@ -803,7 +831,7 @@ def minmax_core(op, K: int, out_vshape, odtype, state, d: DeviceDelta
 
 
 def minmax_refresh_core(op, K: int, out_vshape, odtype, state,
-                        d: DeviceDelta) -> dict:
+                        d: DeviceDelta, key_offset: int = 0) -> dict:
     """Latch refresh: rebuild the candidate buffers of every key present
     in ``d`` from a replay of its full live multiset (one +w row per
     entry), resetting its ``over_lo``/``over_maybe_pos`` latches — the
@@ -825,7 +853,7 @@ def minmax_refresh_core(op, K: int, out_vshape, odtype, state,
     st["over_lo"] = torch.where(tb, float("inf"), state["over_lo"])
     st["over_maybe_pos"] = torch.where(touched, False,
                                        state["over_maybe_pos"])
-    out, st2 = minmax_core(op, K, out_vshape, odtype, st, d)
+    out, st2 = minmax_core(op, K, out_vshape, odtype, st, d, key_offset)
     st2["error"] = st2["error"] | torch.any(out.weights != 0)
     return st2
 
@@ -840,7 +868,8 @@ def _lower_join(op, node: Node, state, ins, *, on_sync=None
                      oshape=tuple(node.spec.value_shape), on_sync=on_sync)
 
 
-def _append_arena_(state: dict, keys, vals, w, R: int, on_sync) -> dict:
+def _append_arena_(state: dict, keys, vals, w, R: int, on_sync,
+                   compact: Optional[bool] = None) -> dict:
     """Append the live rows of a delta to an append arena (live rows
     first), compacting first when the append would cross capacity. The
     arena is the dict's ``rkeys``/``rvals``/``rw``/``rcount``/``gen``
@@ -849,23 +878,29 @@ def _append_arena_(state: dict, keys, vals, w, R: int, on_sync) -> dict:
 
     The JAX package makes that choice on the device (``lax.cond``); here
     it is made on the host from one scalar readback per append, reported
-    through ``on_sync``. Rows beyond capacity even after compaction are
+    through ``on_sync``; a caller that read the decision already (the
+    sharded Join reads every shard's in one transfer) passes it as
+    ``compact``. Rows beyond capacity even after compaction are
     dropped and set the sticky ``error`` flag. Writes the arena tensors
     in place (or, after a compaction, the compacted copies) and returns
     the updated state."""
     live = w != 0
     n_app = live.sum(dtype=torch.int32)
-    over = state["rcount"] + n_app > R
-    if on_sync is not None:
-        on_sync()
-    if bool(over.item()):
+    if compact is None:
+        over = state["rcount"] + n_app > R
+        if on_sync is not None:
+            on_sync()
+        compact = bool(over.item())
+    if compact:
         with span("arena.compact"):
             state = compact_arena(state)
     with span("arena.append"):
         rank = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1
         pos = (state["rcount"] + rank).long()
         fits = live & (pos < R)
-        pos = pos.clamp(max=R - 1)
+        # rows before the first live one rank -1: clamp them in range too
+        # (masked out, but an all-dead delta anchors on row 0)
+        pos = pos.clamp(0, R - 1)
         _masked_set_(state["rkeys"], pos, fits, keys)
         _masked_set_(state["rvals"], pos, fits, vals)
         _masked_set_(state["rw"], pos, fits, w)
@@ -874,8 +909,8 @@ def _append_arena_(state: dict, keys, vals, w, R: int, on_sync) -> dict:
     return state
 
 
-def _keyed_product(dk, dv, dw, ak, av, aw, K: int, T: int, emit
-                   ) -> Tuple[DeviceDelta, torch.Tensor]:
+def _keyed_product(dk, dv, dw, ak, av, aw, K: int, T: int, emit,
+                   key_offset: int = 0) -> Tuple[DeviceDelta, torch.Tensor]:
     """Key-matched delta × arena pair enumeration at the fixed budget
     ``T``: each live delta row pairs with every live arena row of its key.
 
@@ -888,7 +923,8 @@ def _keyed_product(dk, dv, dw, ak, av, aw, K: int, T: int, emit
     slot takes the segments that start at or past ``T``, then
     ``torch.cummax``). A true pair count beyond ``T`` returns ``overflow``
     as a device flag (the caller folds it into the sticky error; nothing
-    is read back). ``emit(keys, v_delta, v_arena)`` -> merged values."""
+    is read back). ``emit(keys, v_delta, v_arena)`` -> merged values; the
+    pairs carry global keys (local ones plus ``key_offset``)."""
     C = dk.shape[0]
     R = ak.shape[0]
     dev = dk.device
@@ -918,6 +954,8 @@ def _keyed_product(dk, dv, dw, ak, av, aw, K: int, T: int, emit
         valid = (j < total) & (d_own > 0) & (within < d_own)
         row = order[(starts[k_c[owner]] + within).clamp(0, R - 1)]
         k = k_c[owner].to(torch.int32)
+        if key_offset:
+            k = k + key_offset
         w = torch.where(valid, dw[owner] * aw[row], 0)
         vals = emit(k, dv[owner], av[row])
     return DeviceDelta(k, vals, w), overflow
@@ -925,7 +963,8 @@ def _keyed_product(dk, dv, dw, ak, av, aw, K: int, T: int, emit
 
 def _join_core_multiset(op, K: int, R: int, state,
                         da: Optional[DeviceDelta], db: Optional[DeviceDelta],
-                        merge_v, on_sync) -> Tuple[DeviceDelta, dict]:
+                        merge_v, on_sync, key_offset: int = 0,
+                        compact=(None, None)) -> Tuple[DeviceDelta, dict]:
     """Two-arena join: both sides are append logs, and both δ-products
     are key-matched pair enumerations (δA against the old right arena,
     δB against the left arena after δA's append: the bilinear update
@@ -934,21 +973,23 @@ def _join_core_multiset(op, K: int, R: int, state,
 
     Each side's append makes its own compact-before-append decision on
     the host (one readback through ``on_sync``), so a tick with both
-    sides live reads back twice."""
+    sides live reads back twice, unless ``compact`` gives the (left,
+    right) decisions. ``merge_v`` takes global keys."""
     st = dict(state)
     err = st["error"]
     outs = []
     if da is not None:
         out_a, ovf = _keyed_product(
             da.keys, da.values, da.weights, st["rkeys"], st["rvals"],
-            st["rw"], K, op.product_slack * da.capacity, merge_v)
+            st["rw"], K, op.product_slack * da.capacity, merge_v,
+            key_offset)
         outs.append(out_a)
         err = err | ovf
         left = {"rkeys": st["lkeys"], "rvals": st["lvals"], "rw": st["lrw"],
                 "rcount": st["lcount"], "gen": st["lgen"], "error": err}
         with span("join.append_left"):
             left = _append_arena_(left, da.keys, da.values, da.weights,
-                                  st["lkeys"].shape[0], on_sync)
+                                  st["lkeys"].shape[0], on_sync, compact[0])
         st.update(lkeys=left["rkeys"], lvals=left["rvals"], lrw=left["rw"],
                   lcount=left["rcount"], lgen=left["gen"])
         err = left["error"]
@@ -958,10 +999,11 @@ def _join_core_multiset(op, K: int, R: int, state,
         out_b, ovf = _keyed_product(
             db.keys, db.values, db.weights, st["lkeys"], st["lvals"],
             st["lrw"], K, op.product_slack * db.capacity,
-            lambda k, vd, va_: merge_v(k, va_, vd))
+            lambda k, vd, va_: merge_v(k, va_, vd), key_offset)
         outs.append(out_b)
         st["error"] = err | ovf
-        st = _append_arena_(st, db.keys, db.values, db.weights, R, on_sync)
+        st = _append_arena_(st, db.keys, db.values, db.weights, R, on_sync,
+                            compact[1])
         err = st["error"]
     st["error"] = err
     with span("join.concat"):
@@ -973,7 +1015,8 @@ def _join_core_multiset(op, K: int, R: int, state,
 
 def join_core(op, K: int, R: int, odtype, state,
               da: Optional[DeviceDelta], db: Optional[DeviceDelta], *,
-              oshape=None, on_sync=None) -> Tuple[DeviceDelta, dict]:
+              oshape=None, on_sync=None, key_offset: int = 0,
+              compact=(None, None)) -> Tuple[DeviceDelta, dict]:
     """δ(A⋈B) = δA⋈B_old + (A+δA)⋈δB.
 
     A ``None`` side is absent: its product, fold and append do not run —
@@ -983,6 +1026,12 @@ def join_core(op, K: int, R: int, odtype, state,
     scattered into dense ``[K]`` tables, so the arena-side product is a
     pure gather over the arena; the multiset-left state (a second arena,
     ``lkeys``/...) takes :func:`_join_core_multiset`.
+
+    On a shard, ``K`` and the arena are the shard's slices and the deltas
+    carry local keys; ``key_offset`` (the slice's first global id) goes
+    back onto the emitted keys and the keys ``merge`` sees. ``compact``
+    gives the (left, right) arenas' compact-before-append decisions when
+    the caller read them already (None: read here).
     """
 
     def merge_v(keys, va, vb):
@@ -996,7 +1045,11 @@ def join_core(op, K: int, R: int, odtype, state,
         return _as(op.merge(keys, va, vb), odtype, keys.device)
 
     if "lkeys" in state:
-        return _join_core_multiset(op, K, R, state, da, db, merge_v, on_sync)
+        return _join_core_multiset(op, K, R, state, da, db, merge_v, on_sync,
+                                   key_offset, compact)
+
+    def gk(keys):
+        return keys + key_offset if key_offset else keys
 
     st = dict(state)
     ak, av, aw = st["rkeys"], st["rvals"], st["rw"]
@@ -1021,9 +1074,10 @@ def join_core(op, K: int, R: int, odtype, state,
         # δA ⋈ B_old: a pure gather over the whole arena
         with span("join.gather"):
             aidx, _ = _table_index(ak, K)
+            gak = gk(ak)
             for tab, tw in halves:
                 w = tw[aidx] * aw
-                outs.append(DeviceDelta(ak, merge_v(ak, tab[aidx], av), w))
+                outs.append(DeviceDelta(gak, merge_v(gak, tab[aidx], av), w))
         # fold δA into the left table
         with span("join.scatter_delta"):
             lw.index_add_(0, didx, torch.where(dinb, wa, 0))
@@ -1034,9 +1088,10 @@ def join_core(op, K: int, R: int, odtype, state,
         kb, vb, wb = db.keys, db.values, db.weights
         with span("join.probe"):
             bidx, _ = _table_index(kb, K)
-            outs.append(DeviceDelta(kb, merge_v(kb, lval[bidx], vb),
+            gkb = gk(kb)
+            outs.append(DeviceDelta(gkb, merge_v(gkb, lval[bidx], vb),
                                     lw[bidx] * wb))
-        st = _append_arena_(st, kb, vb, wb, R, on_sync)
+        st = _append_arena_(st, kb, vb, wb, R, on_sync, compact[1])
 
     with span("join.concat"):
         out = DeviceDelta(torch.cat([o.keys for o in outs]),

@@ -500,10 +500,11 @@ def save_checkpoint(sched, path: str, *, truncate: bool = True,
     ``ckpt_before_meta`` lies between the new state files and the meta
     that commits them (``ckpt_tile_full_append`` after each tile file).
 
-    The port runs one process. The JAX package's multi-controller save
+    The port runs one process (a sharded executor's mesh included: its
+    global state tree is saved). The JAX package's multi-controller save
     checks that every process holds the same tick and dedup window with
-    one allgather of :func:`meta_digest`; that check comes back with the
-    multi-device port (ROADMAP Queue 1 step 10)."""
+    one allgather of :func:`meta_digest`; that check comes with
+    multi-controller meshes (ROADMAP Queue 1 step 14)."""
     return _save_checkpoint(sched, path, truncate=truncate, crash=crash)[0]
 
 

@@ -59,7 +59,8 @@ def build_graph(n_images: int, n_groups: int, params: Dict,
     if model_axis is not None:
         raise NotImplementedError(
             "the tensor-parallel ViT (model_axis) is not ported yet: it "
-            "comes with multi-device (ROADMAP Queue 1 step 10)")
+            "comes with the model axis of the mesh (ROADMAP Queue 1 step "
+            "14); the data-parallel graph runs on the sharded executor")
     cfg = params["_cfg"]
     flat = cfg["img"] * cfg["img"] * cfg["chans"]
     dim = cfg["dim"]

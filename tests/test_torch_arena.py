@@ -269,3 +269,58 @@ def test_long_churn_constant_arena():
     assert pex.host_syncs == ticks + 1
     np.testing.assert_allclose(pranks, jranks, rtol=0, atol=2e-4)
     assert np.max(np.abs(pranks - ref)) < 5e-3
+
+
+@pytest.fixture
+def one_thread():
+    """Eight shards of small ops: torch's intra-op thread pool only adds
+    contention at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_sharded_long_churn_constant_arena(one_thread):
+    """The churn above on 8-shard meshes (the port's and JAX's sharded
+    executors), the arena 4x larger for the sharded static check (one
+    tick's whole delta against one shard's slice) and 30 ticks: the
+    shards whose slice fills compact it (at least four compactions over
+    the eight), on the same ticks as JAX's shards (the per-shard ``gen``
+    and ``rcount`` vectors equal), and the ranks agree within 2e-4."""
+    from reflow_tpu.parallel import make_mesh as jmake_mesh
+    from reflow_tpu.parallel.shard import ShardedTpuExecutor
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    N, E, churn, ticks = 48, 200, 0.2, 30
+    churn_cap = bucket_capacity(2 * int(churn * E) + 2)
+    arena = (bucket_capacity(E) + 2 * churn_cap) * 4
+    runs = {}
+    for pkg, mod in (("port", ppr), ("jax", jpr)):
+        web = mod.WebGraph.random(N, E, seed=4)
+        pg = mod.build_graph(N, tol=1e-5, arena_capacity=arena)
+        if pkg == "port":
+            ex = ShardedCudaExecutor(make_mesh(8, device="cpu"))
+            sched = P.DirtyScheduler(pg.graph, ex, max_loop_iters=500)
+        else:
+            ex = ShardedTpuExecutor(jmake_mesh(8))
+            sched = JDirtyScheduler(pg.graph, ex, max_loop_iters=500)
+        sched.push(pg.teleport, mod.teleport_batch(N))
+        sched.push(pg.edges, web.initial_batch())
+        assert sched.tick().quiesced
+        for i in range(ticks):
+            sched.push(pg.edges, web.churn(churn))
+            assert sched.tick().quiesced, f"{pkg} tick {i}"
+        st = ex.states[pg.join.id]
+        runs[pkg] = (np.asarray(st["gen"]).tolist(),
+                     np.asarray(st["rcount"]).tolist(),
+                     mod.ranks_to_array(sched.read_table(pg.new_rank), N),
+                     mod.reference_ranks(web))
+    (pgen, pcount, pranks, ref), (jgen, jcount, jranks, _) = \
+        runs["port"], runs["jax"]
+    assert bucket_capacity(E) + ticks * churn_cap > arena // 8
+    assert len(pgen) == 8 and sum(pgen) >= 4
+    assert pgen == jgen and pcount == jcount
+    np.testing.assert_allclose(pranks, jranks, rtol=0, atol=2e-4)
+    assert np.max(np.abs(pranks - ref)) < 5e-3

@@ -12,6 +12,8 @@ oracle's float64, both tol-gated), as in the JAX tests.
 """
 
 import numpy as np
+import pytest
+import torch
 
 import reflow_tpu_torch as P
 from reflow_tpu_torch.executors.linear_fixpoint import LinearFixpointProgram
@@ -141,3 +143,52 @@ def test_state_restore_invalidates_csr_cache():
     # (another summation order); a stale cache would push values through
     # the wrong arena rows, errors ~1e-1
     np.testing.assert_allclose(restored, fresh, atol=BOUND)
+
+
+@pytest.fixture
+def one_thread():
+    """Eight shards of small ops: torch's intra-op thread pool only adds
+    contention at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_csr_cache_sharded_matches_single_device(one_thread):
+    """One persistent CSR cache per shard over its arena slice: the same
+    churn on an 8-shard mesh, the single device and JAX's sharded run;
+    the two tol-converged fixpoints agree within ``BOUND``."""
+    from reflow_tpu.parallel import make_mesh as jmake_mesh
+    from reflow_tpu.parallel.shard import ShardedTpuExecutor
+    from reflow_tpu.scheduler import DirtyScheduler as JDirtyScheduler
+    from reflow_tpu.workloads import pagerank as jpr
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    ranks = {}
+    for name, mod, mk in (
+            ("sharded", pagerank,
+             lambda: ShardedCudaExecutor(make_mesh(8, device="cpu"))),
+            ("single", pagerank, lambda: _executor("cuda")),
+            ("jax", jpr, lambda: ShardedTpuExecutor(jmake_mesh(8)))):
+        web = mod.WebGraph.random(64, 512, seed=35)
+        pg = mod.build_graph(64, tol=TOL, arena_capacity=1 << 15)
+        ex = mk()
+        sched = (JDirtyScheduler if mod is jpr else P.DirtyScheduler)(
+            pg.graph, ex, max_loop_iters=500)
+        sched.push(pg.teleport, mod.teleport_batch(64))
+        sched.push(pg.edges, web.initial_batch())
+        sched.tick()
+        for _ in range(6):
+            sched.push(pg.edges, web.churn(1.0))
+            assert sched.tick().quiesced
+        if name == "sharded":
+            assert isinstance(ex._fx_program, LinearFixpointProgram)
+            assert sorted(ex._csr_cache) == [(pg.join.id, r)
+                                             for r in range(8)]
+        ranks[name] = mod.ranks_to_array(sched.read_table(pg.new_rank), 64)
+    np.testing.assert_allclose(ranks["sharded"], ranks["single"], rtol=0,
+                               atol=BOUND)
+    np.testing.assert_allclose(ranks["sharded"], ranks["jax"], rtol=0,
+                               atol=BOUND)

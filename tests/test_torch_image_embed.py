@@ -246,7 +246,35 @@ def test_row_wise_params_map_matches_cpu_executor():
 
 def test_build_graph_checks():
     p = init_vit(0, **VIT_TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 10"):
+    with pytest.raises(NotImplementedError, match="step 14"):
         pie.build_graph(N_IMG, N_GRP, p, model_axis="model")
     with pytest.raises(ValueError, match="n_groups must be <= 256"):
         pie.build_graph(N_IMG, 300, p)
+
+
+def test_sharded_dataparallel_matches_oracle_and_jax(params):
+    """Data-parallel image-embed on an 8-shard mesh: every shard holds a
+    copy of the ViT params (a replicated Map state) and embeds its slice
+    of the tick's rows; the centroids (key-sharded Reduce) match the
+    oracle and JAX's sharded run within ``ATOL``. The shards' params are
+    their own tensors, so an update reaches each of them."""
+    from reflow_tpu.parallel import make_mesh as jmake_mesh
+    from reflow_tpu.parallel.shard import ShardedTpuExecutor
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    ex = ShardedCudaExecutor(make_mesh(8, device="cpu"))
+    sched, ig, stream = _port(ex, params)
+    got = sched.read_table(ig.centroids)
+    _close(got, stream.reference_centroids())
+    jp = jinit_vit(0, **VIT_TINY)
+    jig = jie.build_graph(N_IMG, N_GRP, jp)
+    js = JDirtyScheduler(jig.graph, ShardedTpuExecutor(jmake_mesh(8)))
+    _drive(js, jig, jie.ImageStream(jp, seed=4), JDeltaBatch)
+    _close(got, js.read_table(jig.centroids))
+    leaves = [ex.shard_states(r)[ig.embed.id]["params"]["proj_w"]
+              for r in range(8)]
+    assert len({t.data_ptr() for t in leaves}) == 8
+    ex.update_params(ig.embed, _weights(params))
+    assert all(torch.equal(ex.shard_states(r)[ig.embed.id]["params"]
+                           ["proj_w"], params["proj_w"]) for r in range(8))

@@ -81,7 +81,14 @@ def test_importing_the_port_loads_no_jax():
               "reflow_tpu_torch.subs.cli",
               "reflow_tpu_torch.proc.ownership",
               "reflow_tpu_torch.proc.worker",
-              "reflow_tpu_torch.proc.harness"):
+              "reflow_tpu_torch.proc.harness",
+              "reflow_tpu_torch.parallel",
+              "reflow_tpu_torch.parallel.spmd",
+              "reflow_tpu_torch.parallel.mesh",
+              "reflow_tpu_torch.parallel.shard",
+              "reflow_tpu_torch.parallel.shard_lowerings",
+              "reflow_tpu_torch.parallel.topo",
+              "reflow_tpu_torch.parallel.dryrun"):
         assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"

@@ -331,3 +331,107 @@ def test_to_device_refuses_weight_mass_beyond_float32():
                      np.array([1 << 23, 1 << 23]))
     with pytest.raises(ValueError, match="2\\*\\*24"):
         to_device(b, PSpec((DIM,), torch.float32, D), device="cpu")
+
+
+# -- the sharded k-NN (an 8-shard CPU mesh) --------------------------------
+
+class ShardedRun(Run):
+    """The k-NN graph on a sharded executor: the port's over an 8-shard
+    CPU mesh, or JAX's ``ShardedTpuExecutor`` on its 8 virtual devices.
+    Each shard scans a 32-doc slice of the corpus and the shards' top k
+    meet in the ``ppermute`` ring merge."""
+
+    def __init__(self, which, seed=0):
+        if which == "jax":
+            from reflow_tpu.parallel import make_mesh as jmake_mesh
+            from reflow_tpu.parallel.shard import ShardedTpuExecutor
+
+            self.kg = jknn.build_graph(Q, D, DIM, K, scan_chunk=D)
+            self.sched = JDirtyScheduler(self.kg.graph,
+                                         ShardedTpuExecutor(jmake_mesh(8)))
+            self.DB = JDeltaBatch
+        else:
+            from reflow_tpu_torch.parallel import make_mesh
+            from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+            self.kg = pknn.build_graph(Q, D, DIM, K, scan_chunk=D)
+            self.sched = P.DirtyScheduler(self.kg.graph, ShardedCudaExecutor(
+                make_mesh(8, device="cpu")))
+            self.DB = P.DeltaBatch
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_sharded_knn_matches_jax_sharded_and_single(seed):
+    """The sharded k-NN (incremental and rescan ticks) against JAX's
+    sharded run and the oracle (ids exact, scores within 1e-5), and the
+    port's single-device run bit for bit (the plain top-k here)."""
+    from reflow_tpu_torch.parallel import spmd
+
+    ticks = _stream(seed)
+    spmd.reset_collective_tally()
+    sh = _drive(ShardedRun("port"), ticks)
+    port = sh.table()
+    tally = spmd.collective_tally()
+    assert tally[("ppermute", ("delta",))][0] == 14       # 2 rescans x 7
+    assert tally[("host_gather", ())][0] == len(ticks)    # the path choice
+    assert sh.sched.executor.host_syncs == len(ticks)
+    _assert_tables(port, _drive(ShardedRun("jax"), ticks).table())
+    _assert_tables(port, _drive(Run("cpu"), ticks).table())
+    single = _drive(Run("port"), ticks).table()
+    assert set(port) == set(single)
+    for q in port:
+        np.testing.assert_array_equal(port[q], single[q])
+
+
+def test_sharded_knn_in_place_update_and_query_retraction():
+    """A doc update (an insert over a live id, seen on its owner shard)
+    rescans on every shard; a query retraction stops its rows."""
+    ticks = _edge_ticks(5)
+    port = _drive(ShardedRun("port"), ticks).table()
+    _assert_tables(port, _drive(Run("port"), ticks).table(), atol=0)
+    _assert_tables(port, _drive(Run("cpu"), ticks).table())
+    assert set(port) == set(range(3, Q))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the top-k kernel's sharded "
+                    "callers)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_sharded_knn_equals_single_device_on_card(card):
+    """On the card: a 4-shard mesh on the card's device runs the kernel
+    from its sharded callers (each shard's scan step, the ring merge's
+    [Q, 2k] top-k, the incremental [Q, k + Cd] top-k) and its table
+    equals the single-device executor's bit for bit."""
+    from reflow_tpu_torch.kernels import topk as topk_mod
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    tables = {}
+    for name in ("sharded", "single"):
+        kg = pknn.build_graph(Q, D, DIM, K, scan_chunk=D // 4)
+        ex = (ShardedCudaExecutor(make_mesh(4, device=card))
+              if name == "sharded" else P.get_executor("cuda", device=card))
+        sched = P.DirtyScheduler(kg.graph, ex)
+        l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        for pushes in _stream(2):
+            for src, keys, vals, w in pushes:
+                sched.push(kg.queries if src == "q" else kg.docs,
+                           P.DeltaBatch(np.asarray(keys, np.int64), vals,
+                                        np.full(len(keys), w, np.int64)))
+            sched.tick()
+        if name == "sharded":
+            # two rescans (4 shards x 3 ring merges each) and two
+            # incremental ticks (one top-k a shard); 1 scan step a shard
+            assert (topk_mod.TOPK_LAUNCHES - l0[0],
+                    topk_mod.TOPK_MERGE_LAUNCHES - l0[1]) == (32, 8)
+        tables[name] = {int(q): np.asarray(r) for q, r in
+                        sched.read_table(kg.index).items()}
+    assert set(tables["sharded"]) == set(tables["single"])
+    for q in tables["single"]:
+        np.testing.assert_array_equal(tables["sharded"][q],
+                                      tables["single"][q])

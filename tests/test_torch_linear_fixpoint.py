@@ -405,13 +405,45 @@ def test_dtypes_that_do_not_round_trip_take_the_row_program(case):
     np.testing.assert_allclose(vals["port"], vals["jax"], atol=1e-5)
 
 
-def test_shard_context_refused():
-    sched, _ = _pagerank_sched(64, 512, 1 << 12)
-    ex = sched.executor
-    ex.mesh = object()
-    with pytest.raises(NotImplementedError, match="sharded"):
-        LinearFixpointProgram(ex, structure=ex._fx_structure,
-                              linear=ex._linear_structure)
+def test_shard_context_runs_the_fused_loop():
+    """Under the sharded executor (an 8-shard CPU mesh) the fused loop
+    engages, one region a tick with a per-shard CSR over each arena
+    slice, and its ranks equal the single-device port's and JAX's
+    sharded run (JAX ``test_sharded.py``'s engagement test) within 1e-6
+    relative."""
+    from reflow_tpu.parallel import make_mesh as jmake_mesh
+    from reflow_tpu.parallel.shard import ShardedTpuExecutor
+    from reflow_tpu.workloads import pagerank as jpr
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    n, e = 64, 512
+    ranks = {}
+    for name, pkg, pr, ex in (
+            ("sharded", P, ppr, ShardedCudaExecutor(make_mesh(
+                8, device="cpu"))),
+            ("single", P, ppr, _port()),
+            ("jax", J, jpr, ShardedTpuExecutor(jmake_mesh(8)))):
+        web = pr.WebGraph.random(n, e, seed=21)
+        pg = pr.build_graph(n, tol=1e-6, arena_capacity=1 << 13)
+        sched = pkg.DirtyScheduler(pg.graph, ex, max_loop_iters=500)
+        sched.push(pg.teleport, pr.teleport_batch(n))
+        sched.push(pg.edges, web.initial_batch())
+        assert sched.tick().quiesced
+        for _ in range(2):
+            sched.push(pg.edges, web.churn(0.05))
+            assert sched.tick().quiesced
+        assert ex._linear_structure is not None, name
+        if pkg is P:
+            assert isinstance(ex._fx_program, LinearFixpointProgram)
+        ranks[name] = pr.ranks_to_array(sched.read_table(pg.new_rank), n)
+        if name == "sharded":
+            assert all(isinstance(k, tuple) for k in ex._csr_cache)
+            assert len(ex._csr_cache) == 8
+    np.testing.assert_allclose(ranks["sharded"], ranks["single"],
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(ranks["sharded"], ranks["jax"], rtol=1e-6,
+                               atol=1e-7)
 
 
 def test_call_many_equals_single_calls():

@@ -708,13 +708,35 @@ def test_frontend_pump_runs_fused_windows():
     assert _exact(sched, r) == want
 
 
-def test_sharded_placement_refused():
-    """The JAX queue shards its capacity axis over a ``(mesh, axis)``
-    placement; the port has one device and refuses it by name."""
-    spec = Spec((), np.float32, key_space=8)
-    with pytest.raises(NotImplementedError, match="step 10"):
-        DeviceIngressQueue({0: spec}, {0: 64}, 2,
-                           placement=(object(), "shard"))
+def test_sharded_placement_writes_shard_local_slots():
+    """Under a ``(mesh, axis)`` placement the queue splits the capacity
+    axis over the shards (the JAX sharded queue's layout): a slot write
+    lands rows ``[j*cap/n, (j+1)*cap/n)`` in shard ``j``'s own buffer,
+    zeroes what a longer earlier batch left there, and the stack comes
+    back as a ShardedDelta of the shards' buffers."""
+    from reflow_tpu_torch.executors.device_delta import ShardedDelta
+    from reflow_tpu_torch.parallel import make_mesh
+
+    spec = Spec((), np.float32, key_space=64)
+    mesh = make_mesh(4, device="cpu")
+    q = DeviceIngressQueue({0: spec}, {0: 64}, 2,
+                           placement=(mesh, "delta"))
+    q.write(0, 0, _batch(P, [(i, float(i), 1) for i in range(40)]))
+    q.write(1, 0, _batch(P, [(i, float(i), -1) for i in range(5)]))
+    st = q.stacked()[0]
+    assert isinstance(st, ShardedDelta) and len(st) == 4
+    assert [tuple(p.keys.shape) for p in st] == [(2, 16)] * 4
+    w0 = torch.cat([p.weights[0] for p in st])
+    assert w0.tolist() == [1] * 40 + [0] * 24
+    assert torch.cat([p.keys[0] for p in st])[:40].tolist() == list(range(40))
+    assert torch.cat([p.weights[1] for p in st]).tolist() == \
+        [-1] * 5 + [0] * 59
+    # a shorter batch in the next window clears the rows a longer one left
+    gen = q.seal()
+    q.retire(gen, {0: st})
+    q.write(0, 0, _batch(P, [(7, 1.0, 1)]))
+    w0 = torch.cat([p.weights[0] for p in q.stacked()[0]])
+    assert w0.tolist() == [1] + [0] * 63
 
 
 def test_profile_annotation_labels_the_window():

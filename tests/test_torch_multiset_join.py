@@ -37,14 +37,27 @@ K = 16
 
 
 def _ns(pkg):
-    if pkg == "jax":
+    if pkg.startswith("jax"):
         return JFlowGraph, JSpec, JDeltaBatch
     return P.FlowGraph, P.Spec, P.DeltaBatch
 
 
 def _sched(pkg, g):
+    """``pkg``: "port", "jax", "cpu", or "port_sharded" / "jax_sharded"
+    (the sharded executors on 8-shard CPU meshes)."""
+    if pkg == "jax_sharded":
+        from reflow_tpu.parallel import make_mesh as jmake_mesh
+        from reflow_tpu.parallel.shard import ShardedTpuExecutor
+
+        return JDirtyScheduler(g, ShardedTpuExecutor(jmake_mesh(8)))
     if pkg == "jax":
         return JDirtyScheduler(g, jget_executor("tpu"))
+    if pkg == "port_sharded":
+        from reflow_tpu_torch.parallel import make_mesh
+        from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+        return P.DirtyScheduler(g, ShardedCudaExecutor(
+            make_mesh(8, device="cpu")))
     return P.DirtyScheduler(g, P.get_executor("cuda", device="cpu")
                             if pkg == "port" else P.CpuExecutor())
 
@@ -130,6 +143,20 @@ def drive_custom(pkg):
     sched.push(a, _b(DB, [2], [[2., 1.]], [-1]))
     sched.tick()
     return _view(sched, "out")
+
+
+def test_sharded_multiset_join_differential():
+    """Both arenas key-sharded over an 8-shard mesh (each shard's slices,
+    its own append counters): the default and a custom merge equal JAX's
+    sharded run and the oracle exactly; each tick reads every shard's
+    compact-or-append decisions back once."""
+    for drive in (lambda pkg: drive_default(pkg)[0], drive_custom):
+        views = {pkg: drive(pkg)
+                 for pkg in ("port_sharded", "jax_sharded", "cpu")}
+        assert views["cpu"]
+        assert views["port_sharded"] == views["jax_sharded"] == views["cpu"]
+    _, sched = drive_default("port_sharded")
+    assert sched.executor.host_syncs == 3
 
 
 def test_custom_merge_vector_left_differential():

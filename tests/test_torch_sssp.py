@@ -10,6 +10,7 @@ table is compared exactly, and the passes of each tick equal JAX's.
 
 import numpy as np
 import pytest
+import torch
 
 import reflow_tpu_torch as P
 from reflow_tpu import DirtyScheduler as JDirtyScheduler
@@ -34,6 +35,18 @@ def _sched(pkg, sg, max_iters=None, **kw):
     if pkg == "jax":
         return JDirtyScheduler(sg.graph, jget_executor("tpu"),
                                max_loop_iters=it)
+    if pkg == "jax_sharded":
+        from reflow_tpu.parallel import make_mesh as jmake_mesh
+        from reflow_tpu.parallel.shard import ShardedTpuExecutor
+
+        return JDirtyScheduler(sg.graph, ShardedTpuExecutor(jmake_mesh(8)),
+                               max_loop_iters=it)
+    if pkg == "sharded":
+        from reflow_tpu_torch.parallel import make_mesh
+        from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+        ex = ShardedCudaExecutor(make_mesh(8, device="cpu"), **kw)
+        return P.DirtyScheduler(sg.graph, ex, max_loop_iters=it)
     ex = (P.get_executor("cuda", device="cpu", **kw) if pkg == "port"
           else P.CpuExecutor())
     return P.DirtyScheduler(sg.graph, ex, max_loop_iters=it)
@@ -45,7 +58,7 @@ def as_dict(table):
 
 
 def drive(pkg, src, dst, w, extra_ticks=(), candidates=16, **kw):
-    mod = jsp if pkg == "jax" else psp
+    mod = jsp if pkg.startswith("jax") else psp
     sg = mod.build_graph(N, candidates=candidates)
     sched = _sched(pkg, sg, **kw)
     sched.push(sg.seeds, mod.seed_batch(0))
@@ -85,6 +98,36 @@ def test_device_matches_cpu_and_jax_including_churn(seed):
     assert got["port"][1] == got["jax"][1]
     # the host-driven loop runs the same passes
     host = drive("port", src, dst, w, ticks, fixpoint=False)
+    assert host[0] == ref and host[1] == got["port"][1]
+
+
+@pytest.fixture
+def one_thread():
+    """Eight shards of small ops: torch's intra-op thread pool only adds
+    contention at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_sharded_matches_cpu_and_jax_including_churn(one_thread):
+    """The min-plus loop on an 8-shard mesh (the row fixpoint over the
+    sharded pass, one uniform readback a pass; min/max rows routed to
+    their key's owner): the table equals the oracle's, JAX's sharded
+    run's and Bellman-Ford's, pass for pass with the single device."""
+    rng = np.random.default_rng(7)
+    src, dst, w = random_graph(rng)
+    ticks, (fs, fd, fw) = _churn(rng, src, dst, w)
+    got = {pkg: drive(pkg, src, dst, w, ticks)
+           for pkg in ("sharded", "jax_sharded", "port")}
+    ref = psp.reference_distances(N, fs, fd, fw, 0)
+    assert got["sharded"][0] == got["jax_sharded"][0] == ref
+    assert got["sharded"][1] == got["port"][1]
+    assert type(got["sharded"][2].executor._fx_program) is FixpointProgram
+    # the scheduler's host-driven loop over sharded passes (global egress
+    # batches between passes) runs the same passes
+    host = drive("sharded", src, dst, w, ticks, fixpoint=False)
     assert host[0] == ref and host[1] == got["port"][1]
 
 

@@ -313,10 +313,36 @@ Phases, each printing its own lines:
    each leg's tick ms beside its twin's, the collectives by kind (calls,
    MB), the launches a tick. Legs B and C launch no top-k kernel.
 
+19. **The model axis and a mesh across processes.** Leg A: config 5 at
+   full width (ViT-B/16, 256 images a tick, 2^14 ids, 64 groups) on
+   ``make_model_mesh(2, 2)`` with ``ShardedCudaExecutor(model_axis=
+   "model")``, all four shards on the card, beside a single-device twin
+   fed the same stream (an insert tick, then inserts, a move and a
+   delete): the centroids within 5e-3 and the features within 2e-2 of
+   the twin's, each shard's ``wq`` [768, 384] before and after
+   ``update_params``, and 24 psum steps over ``model`` a tick (2 a
+   block x 12). Leg B: two ``python -m reflow_tpu_torch.parallel.
+   multihost_worker`` children in a ``gloo`` group, each stepping two
+   shards of a (dcn 2, delta 2) mesh on the card. B1: config 3 at full
+   width, 3 churn ticks, the exactly-once round and a collective
+   checkpoint restored into fresh schedulers; the owned ranks within
+   1e-3 of the reference and 2 tol (2e-4, relative) of a twin of the
+   same mesh shape run here in one process, every tick, while a
+   one-tick-stale continuation must lie outside that bound; restored vs
+   live within the same 2 tol. B2:
+   config 4's k-NN at its widths (the preload cut to 2 x 65,536); every
+   tick's table equal to a single-device twin's bit for bit, both top-k
+   entries launched in both children. Printed: the backend, the bytes
+   staged across the boundary, the boundary exchanges by kind, each
+   child's start, its launches. A child that exits non-zero or outlives
+   ``MH_LIMIT_S`` fails the phase. ``python3 chip_smoke.py
+   --multihost-nccl`` on a machine of several cards runs leg B alone in
+   an nccl group, a process a card.
+
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
 them, must stay 0. Phases 13-16 and 18 zero them again and count their
-own paths' launches apart from their twins'; phase 17 counts them in its
-child.
+own paths' launches apart from their twins'; phase 17 and phase 19's
+leg B count them in their children; leg A launches none.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -5761,9 +5787,352 @@ def phase_mesh(card: str) -> Dict[str, object]:
             "deferred": prd, "misc": misc}
 
 
+# -- phase 19: the model axis and a mesh across processes -------------------
+
+#: leg A: config 5 at full width on a (delta 2, model 2) mesh
+TP_EMBED = dict(per_tick=256, n_images=1 << 14, n_groups=64, seed=19)
+#: config 5's limits (PERF.md section 2): the centroids and the features
+TP_CENT_ATOL, TP_FEAT_ATOL = 5e-3, 2e-2
+#: leg B1: config 3 at full width over two processes
+MH_PR = dict(PAGERANK, churn_ticks=3)
+#: leg B2: config 4's k-NN at its widths, the preload cut to 2 chunks
+MH_KNN = dict(FULL, preload_chunks=2, seed=19)
+#: seconds a pair of children may take
+MH_LIMIT_S = 300
+#: B1's ranks against a twin of the same mesh shape run here in one
+#: process, and a restored run's against the live one (relative). The
+#: runs hold the same shards and rows; only the order of the card's
+#: float atomics differs, and each run stops emitting a rank once it
+#: moves by no more than tol, so two sound runs may differ by up to their
+#: two suppressed residues, 2 tol (on the H100 the twins read 1.2e-4 and
+#: the restored runs up to 8.5e-6 at tol 1e-4; a one-tick-stale
+#: continuation, checked to lie outside the bound, reads 14: PERF.md)
+MH_TWIN_RTOL = 2 * MH_PR["tol"]
+
+
+def _feature_diff(kind: str, got: DeltaBatch, want: DeltaBatch,
+                  dim: int) -> float:
+    """Max |diff| of two ticks' embed egress rows ([group, *features],
+    paired by key, weight and group): the same rows must come out."""
+    def order(b):
+        v = np.asarray(b.values)
+        return np.lexsort((v[:, 0], np.asarray(b.weights),
+                           np.asarray(b.keys)))
+
+    og, ow = order(got), order(want)
+    gv, wv = np.asarray(got.values)[og], np.asarray(want.values)[ow]
+    if (gv.shape != (len(want), 1 + dim)
+            or not np.array_equal(np.asarray(got.keys)[og],
+                                  np.asarray(want.keys)[ow])
+            or not np.array_equal(np.asarray(got.weights)[og],
+                                  np.asarray(want.weights)[ow])
+            or not np.array_equal(gv[:, 0], wv[:, 0])):
+        raise AssertionError(f"{kind} tick: the embed rows {gv.shape} are "
+                             f"not the twin's {wv.shape}")
+    return float(np.abs(gv[:, 1:] - wv[:, 1:]).max())
+
+
+def phase_model_axis(card: str) -> Dict[str, object]:
+    """Leg A: config 5 tensor-parallel over a (2, 2) mesh beside a
+    single-device twin."""
+    from reflow_tpu_torch.parallel import make_model_mesh, spmd
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    cfg = TP_EMBED
+    params = vit.init_vit(0, **vit.VIT_B_16, device=DEVICE)
+    mcfg = params["_cfg"]
+    n, G, N = cfg["per_tick"], cfg["n_groups"], cfg["n_images"]
+    ex = ShardedCudaExecutor(make_model_mesh(2, 2, device=DEVICE),
+                             model_axis="model")
+    if ex.axis != "delta" or ex.n != 2 or ex.m != 2:
+        raise AssertionError(f"data axis {ex.axis} of {ex.n}, model {ex.m}")
+    ig = image_embed.build_graph(N, G, params, model_axis="model")
+    ig_t = image_embed.build_graph(N, G, params)
+    # the embed Map's egress rows, read from the ticks themselves
+    for e in (ig, ig_t):
+        e.graph.sink(e.embed, "feats")
+    sched = DirtyScheduler(ig.graph, ex)
+    twin = DirtyScheduler(ig_t.graph, _executor())
+
+    def feed(stream):
+        ids = np.arange(n)
+        b1 = stream.insert(ids, ids % G)
+        ids2 = np.arange(n, 2 * n - 3)
+        b2 = DeltaBatch.concat([
+            stream.insert(ids2, ids2 % G),
+            stream.move(3, (stream.groups[3] + 1) % G), stream.delete(7)])
+        return [("insert", b1), ("insert+move+delete", b2)]
+
+    stream = image_embed.ImageStream(params, seed=cfg["seed"])
+    stream_t = image_embed.ImageStream(params, seed=cfg["seed"])
+    rows: List[Dict[str, object]] = []
+    tallies = []
+    want_psums = 2 * mcfg["depth"]
+    feat = 0.0
+    for (kind, b), (_, bt) in zip(feed(stream), feed(stream_t)):
+        spmd.reset_collective_tally()
+        t0 = time.perf_counter()
+        sched.push(ig.images, b)
+        got_f = sched.tick().sink_deltas["feats"]
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        tally = spmd.collective_tally()
+        tallies.append(tally)
+        psums = tally.get(("psum", ("model",)), (0, 0))[0]
+        if psums != want_psums:
+            raise AssertionError(f"{kind} tick: {psums} psum steps over "
+                                 f"model, expected {want_psums}")
+        t0 = time.perf_counter()
+        twin.push(ig_t.images, bt)
+        want_f = twin.tick().sink_deltas["feats"]
+        _sync()
+        rows.append({"kind": kind, "ms": ms, "psums": psums,
+                     "twin_ms": (time.perf_counter() - t0) * 1e3})
+        feat = max(feat, _feature_diff(kind, got_f, want_f, mcfg["dim"]))
+    got, want = sched.read_table(ig.centroids), twin.read_table(
+        ig_t.centroids)
+    if set(got) != set(want):
+        raise AssertionError(f"centroid groups {sorted(got)} vs the twin's "
+                             f"{sorted(want)}")
+    cent = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
+               for k in want)
+    if not np.isfinite(cent) or cent > TP_CENT_ATOL:
+        raise AssertionError(f"centroids differ from the twin's by {cent}")
+
+    if not np.isfinite(feat) or feat > TP_FEAT_ATOL:
+        raise AssertionError(f"the embed Map's features differ from the "
+                             f"twin's by {feat}")
+
+    def shard_params(r):
+        return ex.shard_states(r)[ig.embed.id]["params"]
+
+    def wq_shapes():
+        return {tuple(shard_params(r)["blocks"][0]["wq"].shape)
+                for r in ex.mesh.local_ranks}
+
+    before = wq_shapes()
+    ex.update_params(ig.embed, {k: v for k, v in params.items()
+                                if k != "_cfg"})
+    after = wq_shapes()
+    want_wq = {(mcfg["dim"], mcfg["dim"] // 2)}
+    if before != want_wq or after != want_wq:
+        raise AssertionError(f"wq per shard {before}, after update_params "
+                             f"{after}; expected {want_wq}")
+    log(f"[model_axis] config 5 (ViT-B/16, {n} images a tick, {N} ids, {G} "
+        f"groups) on make_model_mesh(2, 2), model_axis 'model', the four "
+        f"shards on {ex.device}: tick ms "
+        + ", ".join(f"{r['kind']} {r['ms']:.3f} (twin {r['twin_ms']:.3f})"
+                    for r in rows)
+        + f" [{card}]")
+    log(f"[model_axis] psum steps over model a tick {[r['psums'] for r in rows]}"
+        f" (2 a block x {mcfg['depth']} blocks); centroids max|diff| vs the "
+        f"single-device twin {cent:.3g} (bound {TP_CENT_ATOL}), the embed "
+        f"Map's egress features of both ticks {feat:.3g} (bound "
+        f"{TP_FEAT_ATOL}); wq a shard {sorted(before)[0]}, "
+        f"after update_params {sorted(after)[0]}")
+    for line in _tally_lines(tallies[-1], card):
+        log(f"[model_axis] collectives of the second tick: {line}")
+    return {"ticks": rows, "centroid_diff": cent, "feature_diff": feat}
+
+
+def _mh_args(cfg: Dict[str, object], keys) -> List[str]:
+    out = []
+    for k in keys:
+        out += ["--" + k.lower().replace("_", "-"), str(cfg[k])]
+    return out
+
+
+def _mh_lines(tag: str, sums: list, card: str) -> None:
+    for s in sums:
+        log(f"[multihost] {tag} child {s['pid']}: backend {s['backend']}, "
+            f"start {s['start_s']:.2f} s to the group, staged across the "
+            f"boundary {s['staged_bytes'] / 1e6:.3f} MB, exchanges by kind "
+            + ", ".join(f"{k} {v[0]} ({v[1] / 1e6:.3f} MB)"
+                        for k, v in sorted(s["boundary"].items()))
+            + f"; (topk, topk_merge) launches {tuple(s['launches'])} "
+            f"[{card}]")
+
+
+#: leg B's group: two gloo processes sharing the card
+MH_GROUP = dict(backend="gloo", nproc=2)
+
+
+def _mh_group(tmp: str, tag: str, args: List[str],
+              group: Dict[str, object]):
+    """``group["nproc"]`` ``multihost_worker`` children in one group of
+    ``group["backend"]``: gloo children share the card, each nccl child
+    takes the card of its index."""
+    from reflow_tpu_torch.parallel.multihost_worker import WorkerGroup
+
+    dev = None if group["backend"] == "nccl" else (
+        "cuda:0" if DEVICE is None else str(DEVICE))
+    return WorkerGroup(group["nproc"], group["backend"], args, out_dir=tmp,
+                       tag=tag, device=dev, limit_s=MH_LIMIT_S,
+                       timeout_s=240)
+
+
+def _mh_ranks(tables: list, tag: str, nproc: int) -> np.ndarray:
+    """The children's owned ranks of tick ``tag``, joined in rank order."""
+    return np.concatenate([tables[r // 2][f"{tag}/r{r}/{nid}/emitted"]
+                           for r in range(2 * nproc)
+                           for nid in [_rank_nid(tables[r // 2], tag, r)]])
+
+
+def phase_multihost(card: str, group: Dict[str, object] = MH_GROUP
+                    ) -> Dict[str, object]:
+    """Leg B: config 3 (B1, two shards a process) beside a twin of the
+    same mesh shape in this process, and config 4's k-NN (B2, four
+    shards in all) beside a single-device twin; each twin runs here while
+    the children run."""
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel import multihost_worker as mw
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    nproc, where = group["nproc"], (f"{group['nproc']} {group['backend']} "
+                                    f"processes")
+    kdelta = max(1, 4 // nproc)
+    tmp = tempfile.mkdtemp()
+    try:
+        cfg = MH_PR
+        b1 = _mh_group(tmp, "b1", [
+            "--case", "pagerank", "--record", "ranks", "--delta", "2",
+            "--ckpt", os.path.join(tmp, "ckpt"),
+            "--restore-rtol", str(MH_TWIN_RTOL),
+            *_mh_args(cfg, ("n_nodes", "n_edges", "churn", "churn_ticks",
+                            "tol", "seed"))], group)
+        # the twin: the children's mesh shape and row layout in one
+        # process (dcn rows of 2 shards, each process's stripe of every
+        # batch in its rows), its shards on the card
+        twin_out: Dict[str, np.ndarray] = {}
+        t0 = time.perf_counter()
+        tck = os.path.join(tmp, "twin_ckpt")
+        tdev = "cuda:0" if DEVICE is None else DEVICE
+        try:
+            tsum = mw.drive_pagerank(
+                cfg, lambda: ShardedCudaExecutor(make_mesh(
+                    2 * nproc, dcn=nproc, device=tdev)),
+                lambda s, node, b, cap, batch_id=None: s.push(
+                    node, mw.twin_batch(b, node.spec, nproc, cap, tdev),
+                    batch_id=batch_id),
+                nproc=nproc, out=twin_out, record="ranks",
+                save=lambda s: save_checkpoint(s, tck),
+                load=lambda s: load_checkpoint(s, tck),
+                restore_rtol=MH_TWIN_RTOL)
+            twin_s = time.perf_counter() - t0
+            sums, tables = b1.wait()
+        finally:
+            b1.kill()
+        n = cfg["n_nodes"]
+        worst = {}
+        for tag in [t["tag"] for t in sums[0]["ticks"]]:
+            want = _mh_ranks([twin_out] * nproc, tag, nproc)
+            got = _mh_ranks(tables, tag, nproc)
+            rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+            worst[tag] = float(rel.max())
+            if got.shape != (n,) or not np.isfinite(got).all() \
+                    or worst[tag] > MH_TWIN_RTOL:
+                raise AssertionError(f"B1 {tag}: ranks {got.shape} vs the "
+                                     f"twin's, max rel {worst[tag]}")
+        # a wrong continuation: the restored run against the twin's tick
+        # before it. The bound must tell the two apart
+        stale_want = _mh_ranks([twin_out] * nproc, "once", nproc)
+        stale = float((np.abs(_mh_ranks(tables, "restored", nproc)
+                              - stale_want)
+                       / np.maximum(np.abs(stale_want), 1.0)).max())
+        if stale <= MH_TWIN_RTOL:
+            raise AssertionError(f"B1: a one-tick-stale continuation is "
+                                 f"{stale} from the twin, within the bound")
+        ref = max(s["vs_reference"] for s in sums)
+        if ref > PAGERANK_MAX_REL_ERR:
+            raise AssertionError(f"B1 owned ranks vs the reference: {ref}")
+        if len({s["digest"] for s in sums} | {tsum["digest"]}) != 1:
+            raise AssertionError("B1: the dedup digests differ")
+        log(f"[multihost] B1 config 3 ({n} nodes, {cfg['n_edges']} edges, "
+            f"{cfg['churn_ticks']} churn ticks, the exactly-once round, a "
+            f"collective checkpoint restored into fresh schedulers) on "
+            f"(dcn {nproc}, delta 2) over {where}: ranks vs the reference "
+            f"{ref:.3g} (bound {PAGERANK_MAX_REL_ERR}), vs the one-process "
+            f"twin of the same mesh by tick "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + f" (bound {MH_TWIN_RTOL}); a one-tick-stale continuation "
+            f"{stale:.3g}; restored vs live "
+            + ", ".join(f"{s['restored_vs_live']:.3g}" for s in sums)
+            + f" (twin {tsum['restored_vs_live']:.3g}; bound "
+            f"{MH_TWIN_RTOL}); tick "
+            f"ms (passes) child 0 "
+            + ", ".join(f"{t['tag']} {t['ms']:.1f} ({t['passes']})"
+                        for t in sums[0]["ticks"])
+            + "; twin " + ", ".join(f"{t['tag']} {t['ms']:.1f} "
+                                    f"({t['passes']})"
+                                    for t in tsum["ticks"])
+            + f" (the twin ran beside the children, {twin_s:.1f} s) "
+            f"[{card}]")
+        _mh_lines("B1", sums, card)
+
+        kcfg = MH_KNN
+        b2 = _mh_group(tmp, "b2", ["--case", "knn", "--delta", str(kdelta),
+                                   *_mh_args(kcfg, (
+                                       "Q", "D", "dim", "k", "scan_chunk",
+                                       "preload_chunk", "preload_chunks",
+                                       "insert_ticks", "per_tick", "retract",
+                                       "query_update", "seed"))], group)
+        ktwin: Dict[str, np.ndarray] = {}
+        try:
+            ksum = mw.drive_knn(kcfg, _executor(), ktwin)
+            ksums, ktables = b2.wait()
+        finally:
+            b2.kill()
+        for i, t in enumerate(ktables):
+            diff = [key for key in ktwin
+                    if not np.array_equal(t[key], ktwin[key])]
+            if set(t) != set(ktwin) or diff:
+                raise AssertionError(f"B2 child {i}: tables differ from the "
+                                     f"twin's at {diff[:6]}")
+        for s in ksums:
+            if _on_card() and not (s["launches"][0] and s["launches"][1]):
+                raise AssertionError(f"B2 child {s['pid']} launched (topk, "
+                                     f"topk_merge) {s['launches']}")
+        log(f"[multihost] B2 config 4's k-NN (Q {kcfg['Q']}, {kcfg['dim']} "
+            f"int8, k {kcfg['k']}, chunk {kcfg['scan_chunk']}, preload 2 x "
+            f"{kcfg['preload_chunk']}) on (dcn {nproc}, delta {kdelta}) over "
+            f"{where}: every tick's table equal to the single-device "
+            f"twin's bit for bit ({len(ksum['ticks'])} ticks); tick ms "
+            f"child 0 " + ", ".join(f"{t['kind']} {t['ms']:.1f}"
+                                    for t in ksums[0]["ticks"])
+            + "; twin " + ", ".join(f"{t['kind']} {t['ms']:.1f}"
+                                    for t in ksum["ticks"])
+            + f" [{card}]")
+        _mh_lines("B2", ksums, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"b1": sums, "b2": ksums}
+
+
+def _rank_nid(tables: Dict[str, np.ndarray], tag: str, r: int) -> str:
+    return next(k.split("/")[2] for k in tables
+                if k.startswith(f"{tag}/r{r}/") and k.endswith("/emitted"))
+
+
+def multihost_nccl() -> int:
+    """``python3 chip_smoke.py --multihost-nccl`` on a machine with
+    several cards: phase 19's leg B in an nccl group, a process a card
+    (not part of the default run, which has one card)."""
+    dev = phase_device()
+    phase_build()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"--multihost-nccl needs 2+ cards, has {cards}")
+    t0 = time.perf_counter()
+    phase_multihost(dev["card"], dict(backend="nccl", nproc=cards))
+    log(f"[time] leg B over nccl {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--lockcheck-child"]:
         return lockcheck_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--multihost-nccl"]:
+        return multihost_nccl()
     t_start = time.perf_counter()
     spent: Dict[str, float] = {}
 
@@ -5794,6 +6163,8 @@ def main() -> int:
     fleet = timed(phase_fleet, card)
     lockcheck = timed(phase_lockcheck, card)
     mesh = timed(phase_mesh, card)
+    timed(phase_model_axis, card)
+    multihost = timed(phase_multihost, card)
     log(f"[tier] ship lag, ms from the ack to the follower's horizon "
         f"(insert ticks, median): over TCP {tier['lag_ms']:.3f} (phase 15),"
         f" in process {replica['lag_ms_r0']:.3f} (phase 14, r0) [{card}]")

@@ -74,6 +74,14 @@ class Executor(abc.ABC):
         """
         return None
 
+    def live_anywhere(self, counts: Dict[int, int]) -> Dict[int, bool]:
+        """Which egress batches hold live rows, from this process's
+        live-row counts ``{node id: rows}``: the scheduler's host branches
+        (a loop's next pass, a sink's materialization) decide on it. One
+        controller holds every row; an executor whose batches are
+        process-local overrides this to read every process's counts."""
+        return {nid: n > 0 for nid, n in counts.items()}
+
     def materialize(self, batch) -> DeltaBatch:
         """Convert a (possibly device-resident) sink egress batch to host."""
         return batch

@@ -21,6 +21,7 @@ from reflow_tpu_torch.delta import DeltaBatch, Spec, host_dtype, torch_dtype
 from reflow_tpu_torch.utils.faults import DeliveryError
 
 __all__ = ["DeviceDelta", "ShardedDelta", "bucket_capacity", "check_weight_mass",
+           "check_weight_mass_value",
            "devices_of", "resolve_device", "to_device", "to_host",
            "MAX_BATCH_WEIGHT_MASS"]
 
@@ -139,8 +140,14 @@ MAX_BATCH_WEIGHT_MASS = 1 << 24
 def check_weight_mass(batch: DeltaBatch) -> None:
     """Reject a batch whose |w| mass the device fold cannot take exactly
     (fail loudly at the host boundary)."""
-    if len(batch) and int(np.abs(batch.weights).sum()) >= \
-            MAX_BATCH_WEIGHT_MASS:
+    if len(batch):
+        check_weight_mass_value(int(np.abs(batch.weights).sum()))
+
+
+def check_weight_mass_value(mass) -> None:
+    """:func:`check_weight_mass` on a mass already summed (a global mass
+    over several processes' chunks)."""
+    if mass >= MAX_BATCH_WEIGHT_MASS:
         raise ValueError(
             "batch weight mass >= 2**24 exceeds the device path's exact "
             "float32 range; split the batch across ticks")

@@ -734,7 +734,7 @@ class LinearFixpointProgram(_MacroTickMixin):
                 tail = self._build_tail(jstate, Klc, bcount, rc)
                 joined = self._joined(csr, tail)
         last = {"csr": cause, "tail_rows": rc - bcount, "tiers": []}
-        if ctx.rank == 0:
+        if ctx.lead:
             self.last_tick = last
 
         tiers, dense_ix = self.tiers, len(self.tiers)

@@ -52,6 +52,7 @@ span costs one flag check.
 from __future__ import annotations
 
 import contextlib
+import inspect
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -59,7 +60,7 @@ import torch
 from reflow_tpu_torch.delta import Spec, torch_dtype
 from reflow_tpu_torch.executors.arena import _lex_order, compact_arena
 from reflow_tpu_torch.executors.device_delta import DeviceDelta
-from reflow_tpu_torch.graph import Node
+from reflow_tpu_torch.graph import GraphError, Node
 from reflow_tpu_torch.kernels.topk import (NEG, chunked_corpus_topk, scores,
                                            topk)
 
@@ -387,6 +388,10 @@ def _lower_map(op, node: Node, state, ins, *, on_sync=None
                 vals = op.fn(p, d.values)
             else:
                 vals = torch.func.vmap(op.fn, in_dims=(None, 0))(p, d.values)
+            if inspect.isgenerator(vals):
+                raise GraphError(
+                    f"{node}: a tensor-parallel Map (param_specs) runs "
+                    f"on ShardedCudaExecutor(mesh, model_axis=...)")
         else:
             vals = _apply_rowfn(op.fn, op.vectorized, d.values)
         vals = _as(vals, torch_dtype(node.spec.value_dtype), d.values.device)

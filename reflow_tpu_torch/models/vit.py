@@ -24,6 +24,15 @@ Numerics follow the JAX package:
 - GELU is the tanh approximation, ``jax.nn.gelu``'s default.
 - LayerNorm takes the population variance and ``rsqrt(v + 1e-6)``.
 
+Tensor parallelism (:func:`vit_param_specs`, :func:`vit_forward_tp`):
+Megatron's layout over a model axis of ``m`` shards. QKV and MLP-in are
+column-sharded (each shard holds ``heads/m`` heads and ``mlp_dim/m``
+hidden units), attention-out and MLP-out row-sharded, and each
+row-sharded product is summed over the model axis by one ``psum``: two a
+block. The forward is a generator body of the SPMD runtime
+(``parallel/spmd.py``) that yields those psums; activations are the
+same on every member of a model group.
+
 While a profiler records, the bf16 GEMMs run inside ``reflow::vit.gemm``
 ranges and the attention products inside ``reflow::vit.attn_products``,
 so a trace can split the forward's device time; everything else is
@@ -41,8 +50,9 @@ import torch.nn.functional as F
 from reflow_tpu_torch.executors.device_delta import resolve_device
 from reflow_tpu_torch.executors.lowerings import span
 
-__all__ = ["init_vit", "vit_forward", "vit_forward_plain", "vit_flops",
-           "VIT_B_16", "VIT_TINY"]
+__all__ = ["init_vit", "vit_forward", "vit_forward_plain",
+           "vit_forward_tp", "vit_flops", "vit_param_specs", "VIT_B_16",
+           "VIT_TINY"]
 
 #: ViT-B/16 (the reference workload's extractor)
 VIT_B_16 = dict(img=224, chans=3, patch=16, dim=768, depth=12, heads=12,
@@ -136,7 +146,10 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _attn(x, blk, heads: int, dot: Callable):
-    d = x.shape[-1]
+    """Multi-head attention over ``heads`` heads of ``blk``'s projections
+    (all of them, or one model shard's column slices), ending in the
+    output projection (a partial product under tensor parallelism)."""
+    d = blk["wq"].shape[-1]
     hd = d // heads
 
     def split(w):
@@ -168,7 +181,7 @@ def vit_flops(*, img: int, chans: int, patch: int, dim: int, depth: int,
     return float(2 * n * pdim * dim + depth * per_block)
 
 
-def _forward(params: Dict, images: torch.Tensor, dot: Callable):
+def _embed(params: Dict, images: torch.Tensor, dot: Callable):
     cfg = params["_cfg"]
     img, chans, patch = cfg["img"], cfg["chans"], cfg["patch"]
     b = images.shape[0]
@@ -177,7 +190,12 @@ def _forward(params: Dict, images: torch.Tensor, dot: Callable):
     # patchify: [B, g, p, g, p, C] -> [B, g*g, p*p*C]
     x = x.reshape(b, g, patch, g, patch, chans)
     x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, patch * patch * chans)
-    x = dot(x, params["proj_w"]) + params["proj_b"] + params["pos"]
+    return dot(x, params["proj_w"]) + params["proj_b"] + params["pos"]
+
+
+def _forward(params: Dict, images: torch.Tensor, dot: Callable):
+    cfg = params["_cfg"]
+    x = _embed(params, images, dot)
     for blk in params["blocks"]:
         x = x + _attn(_ln(x, blk["ln1"]), blk, cfg["heads"], dot)
         h = dot(_ln(x, blk["ln2"]), blk["w1"]) + blk["b1"]
@@ -196,3 +214,64 @@ def vit_forward_plain(params: Dict, images: torch.Tensor) -> torch.Tensor:
     """:func:`vit_forward` with every product through :func:`_dot_plain`,
     on any device: the yardstick the card's forward is held to."""
     return _forward(params, images, _dot_plain)
+
+
+# -- tensor-parallel forward over a (delta, model) mesh -------------------
+
+def vit_param_specs(cfg: Dict, model_axis: str = "model"):
+    """Per-leaf :class:`~reflow_tpu_torch.parallel.mesh.PartSpec` s for
+    Megatron tensor parallelism, the JAX package's layout: QKV and MLP-in
+    split by column (dim 1), attention-out and MLP-out by row (dim 0),
+    ``b1`` split; the LayerNorms, the row-sharded layers' biases, the
+    projection and the positional table replicated. The tree is
+    ``init_vit``'s without ``_cfg``."""
+    from reflow_tpu_torch.parallel.mesh import PartSpec
+
+    col_w = PartSpec(None, model_axis)      # [in, out/m]
+    row_w = PartSpec(model_axis, None)      # [in/m, out]
+    rep = PartSpec()
+    block = {
+        "ln1": {"g": rep, "b": rep}, "ln2": {"g": rep, "b": rep},
+        "wq": col_w, "wk": col_w, "wv": col_w, "wo": row_w,
+        "w1": col_w, "b1": PartSpec(model_axis), "w2": row_w, "b2": rep,
+    }
+    return {
+        "proj_w": rep, "proj_b": rep, "pos": rep,
+        "ln_f": {"g": rep, "b": rep},
+        "blocks": [dict(block) for _ in range(cfg["depth"])],
+    }
+
+
+def vit_forward_tp(params: Dict, images: torch.Tensor,
+                   axis: str = "model"):
+    """One model shard's tensor-parallel forward, a generator body:
+    ``params`` holds this shard's slices (:func:`vit_param_specs`), the
+    images are the same on every member of the model group, and each
+    block yields two ``psum`` requests over ``axis`` (attention-out,
+    MLP-out). Drive it with ``yield from`` inside an SPMD region (the
+    sharded Map lowering does); it returns the features ``[B, dim]``,
+    equal to :func:`vit_forward`'s up to float32 summation order. The
+    model axis size is read from the slices; one that does not divide
+    ``heads``, ``dim`` and ``mlp_dim`` raises ``ValueError``."""
+    from reflow_tpu_torch.parallel.spmd import psum
+
+    cfg = params["_cfg"]
+    m = cfg["dim"] // params["blocks"][0]["wq"].shape[-1] \
+        if params["blocks"] else 1
+    if (cfg["heads"] % m or cfg["dim"] % m or cfg["mlp_dim"] % m
+            or cfg["dim"] // m != params["blocks"][0]["wq"].shape[-1]):
+        # a wrong split passes every shape check (heads=4 over m=8 with
+        # dim 32) but fuses fractions of heads into each local one
+        raise ValueError(
+            f"model axis size {m} must divide heads={cfg['heads']}, "
+            f"dim={cfg['dim']}, and mlp_dim={cfg['mlp_dim']}")
+    heads_local = cfg["heads"] // m
+    x = _embed(params, images, _dot)
+    for blk in params["blocks"]:
+        part = _attn(_ln(x, blk["ln1"]), blk, heads_local, _dot)
+        x = x + (yield psum(part, axis))
+        h = _dot(_ln(x, blk["ln2"]), blk["w1"]) + blk["b1"]
+        part = _dot(F.gelu(h, approximate="tanh"), blk["w2"])
+        x = x + (yield psum(part, axis)) + blk["b2"]
+    x = _ln(x, params["ln_f"])
+    return x.mean(dim=-2)

@@ -1,5 +1,5 @@
-"""Mesh execution for the port: the single-controller SPMD runtime, the
-sharded executor and the staged executor.
+"""Mesh execution for the port: the SPMD runtime, the sharded executor,
+the staged executor, and meshes across processes.
 
 The counterpart of ``reflow_tpu/parallel``. The parallelism strategies:
 
@@ -9,23 +9,32 @@ The counterpart of ``reflow_tpu/parallel``. The parallelism strategies:
   tables and arenas) key-range-sharded — each shard owns a key range;
   cross-shard combination is ``psum_scatter`` (dense) or ``all_to_all``
   row routing (``shard_lowerings.route_rows``);
+- **tensor-parallel**: a Map's params split over a model axis
+  (``ShardedCudaExecutor(model_axis=...)``, ``mesh.PartSpec``), its
+  function yielding its own psums (``models.vit.vit_forward_tp``);
 - **topo-partitioning**: contiguous FlowGraph stages pinned to devices,
   one pass per stage with explicit boundary handoff —
   ``topo.StagedCudaExecutor``, driven by ``Node.stage``.
 
-``spmd`` runs the shards of a region in one process (one host thread,
-each shard a generator that yields at its collectives); ``mesh`` builds
-meshes of torch devices; ``dryrun.dryrun_multichip(n)`` certifies a
-sharded PageRank on an ``n``-shard mesh.
+``spmd`` steps each process's shards on one host thread (each shard a
+generator that yields at its collectives; a collective across processes
+is one exchange); ``dist`` joins the processes of a job;
+``mesh`` builds meshes of torch devices (``make_mesh(dcn=
+process_count())`` spans the processes); ``dryrun.dryrun_multichip(n)``
+certifies a sharded PageRank on an ``n``-shard mesh;
+``multihost_worker`` is one process of a mesh across processes.
 """
 
 from reflow_tpu_torch.parallel.mesh import (DCN_AXIS, DELTA_AXIS, MODEL_AXIS,
-                                            Mesh, make_mesh, make_model_mesh,
-                                            replicate, shard_batch,
+                                            Mesh, PartSpec, make_mesh,
+                                            make_model_mesh, replicate,
+                                            shard_batch,
+                                            shard_batch_process_local,
                                             shard_state_tree)
 
-__all__ = ["DCN_AXIS", "DELTA_AXIS", "MODEL_AXIS", "Mesh", "make_mesh",
-           "make_model_mesh", "replicate", "shard_batch", "shard_state_tree",
+__all__ = ["DCN_AXIS", "DELTA_AXIS", "MODEL_AXIS", "Mesh", "PartSpec",
+           "make_mesh", "make_model_mesh", "replicate", "shard_batch",
+           "shard_batch_process_local", "shard_state_tree",
            "ShardedCudaExecutor", "StagedCudaExecutor", "dryrun_multichip"]
 
 

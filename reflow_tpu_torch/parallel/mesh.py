@@ -1,5 +1,5 @@
-"""Device meshes for the single-controller sharded executor, and the
-placement helpers that row-shard a delta or key-shard a state tree.
+"""Device meshes for the sharded executor, and the placement helpers
+that row-shard a delta or key-shard a state tree.
 
 The counterpart of ``reflow_tpu/parallel/mesh.py``. A :class:`Mesh` is
 an n-dimensional array of ``torch.device`` entries with one name per
@@ -16,10 +16,17 @@ stream: the semantics of the mesh at ``n`` times the launches); with
 card and no ``device`` it raises, as every entry point of the port
 does.
 
-Left out until the multi-controller slice: ``shard_batch_process_local``
-(each process contributing its rows to one global batch) and a ``dcn``
-axis that spans processes; ``make_mesh(dcn=k)`` here is the
-single-controller 2-axis form.
+Processes: once this process joined a group (``parallel/dist.py``),
+``make_mesh(dcn=process_count())`` spans the processes. Each dcn row is
+one process's shards (``Mesh.local_ranks``); the other rows' entries
+stand for shards this process never steps. Ingest with
+:func:`shard_batch_process_local`: each process contributes its own
+rows, and the weight-mass guard runs on the global mass.
+
+Tensor parallelism: :class:`PartSpec` says how one parameter leaf lies
+over the mesh (one entry per dim: an axis name or None);
+:func:`slice_by_spec` and :func:`join_by_spec` cut a tree into its model
+shards and join them back.
 """
 
 from __future__ import annotations
@@ -30,12 +37,13 @@ import numpy as np
 import torch
 
 from reflow_tpu_torch.executors.device_delta import (
-    DeviceDelta, MAX_BATCH_WEIGHT_MASS, ShardedDelta, bucket_capacity,
+    DeviceDelta, ShardedDelta, bucket_capacity, check_weight_mass_value,
     resolve_device, to_device)
 
-__all__ = ["DELTA_AXIS", "DCN_AXIS", "MODEL_AXIS", "Mesh", "ShardedDelta",
-           "make_mesh", "make_model_mesh", "replicate", "shard_batch",
-           "shard_state_tree"]
+__all__ = ["DELTA_AXIS", "DCN_AXIS", "MODEL_AXIS", "Mesh", "PartSpec",
+           "ShardedDelta", "join_by_spec", "make_mesh", "make_model_mesh",
+           "replicate", "shard_batch", "shard_batch_process_local",
+           "shard_state_tree", "slice_by_spec"]
 
 #: name of the mesh axis delta rows and key ranges are sharded over
 DELTA_AXIS = "delta"
@@ -49,9 +57,14 @@ class Mesh:
     """Devices laid out on named axes. ``devices`` is an object array of
     ``torch.device`` whose shape gives the axis sizes; ``shape`` maps
     each axis name to its size, as a ``jax.sharding.Mesh``'s does.
-    Shard ``rank`` is the flat (C-order) index of an entry."""
+    Shard ``rank`` is the flat (C-order) index of an entry.
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    ``process_count`` processes hold the shards in contiguous blocks of
+    ranks (the dcn rows of ``make_mesh(dcn=...)``); this one is
+    ``process_index`` and steps ``local_ranks``."""
+
+    def __init__(self, devices, axis_names: Sequence[str], *,
+                 process_count: int = 1, process_index: int = 0):
         arr = np.empty(np.shape(devices), dtype=object)
         flat = [torch.device(d) for d in np.asarray(devices,
                                                     dtype=object).ravel()]
@@ -64,10 +77,33 @@ class Mesh:
         self.size = int(arr.size)
         self.device_list: List[torch.device] = flat
         self._groups = {}
+        if self.size % process_count:
+            raise ValueError(f"{self.size} shards over {process_count} "
+                             f"processes")
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
+        self._per_proc = self.size // self.process_count
+        #: the flat ranks this process steps, in rank order
+        self.local_ranks: List[int] = self.ranks_of(self.process_index)
+
+    def process_of(self, rank: int) -> int:
+        """The process that steps shard ``rank``."""
+        return rank // self._per_proc
+
+    def ranks_of(self, process: int) -> List[int]:
+        """The flat ranks process ``process`` steps."""
+        return list(range(process * self._per_proc,
+                          (process + 1) * self._per_proc))
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.process_count > 1
 
     def __repr__(self) -> str:
         devs = sorted(set(map(str, self.device_list)))
-        return f"Mesh({self.shape}, devices={devs})"
+        procs = (f", process {self.process_index} of "
+                 f"{self.process_count}" if self.spans_processes else "")
+        return f"Mesh({self.shape}, devices={devs}{procs})"
 
     def _coords(self, rank: int) -> tuple:
         return tuple(int(c) for c in np.unravel_index(rank,
@@ -104,8 +140,8 @@ class Mesh:
 
     @property
     def single_device(self) -> bool:
-        """Every shard sits on one device."""
-        return len(set(self.device_list)) == 1
+        """Every shard this process steps sits on one device."""
+        return len({self.device_list[r] for r in self.local_ranks}) == 1
 
 
 def _devices(n: int, device=None) -> List[torch.device]:
@@ -129,8 +165,31 @@ def make_mesh(n_devices: Optional[int] = None, *,
     1-axis (default): one ``axis_name`` axis. 2-axis (``dcn=k``): a
     ``(DCN_AXIS, axis_name)`` mesh of shape ``[k, n // k]``; the sharded
     executor then shards over the flattened product axis, dcn-major, and
-    routes rows in two legs (one exchange across the dcn axis)."""
-    if n_devices is None:
+    routes rows in two legs (one exchange across the dcn axis).
+
+    In a group of processes (``parallel.dist.initialize``) the mesh spans
+    them: ``dcn`` must be ``process_count()``, ``n_devices`` counts the
+    shards of every process (default: one a process), and dcn row ``p``
+    is process ``p``'s shards, on ``device`` (default: the card an nccl
+    group gave this process, else ``cuda:0``). The other rows' entries
+    name this process's device: their payloads land there when an
+    exchange brings them in."""
+    from reflow_tpu_torch.parallel import dist
+
+    procs = dist.process_count()
+    if procs > 1:
+        if dcn != procs:
+            raise ValueError(
+                f"a mesh in a group of {procs} processes spans them: pass "
+                f"dcn={procs} (each dcn row is one process's shards)")
+        if device is None:
+            device = dist.process_device()
+            if device is None:
+                _devices(1)                 # raises with no card
+                device = torch.device("cuda", 0)
+        if n_devices is None:
+            n_devices = procs
+    elif n_devices is None:
         if device is not None:
             raise ValueError("make_mesh(device=...) needs n_devices")
         _devices(1)                 # raises with no card
@@ -144,15 +203,19 @@ def make_mesh(n_devices: Optional[int] = None, *,
     if n % dcn:
         raise ValueError(f"n_devices {n} not divisible by dcn {dcn}")
     return Mesh(np.array(devs, dtype=object).reshape(dcn, n // dcn),
-                (DCN_AXIS, axis_name))
+                (DCN_AXIS, axis_name), process_count=procs,
+                process_index=dist.process_index())
 
 
 def make_model_mesh(n_delta: int, n_model: int, *,
                     axis_name: str = DELTA_AXIS,
                     model_axis: str = MODEL_AXIS, device=None) -> Mesh:
-    """A 2-axis (delta, model) mesh, delta-major. The sharded executor
-    refuses a model axis until the tensor-parallel slice; the mesh itself
-    builds."""
+    """A 2-axis (delta, model) mesh, delta-major: delta rows and key
+    ranges shard over ``axis_name``, Map params with ``param_specs``
+    shard tensor-parallel over ``model_axis`` (pair it with
+    ``ShardedCudaExecutor(mesh, model_axis=...)``). Each model group is
+    ``n_model`` adjacent entries, so with several cards its two psums a
+    block stay within a block of cards."""
     devs = _devices(n_delta * n_model, device)
     return Mesh(np.array(devs, dtype=object).reshape(n_delta, n_model),
                 (axis_name, model_axis))
@@ -167,6 +230,9 @@ def shard_batch(chunks, spec, mesh: Mesh, *, capacity=None):
     across devices a :class:`ShardedDelta`. The weight-mass bound every
     host->device path enforces is checked on the global batch."""
     n = mesh.size
+    if mesh.spans_processes:
+        raise ValueError("a mesh across processes ingests through "
+                         "shard_batch_process_local")
     if len(chunks) != n:
         raise ValueError(f"need one chunk per mesh device ({n}), got "
                          f"{len(chunks)}")
@@ -175,17 +241,51 @@ def shard_batch(chunks, spec, mesh: Mesh, *, capacity=None):
                          f"of the mesh size {n}")
     per = (capacity // n if capacity is not None
            else bucket_capacity(max(len(c) for c in chunks)))
-    mass = sum(int(np.abs(np.asarray(c.weights)).sum())
-               for c in chunks if len(c))
-    if mass >= MAX_BATCH_WEIGHT_MASS:
-        raise ValueError(
-            "batch weight mass >= 2**24 exceeds the device path's exact "
-            "float32 range; split the batch across ticks")
+    check_weight_mass_value(sum(int(np.abs(np.asarray(c.weights)).sum())
+                                for c in chunks if len(c)))
     parts = [to_device(c, spec, capacity=per, device=d)
              for c, d in zip(chunks, mesh.device_list)]
     if mesh.single_device:
         return DeviceDelta(*(torch.cat(cols) for cols in zip(*parts)))
     return ShardedDelta(parts)
+
+
+def shard_batch_process_local(chunk, spec, mesh: Mesh, *, capacity: int):
+    """Multi-controller ingestion: this process's rows (``chunk``, a
+    host ``DeltaBatch``) as its slice of a row-sharded batch of
+    ``capacity`` rows in all (a multiple of the mesh size). Every process
+    calls it, and the push and tick after it, with the same capacity.
+
+    The chunk is padded to ``capacity // process_count`` rows and split
+    over this process's shards in rank order: a ``DeviceDelta`` when they
+    share one device, else a :class:`ShardedDelta`. The sharded executor
+    reads a device batch pushed on a mesh across processes as this
+    process's rows. The weight-mass guard runs on the GLOBAL mass, one
+    ``process_allgather`` of the local masses. On a mesh of one process
+    the result is the whole batch."""
+    from reflow_tpu_torch.parallel import dist
+
+    n = mesh.size
+    if capacity <= 0 or capacity % n:
+        raise ValueError(f"capacity {capacity} must be a positive "
+                         f"multiple of the mesh size {n}")
+    n_local = capacity // mesh.process_count
+    if len(chunk) > n_local:
+        raise ValueError(
+            f"local chunk ({len(chunk)} rows) exceeds this process's "
+            f"share {n_local} of capacity {capacity}")
+    mass = int(np.abs(np.asarray(chunk.weights)).sum()) if len(chunk) else 0
+    if mesh.spans_processes:
+        mass = int(dist.process_allgather(np.int64(mass)).sum())
+    check_weight_mass_value(mass)
+    local = mesh.local_ranks
+    devs = [mesh.device_list[r] for r in local]
+    if mesh.single_device:
+        return to_device(chunk, spec, capacity=n_local, device=devs[0])
+    whole = to_device(chunk, spec, capacity=n_local, device="cpu")
+    cols = [t.chunk(len(local), 0) for t in whole]
+    return ShardedDelta([DeviceDelta(*(c[i].to(d) for c in cols))
+                         for i, d in enumerate(devs)])
 
 
 def _dim0_sharded(x, n: int) -> bool:
@@ -221,3 +321,91 @@ def _tree_map(fn, tree):
 
     return tree_map(lambda x: fn(x) if isinstance(x, torch.Tensor) else x,
                     tree)
+
+
+class PartSpec(tuple):
+    """How one leaf lies over a mesh, the port's ``PartitionSpec``: one
+    entry per leading dim, the mesh axis that dim is split over or None;
+    missing trailing entries are None. ``PartSpec()`` is replicated,
+    ``PartSpec(None, "model")`` splits dim 1 over the model axis."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartSpec{tuple.__repr__(self)}"
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The dim split over ``axis``, or None."""
+        hits = [i for i, a in enumerate(self) if a == axis]
+        if len(hits) > 1:
+            raise ValueError(f"{self!r} splits two dims over {axis!r}")
+        return hits[0] if hits else None
+
+
+def _walk_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a params tree and its spec tree (dicts and
+    lists, :class:`PartSpec` leaves), the tree's structure kept."""
+    if isinstance(specs, PartSpec):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        if set(tree) != set(specs):
+            raise ValueError(f"param_specs keys {sorted(specs)} do not "
+                             f"match the params' {sorted(tree)}")
+        return {k: _walk_specs(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(specs):
+            raise ValueError(f"param_specs list of {len(specs)} for "
+                             f"{len(tree)} params")
+        return type(tree)(_walk_specs(fn, t, sp)
+                          for t, sp in zip(tree, specs))
+    raise ValueError(f"param_specs leaf {specs!r} is not a PartSpec")
+
+
+def slice_by_spec(tree, specs, axis: str, size: int, index: int):
+    """Member ``index`` of ``size``'s slice of a params tree: each leaf
+    whose spec splits a dim over ``axis`` takes its ``index``-th chunk of
+    that dim, every other leaf is kept whole. A split dim that ``size``
+    does not divide raises."""
+    def one(x, spec):
+        for a in spec:
+            if a is not None and a != axis:
+                raise ValueError(f"{spec!r}: params shard only over the "
+                                 f"model axis {axis!r}")
+        dim = spec.dim_of(axis)
+        if dim is None:
+            return x
+        if x.shape[dim] % size:
+            raise ValueError(
+                f"model axis size {size} must divide the sharded dim "
+                f"{dim} of a {tuple(x.shape)} param")
+        return x.chunk(size, dim)[index]
+
+    return _walk_specs(one, tree, specs)
+
+
+def join_by_spec(parts: list, specs, axis: str):
+    """The whole params tree from its members' slices (the inverse of
+    :func:`slice_by_spec`), on the first slice's device."""
+    def one(x0, spec, path):
+        dim = spec.dim_of(axis)
+        if dim is None:
+            return x0
+        leaves = [_at(p, path) for p in parts]
+        return torch.cat([t.to(x0.device) for t in leaves], dim)
+
+    def walk(tree, sp, path):
+        if isinstance(sp, PartSpec):
+            return one(tree, sp, path)
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], sp[k], path + (k,)) for k in tree}
+        return type(tree)(walk(t, s_, path + (i,))
+                          for i, (t, s_) in enumerate(zip(tree, sp)))
+
+    return walk(parts[0], specs, ())
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

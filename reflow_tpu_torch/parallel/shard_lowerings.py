@@ -45,6 +45,7 @@ sliced off.
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -52,10 +53,10 @@ import torch
 from reflow_tpu_torch.delta import torch_dtype
 from reflow_tpu_torch.executors.device_delta import MIN_CAPACITY, DeviceDelta
 from reflow_tpu_torch.executors.lowerings import (
-    LINEAR_DEVICE_REDUCERS, LOWERINGS, _fold_vectors_, _scatter_contribs,
-    _table_index, join_core, minmax_core, reduce_core, reduce_dense_fold,
-    span)
-from reflow_tpu_torch.graph import Node
+    LINEAR_DEVICE_REDUCERS, LOWERINGS, _as, _fold_vectors_,
+    _scatter_contribs, _table_index, join_core, minmax_core, reduce_core,
+    reduce_dense_fold, span)
+from reflow_tpu_torch.graph import GraphError, Node
 from reflow_tpu_torch.kernels.topk import (NEG, chunked_corpus_topk, scores,
                                            topk)
 
@@ -406,6 +407,21 @@ def knn_state_specs() -> dict:
             "emitted": False, "em_has": False}
 
 
+def _lower_map_tp(ctx, op, node: Node, state, ins, axis, n: int,
+                  sizes=None, reader=None):
+    """A tensor-parallel Map (``param_specs``): the function gets this
+    shard's params slice and may be a generator that yields its own
+    collectives over the model axis (``models.vit.vit_forward_tp``)."""
+    (d,) = ins
+    if not op.vectorized:
+        raise GraphError(f"{node}: a tensor-parallel Map must be "
+                         f"vectorized")
+    got = op.fn(state["params"], d.values)
+    vals = (yield from got) if inspect.isgenerator(got) else got
+    vals = _as(vals, torch_dtype(node.spec.value_dtype), d.values.device)
+    return DeviceDelta(d.keys, vals, d.weights), state
+
+
 _SHARDED = {"join": _lower_join_sharded, "knn": _lower_knn_sharded}
 
 
@@ -421,6 +437,9 @@ def lower_node_sharded(ctx, node: Node, state,
               else _lower_reduce_minmax_sharded)
         return (yield from fn(ctx, node.op, node, state, ins, axis, n,
                               sizes, reader))
+    if kind == "map" and node.op.param_specs is not None:
+        return (yield from _lower_map_tp(ctx, node.op, node, state, ins,
+                                         axis, n, sizes, reader))
     if kind in _SHARDED:
         return (yield from _SHARDED[kind](ctx, node.op, node, state, ins,
                                           axis, n, sizes, reader))

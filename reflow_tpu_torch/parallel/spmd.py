@@ -1,5 +1,5 @@
-"""The single-controller SPMD runtime: shard bodies and the collectives
-between them, in one process on one host thread.
+"""The SPMD runtime: shard bodies and the collectives between them, each
+process stepping its own shards on one host thread.
 
 The JAX package runs a sharded pass as one SPMD program under
 ``jax.shard_map``, its cross-shard combines as ``jax.lax``'s named-axis
@@ -52,6 +52,26 @@ update a collective.
 every collective is the identity and ``host_gather`` one readback. The
 single-device executor runs its fixpoint programs through it, so one
 body serves both and the single-device path adds no device work.
+
+A body may also yield a request it built without its context
+(:func:`psum`): a Map function's tensor-parallel forward
+(``models.vit.vit_forward_tp``) yields its psums over the model axis
+that way, and the sharded Map lowering drives it with ``yield from``.
+
+**Meshes across processes** (``parallel/dist.py``, a mesh from
+``make_mesh(dcn=process_count())``): each process steps only its own
+shards (``mesh.local_ranks``). A collective whose shard groups cross a
+process boundary, and every ``host_gather``, is completed by ONE
+exchange: every process sends its shards' payloads (CUDA payloads staged
+through pinned host buffers) and receives every other's, then runs the
+same combine over the full list in global rank order. A two-process run
+therefore gives the single-controller run's bits. Each exchange carries
+the step's collective key; when two processes disagree (or one
+finished the region while another asks for a collective) every process
+raises :class:`SpmdMismatch` naming the process, its first shard and the
+step. The bytes that crossed the boundary are tallied by kind under the
+axis ``(PROCESS_BOUNDARY,)``: calls are exchanges, bytes are those this
+process sent plus those it received.
 """
 
 from __future__ import annotations
@@ -63,8 +83,12 @@ import torch
 
 from reflow_tpu_torch.utils.runtime import named_lock
 
-__all__ = ["Collective", "ShardCtx", "SOLO", "SpmdMismatch",
-           "collective_tally", "reset_collective_tally", "run", "run_solo"]
+__all__ = ["Collective", "PROCESS_BOUNDARY", "ShardCtx", "SOLO",
+           "SpmdMismatch", "collective_tally", "psum",
+           "reset_collective_tally", "run", "run_solo"]
+
+#: the tally's axis name for the bytes that crossed a process boundary
+PROCESS_BOUNDARY = "process"
 
 
 class SpmdMismatch(RuntimeError):
@@ -123,6 +147,14 @@ class Collective:
         """What every shard of the region must agree on."""
         return (self.kind, self.axis, self.params, _signature(self.x))
 
+    def wire_key(self) -> str:
+        """:meth:`key` as text another process can compare: a callable
+        parameter (``host_gather``'s reader) by its name."""
+        params = tuple(getattr(p, "__qualname__", p) if callable(p) else p
+                       for p in self.params)
+        sig = tuple((s, str(d)) for s, d in _signature(self.x))
+        return repr((self.kind, self.axis, params, sig))
+
     def solo(self):
         """The result on a one-shard mesh: every collective is the
         identity, ``host_gather`` one readback."""
@@ -141,6 +173,13 @@ def _axis_key(axis) -> tuple:
     return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
 
 
+def psum(x, axis) -> Collective:
+    """A ``psum`` request over ``axis`` built without a shard context,
+    for code a body reaches through ``yield from`` (a Map function's
+    tensor-parallel forward)."""
+    return Collective("psum", _axis_key(axis), x)
+
+
 class ShardCtx:
     """One shard's view of a region: its flat ``rank`` over the mesh,
     its ``device``, and the requests its body yields. ``axis``
@@ -154,6 +193,8 @@ class ShardCtx:
         self.device = None if mesh is None else mesh.device_list[rank]
         #: True under :func:`run_solo` (one shard, no mesh)
         self.solo = mesh is None
+        #: the first shard this process steps (rank 0 on one process)
+        self.lead = mesh is None or rank == mesh.local_ranks[0]
 
     def _ax(self, axis) -> tuple:
         return _axis_key(self.axis if axis is None else axis)
@@ -217,8 +258,9 @@ def _note(kind: str, axis: tuple, nbytes: int) -> None:
 
 def collective_tally() -> Dict[Tuple[str, tuple], Tuple[int, int]]:
     """``{(kind, axis names): (calls, bytes)}`` since the last reset:
-    one call per region-wide collective, bytes summed over every
-    shard's payload."""
+    one call per region-wide collective, bytes summed over the payloads
+    of the shards this process steps; under ``(PROCESS_BOUNDARY,)`` the
+    exchanges across processes and the bytes they moved."""
     with _TALLY_LOCK:
         return {k: (v[0], v[1]) for k, v in _TALLY.items()}
 
@@ -245,59 +287,64 @@ def run_solo(gen):
 
 
 def run(mesh, body: Callable, args: Sequence[tuple], axis) -> list:
-    """Run ``body(ctx, *args[rank])`` once per shard of ``mesh`` as one
-    SPMD region; return the shards' results in rank order. ``axis`` is
+    """Run ``body(ctx, *args[i])`` once per shard this process holds
+    (``mesh.local_ranks[i]``; every shard on one process) as one SPMD
+    region; return those shards' results in the same order. ``axis`` is
     the shards' default collective axis. Raises :class:`SpmdMismatch`
-    when the shards' collective sequences differ; an exception in any
-    shard closes the others and propagates."""
-    n = mesh.size
+    when the shards' collective sequences differ, here or in another
+    process; an exception in any shard closes the others and
+    propagates."""
+    local = mesh.local_ranks
+    n = len(local)
     if len(args) != n:
-        raise ValueError(f"need one argument tuple per shard ({n}), got "
-                         f"{len(args)}")
+        raise ValueError(f"need one argument tuple per local shard ({n}), "
+                         f"got {len(args)}")
     results: List[Any] = [None] * n
     gens: List[Any] = []
     try:
-        for r in range(n):
-            g = body(ShardCtx(mesh, r, axis), *args[r])
+        for i, r in enumerate(local):
+            g = body(ShardCtx(mesh, r, axis), *args[i])
             gens.append(g if inspect.isgenerator(g) else None)
             if gens[-1] is None:
-                results[r] = g
+                results[i] = g
         sends: List[Any] = [None] * n
         step = 0
         while True:
             reqs: List[Optional[Collective]] = [None] * n
             done = [g is None for g in gens]
-            for r, g in enumerate(gens):
+            for i, g in enumerate(gens):
                 if g is None:
                     continue
                 try:
-                    reqs[r] = g.send(sends[r])
+                    reqs[i] = g.send(sends[i])
                 except StopIteration as stop:
-                    results[r] = stop.value
-                    gens[r] = None
-                    done[r] = True
+                    results[i] = stop.value
+                    gens[i] = None
+                    done[i] = True
             if all(done):
+                if mesh.process_count > 1:
+                    _exchange(mesh, None, [], step)
                 return results
             if any(done):
                 a = done.index(True)
                 b = done.index(False)
                 raise SpmdMismatch(
                     f"SPMD region diverged at collective step {step}: "
-                    f"shard {a} returned while shard {b} asked for "
-                    f"{reqs[b]!r}")
+                    f"shard {local[a]} returned while shard {local[b]} "
+                    f"asked for {reqs[b]!r}")
             ref = reqs[0]
             if not isinstance(ref, Collective):
-                raise SpmdMismatch(f"shard 0 yielded {ref!r} at step "
-                                   f"{step}, not a collective request")
+                raise SpmdMismatch(f"shard {local[0]} yielded {ref!r} at "
+                                   f"step {step}, not a collective request")
             key = ref.key()
-            for r in range(1, n):
-                req = reqs[r]
+            for i in range(1, n):
+                req = reqs[i]
                 if not isinstance(req, Collective) or req.key() != key:
                     raise SpmdMismatch(
                         f"SPMD region diverged at collective step {step}: "
-                        f"shard {r} asked for {req!r} where shard 0 asked "
-                        f"for {ref!r}")
-            sends = _perform(mesh, reqs)
+                        f"shard {local[i]} asked for {req!r} where shard "
+                        f"{local[0]} asked for {ref!r}")
+            sends = _perform(mesh, reqs, step)
             step += 1
     finally:
         for g in gens:
@@ -305,22 +352,84 @@ def run(mesh, body: Callable, args: Sequence[tuple], axis) -> list:
                 g.close()
 
 
-def _perform(mesh, reqs: List[Collective]) -> list:
-    """Every shard's result of one agreed collective."""
+def _crosses(mesh, kind: str, axis: tuple) -> bool:
+    """Does this collective need the other processes' payloads?"""
+    if mesh.process_count == 1:
+        return False
+    if kind == "host_gather":
+        return True
+    return any(len({mesh.process_of(r) for r in g}) > 1
+               for g in mesh.groups(axis))
+
+
+def _exchange(mesh, ref: Optional[Collective], leaves: List[list],
+              step: int) -> List[Optional[list]]:
+    """One exchange across the processes of ``mesh``: this process's
+    shards' payloads out, every shard's in (``[mesh.size]`` leaf lists
+    in global rank order, this process's own tensors kept as they are).
+    ``ref`` None says this process's shards finished the region."""
+    from reflow_tpu_torch.parallel import dist
+
+    header = ("done" if ref is None else ref.wire_key(), step)
+    got, sent, received = dist.exchange(
+        header, [t for ls in leaves for t in ls])
+    heads = [h for h, _ in got]
+    if len(set(heads)) > 1:
+        me = mesh.process_index
+        other = next(p for p, h in enumerate(heads) if h != heads[me])
+
+        def says(p):
+            what, _ = heads[p]
+            return ("its shards returned" if what == "done"
+                    else f"asked for {what}")
+
+        raise SpmdMismatch(
+            f"SPMD region diverged across processes at collective step "
+            f"{step}: process {other} (shard "
+            f"{mesh.ranks_of(other)[0]}) {says(other)} where process {me} "
+            f"(shard {mesh.local_ranks[0]}) {says(me)}")
+    if ref is None:
+        return []
+    _note(ref.kind, (PROCESS_BOUNDARY,), sent + received)
+    like = leaves[0]
+    out: List[Optional[list]] = [None] * mesh.size
+    pos = {r: i for i, r in enumerate(mesh.local_ranks)}
+    dev = mesh.device_list[mesh.local_ranks[0]]
+    for p, (_, flat) in enumerate(got):
+        for j, r in enumerate(mesh.ranks_of(p)):
+            if r in pos:
+                out[r] = leaves[pos[r]]
+                continue
+            row = flat[j * len(like):(j + 1) * len(like)]
+            out[r] = [dist.unstage(b, t, dev) for b, t in zip(row, like)]
+    return out
+
+
+def _perform(mesh, reqs: List[Collective], step: int = 0) -> list:
+    """Every local shard's result of one agreed collective."""
     ref = reqs[0]
     kind, axis = ref.kind, ref.axis
-    n = len(reqs)
-    leaves = [_leaves(q.x) for q in reqs]
+    local = mesh.local_ranks
+    mine = [_leaves(q.x) for q in reqs]
     _note(kind, axis, sum(t.numel() * t.element_size()
-                          for ls in leaves for t in ls))
+                          for ls in mine for t in ls))
+    if _crosses(mesh, kind, axis):
+        leaves = _exchange(mesh, ref, mine, step)
+    else:
+        leaves = [None] * mesh.size
+        for r, ls in zip(local, mine):
+            leaves[r] = ls
     devs = mesh.device_list
     if kind == "host_gather":
         (reader,) = ref.params
-        d0 = devs[0]
+        d0 = devs[local[0]]
         rows = reader(torch.stack([ls[0].to(d0) for ls in leaves]))
-        return [rows] * n
-    out: List[Optional[list]] = [None] * n
+        return [rows] * len(local)
+    out: List[Optional[list]] = [None] * mesh.size
+    wanted = set(local)
     for group in mesh.groups(axis):
+        if not wanted.intersection(group):
+            continue
         m = len(group)
         per_leaf = []
         for li in range(len(leaves[group[0]])):
@@ -329,7 +438,7 @@ def _perform(mesh, reqs: List[Collective]) -> list:
                                      [devs[r] for r in group], m))
         for j, r in enumerate(group):
             out[r] = [res[j] for res in per_leaf]
-    return [_rebuild(reqs[r].x, out[r]) for r in range(n)]
+    return [_rebuild(q.x, out[r]) for q, r in zip(reqs, local)]
 
 
 def _own(t: torch.Tensor, dev, first: bool) -> torch.Tensor:

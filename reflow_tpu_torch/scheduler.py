@@ -82,7 +82,12 @@ def lazy_add(a, b):
 
 def _count_nonzero(w) -> int:
     """Live-row count of a device batch's weights column (a readback,
-    deferred to the sync point by the callers)."""
+    deferred to the sync point by the callers). On a mesh across
+    processes a device batch holds this process's rows, so the count is
+    the process-local share — never a hidden collective, which would
+    hang any metrics read one process makes alone (``if
+    process_index() == 0: summarize(...)``). Sum ``deltas_in`` over the
+    processes for a global total."""
     return int(np.count_nonzero(_host(w)))
 
 
@@ -365,11 +370,16 @@ class DirtyScheduler:
             egress = self.executor.run_pass(plan, ingress)
             passes += 1
             ingress = {}
+            # one live-row count per egress batch: on a device batch it
+            # is a scalar readback (the loop's quiescence test). The
+            # branch reads ``live``, which on a mesh across processes is
+            # every process's (their batches hold their own rows), so
+            # all of them run the same passes and the same error check
+            counts = {nid: len(b) for nid, b in egress.items()}
+            live = self.executor.live_anywhere(counts)
             for nid, batch in egress.items():
-                # one live-row count per egress batch: on a device batch
-                # it is a scalar readback (the loop's quiescence test)
-                n = len(batch)
-                if not n:
+                n = counts[nid]
+                if not live[nid]:
                     continue
                 if nid in sink_ids:
                     sink_deltas[sink_ids[nid].name].append(batch)

@@ -91,6 +91,7 @@ import struct
 import zlib
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from reflow_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -500,12 +501,66 @@ def save_checkpoint(sched, path: str, *, truncate: bool = True,
     ``ckpt_before_meta`` lies between the new state files and the meta
     that commits them (``ckpt_tile_full_append`` after each tile file).
 
-    The port runs one process (a sharded executor's mesh included: its
-    global state tree is saved). The JAX package's multi-controller save
-    checks that every process holds the same tick and dedup window with
-    one allgather of :func:`meta_digest`; that check comes with
-    multi-controller meshes (ROADMAP Queue 1 step 14)."""
+    In a group of processes (``parallel/dist.py``) every process calls
+    this collectively with the same (shared) ``path``. The tick and the
+    dedup window must be the same everywhere (mint batch ids from a
+    :class:`~reflow_tpu_torch.scheduler.SourceCursor`): one allgather of
+    :func:`meta_digest` checks it and raises ``RuntimeError`` on a
+    divergence. Each process then saves its own part (its shards' states,
+    sink views and pending batches) as a checkpoint of its own under
+    ``proc<i>of<k>-t<tick>/``, and once all have landed process 0 writes
+    the top ``meta.pkl`` last, by rename: the tick, the dedup window, the
+    process count, the mesh shape and the processes' directories. The
+    returned meta is this process's."""
+    from reflow_tpu_torch.parallel import dist
+
+    if dist.process_count() > 1:
+        return _save_collective(sched, path, truncate=truncate, crash=crash)
     return _save_checkpoint(sched, path, truncate=truncate, crash=crash)[0]
+
+
+def _mesh_shape(sched) -> Optional[dict]:
+    mesh = getattr(sched.executor, "mesh", None)
+    return None if mesh is None else dict(mesh.shape)
+
+
+def _save_collective(sched, path: str, *, truncate: bool, crash) -> Dict:
+    """:func:`save_checkpoint` in a group of processes."""
+    from reflow_tpu_torch.parallel import dist
+
+    mine = np.uint64(meta_digest(sched._tick, sched._seen_batch_ids))
+    digests = dist.process_allgather(mine)
+    if len(set(int(x) for x in digests.ravel())) != 1:
+        raise RuntimeError(
+            "checkpoint meta diverged across controllers (tick "
+            "counter or batch-id dedup window differs between "
+            "processes); mint batch ids from a shared "
+            "scheduler.SourceCursor so every process dedups "
+            "identically")
+    pid, k = dist.process_index(), dist.process_count()
+    os.makedirs(path, exist_ok=True)
+    sub = f"proc{pid}of{k}-t{sched._tick:08d}"
+    meta = _save_checkpoint(sched, os.path.join(path, sub),
+                            truncate=truncate, crash=crash)[0]
+    # every process's part has landed once this allgather returns
+    subs = dist.allgather_object(sub)
+    if pid == 0:
+        top = {"tick": sched._tick,
+               "seen_batch_ids": dict(sched._seen_batch_ids),
+               "process_count": k, "mesh_shape": _mesh_shape(sched),
+               "procs": subs}
+        mtmp = os.path.join(path, "meta.pkl.tmp")
+        _write_file(mtmp, lambda f: pickle.dump(top, f))
+        os.replace(mtmp, os.path.join(path, "meta.pkl"))
+        _fsync_dir(path)
+        import shutil
+
+        for fname in os.listdir(path):
+            if fname.startswith("proc") and fname not in subs:
+                shutil.rmtree(os.path.join(path, fname), ignore_errors=True)
+    # nobody reads the checkpoint before its meta is in place
+    dist.allgather_object(None)
+    return meta
 
 
 def _save_checkpoint(sched, path: str, *, truncate: bool, crash):
@@ -605,10 +660,13 @@ def load_checkpoint(sched, path: str) -> Dict:
     return _load_full(sched, path)
 
 
-def _load_full(sched, path: str) -> Dict:
+def _load_full(sched, path: str, part: bool = False) -> Dict:
     """The legacy single-directory restore (meta.pkl + the array states'
-    directory it names)."""
+    directory it names); ``part``: one process's part of a collective
+    save."""
     from collections import Counter
+
+    from reflow_tpu_torch.parallel import dist
 
     try:
         with open(os.path.join(path, "meta.pkl"), "rb") as f:
@@ -616,6 +674,19 @@ def _load_full(sched, path: str) -> Dict:
     except (OSError, pickle.UnpicklingError, EOFError) as e:
         raise CheckpointError(f"{path}: unreadable checkpoint meta "
                               f"({e})", torn=True) from e
+    k = meta.get("process_count", 1)
+    if not part and k != dist.process_count():
+        raise ValueError(
+            f"{path}: written by {k} process(es); this job has "
+            f"{dist.process_count()} — restore with the process count it "
+            f"was saved with")
+    if "procs" in meta:
+        if meta["mesh_shape"] != _mesh_shape(sched):
+            raise ValueError(
+                f"{path}: saved from a mesh of shape {meta['mesh_shape']}, "
+                f"restoring onto {_mesh_shape(sched)}")
+        return _load_full(sched, os.path.join(
+            path, meta["procs"][dist.process_index()]), part=True)
     sched._tick = meta["tick"]
     sched._seen_batch_ids = dict(meta["seen_batch_ids"])
     sched._pending.clear()

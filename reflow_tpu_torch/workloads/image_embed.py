@@ -1,8 +1,8 @@
 """Benchmark config 5: image-embed ETL — ViT feature extraction feeding
 an incremental groupby-agg.
 
-The counterpart of ``reflow_tpu/workloads/image_embed.py`` on one
-device. The graph is::
+The counterpart of ``reflow_tpu/workloads/image_embed.py``. The graph
+is::
 
     images  source {image_id: uint8 [group_byte, *raw_pixels]}
     embed   Map(vit_forward, params=weights)  -> f32 [group_id, *features]
@@ -14,7 +14,14 @@ executor, swapped by ``update_params`` with no rebind); only the
 shape-driving config is closed over. An image moving between groups (or
 being deleted) is an ordinary retract/insert delta pair; the mean's
 retract-old/insert-new emission keeps every centroid exact, not
-approximate. The tensor-parallel form (``model_axis``) is not ported.
+approximate.
+
+On the sharded executor the Map is data-parallel inference: each shard
+runs the whole ViT on its row slice. With ``model_axis`` it is tensor
+parallel as well (``models.vit.vit_forward_tp``): run it on
+``ShardedCudaExecutor(make_model_mesh(d, m), model_axis="model")``; each
+shard then holds 1/m of every sharded weight, and a forward costs two
+psums over the model axis a block.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import torch
 
 from reflow_tpu_torch.delta import DeltaBatch, Spec
 from reflow_tpu_torch.graph import FlowGraph, Node
-from reflow_tpu_torch.models.vit import vit_forward
+from reflow_tpu_torch.models.vit import (vit_forward, vit_forward_tp,
+                                         vit_param_specs)
 from reflow_tpu_torch.utils.tree import tree_map
 
 __all__ = ["ImageEmbedGraph", "ImageStream", "build_graph",
@@ -55,12 +63,9 @@ def build_graph(n_images: int, n_groups: int, params: Dict,
                 model_axis: Optional[str] = None) -> ImageEmbedGraph:
     """The config-5 graph over ``n_images`` image ids and ``n_groups``
     groups, the ViT weights ``params`` (``init_vit``'s tree, ``_cfg``
-    included) as the embed Map's params."""
-    if model_axis is not None:
-        raise NotImplementedError(
-            "the tensor-parallel ViT (model_axis) is not ported yet: it "
-            "comes with the model axis of the mesh (ROADMAP Queue 1 step "
-            "14); the data-parallel graph runs on the sharded executor")
+    included) as the embed Map's params. ``model_axis``: shard the ViT
+    tensor-parallel over that mesh axis (``vit_param_specs``); the graph
+    then runs only on ``ShardedCudaExecutor(mesh, model_axis=...)``."""
     cfg = params["_cfg"]
     flat = cfg["img"] * cfg["img"] * cfg["chans"]
     dim = cfg["dim"]
@@ -73,18 +78,30 @@ def build_graph(n_images: int, n_groups: int, params: Dict,
     # ingests, and 4x less host->device traffic than float32 pixels
     src = g.source("images", Spec((1 + flat,), np.uint8, key_space=n_images))
     weights = {k: v for k, v in params.items() if k != "_cfg"}
+    param_specs = None
+    if model_axis is not None:
+        param_specs = vit_param_specs(cfg, model_axis)
 
-    def embed(p, v):  # (weights, [C, 1+flat] u8) -> [C, 1+dim] f32
-        # the cuda executor passes device tensors; the CpuExecutor numpy
-        # rows, computed where the weights lie and handed back as numpy
-        host = not isinstance(v, torch.Tensor)
-        x = torch.as_tensor(np.asarray(v) if host else v).to(
-            p["proj_w"].device)
-        feats = vit_forward({**p, "_cfg": cfg}, pixels_to_input(x[:, 1:]))
-        out = torch.cat([x[:, :1].to(torch.float32), feats], dim=-1)
-        return out.cpu().numpy() if host else out
+        def embed(p, v):  # (this shard's weights, [C, 1+flat] u8)
+            feats = yield from vit_forward_tp(
+                {**p, "_cfg": cfg}, pixels_to_input(v[:, 1:]),
+                axis=model_axis)
+            return torch.cat([v[:, :1].to(torch.float32), feats], dim=-1)
+    else:
+        def embed(p, v):  # (weights, [C, 1+flat] u8) -> [C, 1+dim] f32
+            # the cuda executor passes device tensors; the CpuExecutor
+            # numpy rows, computed where the weights lie and handed back
+            # as numpy
+            host = not isinstance(v, torch.Tensor)
+            x = torch.as_tensor(np.asarray(v) if host else v).to(
+                p["proj_w"].device)
+            feats = vit_forward({**p, "_cfg": cfg},
+                                pixels_to_input(x[:, 1:]))
+            out = torch.cat([x[:, :1].to(torch.float32), feats], dim=-1)
+            return out.cpu().numpy() if host else out
 
     emb = g.map(src, embed, vectorized=True, params=weights,
+                param_specs=param_specs,
                 spec=Spec((1 + dim,), f32, key_space=n_images), name="embed")
     by_grp = g.group_by(emb, key_fn=lambda k, v: v[0],
                         value_fn=lambda k, v: v[1:],

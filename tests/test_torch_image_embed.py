@@ -245,9 +245,23 @@ def test_row_wise_params_map_matches_cpu_executor():
 
 
 def test_build_graph_checks():
+    """A tensor-parallel graph builds and runs only on a sharded executor
+    with a model axis; too many groups are refused."""
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
     p = init_vit(0, **VIT_TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 14"):
-        pie.build_graph(N_IMG, N_GRP, p, model_axis="model")
+    ig = pie.build_graph(N_IMG, N_GRP, p, model_axis="model")
+    assert ig.embed.op.param_specs is not None
+    with pytest.raises(GraphError, match="model_axis"):
+        P.DirtyScheduler(ig.graph, ShardedCudaExecutor(
+            make_mesh(2, device="cpu")))
+    ig = pie.build_graph(N_IMG, N_GRP, p, model_axis="model")
+    sched = P.DirtyScheduler(ig.graph, P.get_executor("cuda", device="cpu"))
+    sched.push(ig.images, pie.ImageStream(p, seed=4).insert(
+        np.arange(4), np.zeros(4, int)))
+    with pytest.raises(GraphError, match="model_axis"):
+        sched.tick()
     with pytest.raises(ValueError, match="n_groups must be <= 256"):
         pie.build_graph(N_IMG, 300, p)
 
@@ -278,3 +292,107 @@ def test_sharded_dataparallel_matches_oracle_and_jax(params):
     ex.update_params(ig.embed, _weights(params))
     assert all(torch.equal(ex.shard_states(r)[ig.embed.id]["params"]
                            ["proj_w"], params["proj_w"]) for r in range(8))
+
+
+# -- the model axis: tests/test_image_embed.py's tensor-parallel tests -----
+
+def _tp_executor(n_delta, n_model):
+    from reflow_tpu_torch.parallel import make_model_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    return ShardedCudaExecutor(make_model_mesh(n_delta, n_model,
+                                               device="cpu"),
+                               model_axis="model")
+
+
+def _tp_port(params, ex):
+    ig = pie.build_graph(N_IMG, N_GRP, params, model_axis="model")
+    sched = P.DirtyScheduler(ig.graph, ex)
+    stream = pie.ImageStream(params, seed=4)
+    _drive(sched, ig, stream, P.DeltaBatch)
+    return sched, ig, stream
+
+
+def test_tensor_parallel_vit_matches_oracle_and_jax(params):
+    """A (delta 2, model 4) mesh: the ViT's weights split tensor-parallel
+    over the model axis, deltas row-sharded over the delta axis. The
+    centroids match the oracle and JAX's tensor-parallel run within
+    ``ATOL``; each shard holds 1/4 of every split matrix, and
+    ``update_params`` keeps it so."""
+    from reflow_tpu.parallel.mesh import make_model_mesh as jmake_model_mesh
+    from reflow_tpu.parallel.shard import ShardedTpuExecutor
+    from reflow_tpu_torch.parallel import spmd
+
+    ex = _tp_executor(2, 4)
+    assert ex.axis == "delta" and ex.n == 2 and ex.m == 4
+    spmd.reset_collective_tally()
+    sched, ig, stream = _tp_port(params, ex)
+    # one forward a tick, two psums a block over the model axis
+    assert spmd.collective_tally()[("psum", ("model",))][0] == \
+        2 * 2 * VIT_TINY["depth"]
+    got = sched.read_table(ig.centroids)
+    _close(got, stream.reference_centroids())
+    jp = jinit_vit(0, **VIT_TINY)
+    jig = jie.build_graph(N_IMG, N_GRP, jp, model_axis="model")
+    js = JDirtyScheduler(jig.graph, ShardedTpuExecutor(
+        jmake_model_mesh(2, 4), model_axis="model"))
+    _drive(js, jig, jie.ImageStream(jp, seed=4), JDeltaBatch)
+    _close(got, js.read_table(jig.centroids))
+
+    dim = VIT_TINY["dim"]
+    wq = ex.states[ig.embed.id]["params"]["blocks"][0]["wq"]
+    assert tuple(wq.shape) == (dim, dim)                # the global tree
+    assert torch.equal(wq, params["blocks"][0]["wq"])
+    for r in range(8):
+        local = ex.shard_states(r)[ig.embed.id]["params"]["blocks"][0]
+        assert tuple(local["wq"].shape) == (dim, dim // 4)
+        assert tuple(local["wo"].shape) == (dim // 4, dim)
+        assert tuple(local["ln1"]["g"].shape) == (dim,)
+    ex.update_params(ig.embed, _weights(params))
+    for r in range(8):
+        local = ex.shard_states(r)[ig.embed.id]["params"]["blocks"][0]
+        assert tuple(local["wq"].shape) == (dim, dim // 4)
+        # shard (d, m) holds column slice m
+        m = r % 4
+        assert torch.equal(local["wq"], params["blocks"][0]["wq"][
+            :, m * dim // 4:(m + 1) * dim // 4])
+
+
+def test_tensor_parallel_rejects_nondivisible_heads():
+    """heads=4 over a model axis of 8 fails loudly at the first tick."""
+    p = init_vit(0, **VIT_TINY, device="cpu")
+    ig = pie.build_graph(N_IMG, N_GRP, p, model_axis="model")
+    sched = P.DirtyScheduler(ig.graph, _tp_executor(1, 8))
+    stream = pie.ImageStream(p, seed=4)
+    sched.push(ig.images, stream.insert(np.arange(8), np.zeros(8, int)))
+    with pytest.raises(ValueError, match="must divide heads"):
+        sched.tick()
+
+
+def test_tensor_parallel_save_restore_round_trips(params, tmp_path):
+    """A checkpoint of a tensor-parallel graph holds the global tree (the
+    slices joined); a restore onto a fresh executor re-slices it, and
+    the next tick matches the live run's exactly."""
+    from reflow_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+
+    ex = _tp_executor(2, 4)
+    sched, ig, stream = _tp_port(params, ex)
+    save_checkpoint(sched, str(tmp_path))
+    ex2 = _tp_executor(2, 4)
+    ig2 = pie.build_graph(N_IMG, N_GRP, params, model_axis="model")
+    sched2 = P.DirtyScheduler(ig2.graph, ex2)
+    load_checkpoint(sched2, str(tmp_path))
+    for r in range(8):
+        a = ex.shard_states(r)[ig.embed.id]["params"]["blocks"][1]["w2"]
+        b = ex2.shard_states(r)[ig2.embed.id]["params"]["blocks"][1]["w2"]
+        assert torch.equal(a, b) and a.shape[0] == VIT_TINY["mlp_dim"] // 4
+    batch = stream.insert(np.arange(40, 48), np.arange(8) % N_GRP)
+    for s, g in ((sched, ig), (sched2, ig2)):
+        s.push(g.images, batch)
+        s.tick()
+    a, b = sched.read_table(ig.centroids), sched2.read_table(ig2.centroids)
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    _close(a, stream.reference_centroids())

@@ -88,7 +88,9 @@ def test_importing_the_port_loads_no_jax():
               "reflow_tpu_torch.parallel.shard",
               "reflow_tpu_torch.parallel.shard_lowerings",
               "reflow_tpu_torch.parallel.topo",
-              "reflow_tpu_torch.parallel.dryrun"):
+              "reflow_tpu_torch.parallel.dryrun",
+              "reflow_tpu_torch.parallel.dist",
+              "reflow_tpu_torch.parallel.multihost_worker"):
         assert m in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -134,3 +136,13 @@ def test_chip_smoke_alone_refuses(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_multihost_worker_stands_alone(tmp_path):
+    """The worker module runs as ``python -m`` from the checkout without
+    JAX: its usage line names the required backend."""
+    out = subprocess.run(
+        [sys.executable, "-m", "reflow_tpu_torch.parallel.multihost_worker",
+         "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--backend" in out.stdout and "{gloo,nccl}" in out.stdout

@@ -376,13 +376,19 @@ def test_placement_helpers_follow_the_executor_layout():
 
 
 def test_model_axis_refused_by_name():
-    """A (delta, model) mesh builds; the executor refuses its model axis
-    by name (tensor-parallel Map params come with the next slice)."""
+    """A (delta, model) mesh builds and the executor takes its model
+    axis: the data axis is the other one. A model axis the mesh lacks,
+    or one that leaves no data axis, is refused by name."""
     from reflow_tpu_torch.parallel import make_model_mesh
 
     mm = make_model_mesh(4, 2, device="cpu")
     assert mm.shape == {"delta": 4, "model": 2} and mm.size == 8
-    with pytest.raises(GraphError, match="model_axis"):
-        ShardedCudaExecutor(mm, model_axis="model")
+    ex = ShardedCudaExecutor(mm, model_axis="model")
+    assert ex.axis == "delta" and ex.n == 4 and ex.m == 2
+    with pytest.raises(GraphError, match="model_axis 'mp'"):
+        ShardedCudaExecutor(mm, model_axis="mp")
+    with pytest.raises(GraphError, match="no data axis"):
+        ShardedCudaExecutor(make_mesh(4, axis_name="model", device="cpu"),
+                            model_axis="model")
     with pytest.raises(GraphError, match="power of two"):
         ShardedCudaExecutor(make_mesh(6, device="cpu"))

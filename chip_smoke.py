@@ -338,11 +338,28 @@ Phases, each printing its own lines:
    ``MH_LIMIT_S`` fails the phase. ``python3 chip_smoke.py
    --multihost-nccl`` on a machine of several cards runs leg B alone in
    an nccl group, a process a card.
+   The window path on both meshes. Leg A-w: config 5 on
+   ``make_model_mesh(2, 2)`` as one ``tick_many`` window of 4 ticks,
+   then 8 ticks through ``IngestFrontend`` at depth 2 (windows of 2,
+   one backlog pumped in the phase's thread), beside the same 8 ticks
+   on the same mesh one at a time and on one device: each window
+   engaged (``megatick_windows`` and ``window_dispatches`` equal the
+   windows sent, no fallback, 3 windows pipelined), the centroids
+   within 5e-3 of both. Leg B-w: one more pair of children
+   (``--case window``): B1's config 3 churn as one window of 4 ticks, a
+   collective checkpoint between windows restored into fresh
+   schedulers and one more window on both, held to a one-process twin
+   of the same mesh (2 tol); then B2's k-NN through ``IngestFrontend``
+   at depth 2, every round's table equal to a single-device twin's
+   through the same frontend bit for bit. Printed: the windows, the
+   queue's bytes a generation, ``windows_pipelined`` and the ms a tick
+   beside the per-tick runs of the same mesh.
 
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
 them, must stay 0. Phases 13-16 and 18 zero them again and count their
 own paths' launches apart from their twins'; phase 17 and phase 19's
-leg B count them in their children; leg A launches none.
+legs B and B-w count them in their children (``multihost_knn``,
+``multihost_window_knn``); legs A and A-w launch none.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4527,14 +4544,24 @@ def tier_knn(card: str, fs: str, tmp: str, cfg: Dict[str, int] = FULL,
         rungs = len(slo.ladder)
         bound = rungs * kn["recover_intervals"] + kn["recovery_slack_ticks"]
         deadline = time.perf_counter() + 30
-        while cp.level("wc_hot") > 0 and time.perf_counter() < deadline:
+        # the ladder's level drops before the control thread takes the
+        # tier's lock to set the policy: wait for both
+        while ((cp.level("wc_hot") > 0 or h_hot.frontend.policy != "block")
+               and time.perf_counter() < deadline):
             time.sleep(kn["interval_s"])
         recovery = cp.ticks - ticks_at_end
+        # the admission gate is the card's: a CPU child shares its cores
+        # with whatever else runs, and then reports the p99 only
+        p99_ok = quiet_p99 <= kn["quiet_p99_bound_s"] or not _on_card()
+        if not _on_card():
+            log(f"[tier] quiet admission p99 {quiet_p99 * 1e3:.3f} ms "
+                f"(the {kn['quiet_p99_bound_s'] * 1e3:.0f} ms gate holds "
+                f"on the card only) [{card}]")
         if not (hot_peak > 0 and quiet_peak == 0
                 and cp.level("wc_hot") == 0
                 and h_hot.frontend.policy == "block"
                 and recovery <= bound
-                and quiet_p99 <= kn["quiet_p99_bound_s"]):
+                and p99_ok):
             raise AssertionError(
                 f"surge: hot peak level {hot_peak}, quiet {quiet_peak}, hot "
                 f"policy {h_hot.frontend.policy} after {recovery} intervals "
@@ -5793,6 +5820,9 @@ def phase_mesh(card: str) -> Dict[str, object]:
 TP_EMBED = dict(per_tick=256, n_images=1 << 14, n_groups=64, seed=19)
 #: config 5's limits (PERF.md section 2): the centroids and the features
 TP_CENT_ATOL, TP_FEAT_ATOL = 5e-3, 2e-2
+#: leg A-w: one tick_many window of 4 ticks, and 8 ticks through the
+#: depth-2 pump in windows of 2
+TP_WINDOW_K, TP_PUMP_TICKS = 4, 8
 #: leg B1: config 3 at full width over two processes
 MH_PR = dict(PAGERANK, churn_ticks=3)
 #: leg B2: config 4's k-NN at its widths, the preload cut to 2 chunks
@@ -5889,13 +5919,8 @@ def phase_model_axis(card: str) -> Dict[str, object]:
         rows.append({"kind": kind, "ms": ms, "psums": psums,
                      "twin_ms": (time.perf_counter() - t0) * 1e3})
         feat = max(feat, _feature_diff(kind, got_f, want_f, mcfg["dim"]))
-    got, want = sched.read_table(ig.centroids), twin.read_table(
-        ig_t.centroids)
-    if set(got) != set(want):
-        raise AssertionError(f"centroid groups {sorted(got)} vs the twin's "
-                             f"{sorted(want)}")
-    cent = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
-               for k in want)
+    cent = _cent_diff(sched.read_table(ig.centroids),
+                      twin.read_table(ig_t.centroids))
     if not np.isfinite(cent) or cent > TP_CENT_ATOL:
         raise AssertionError(f"centroids differ from the twin's by {cent}")
 
@@ -5932,7 +5957,145 @@ def phase_model_axis(card: str) -> Dict[str, object]:
         f"after update_params {sorted(after)[0]}")
     for line in _tally_lines(tallies[-1], card):
         log(f"[model_axis] collectives of the second tick: {line}")
-    return {"ticks": rows, "centroid_diff": cent, "feature_diff": feat}
+    win = model_axis_windows(card, params)
+    return {"ticks": rows, "centroid_diff": cent, "feature_diff": feat,
+            "windows": win}
+
+
+def _cent_diff(got: Dict, want: Dict) -> float:
+    if set(got) != set(want):
+        raise AssertionError(f"centroid groups {sorted(got)} vs "
+                             f"{sorted(want)}")
+    return max(float(np.abs(np.asarray(got[k], np.float64)
+                            - np.asarray(want[k], np.float64)).max())
+               for k in want)
+
+
+def model_axis_windows(card: str, params) -> Dict[str, object]:
+    """Leg A-w: config 5 on ``make_model_mesh(2, 2)`` through the window
+    path. One ``tick_many`` window of ``TP_WINDOW_K`` ticks, then
+    ``TP_PUMP_TICKS`` ticks through an ``IngestFrontend`` at depth 2
+    (windows of 2, one backlog pumped in this thread, so every window
+    after the first stages while the one before is in flight). Beside
+    them the same ticks on the same mesh one at a time, and on one
+    device; the window's and the pump's centroids are held to both."""
+    from reflow_tpu_torch.parallel import make_model_mesh
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    cfg = TP_EMBED
+    n, G, N = cfg["per_tick"], cfg["n_groups"], cfg["n_images"]
+    K, T = TP_WINDOW_K, TP_PUMP_TICKS
+    stream = image_embed.ImageStream(params, seed=cfg["seed"] + 1)
+    feed = [stream.insert(np.arange(t * n, (t + 1) * n),
+                          np.arange(t * n, (t + 1) * n) % G)
+            for t in range(T)]
+
+    def mesh_sched():
+        ig = image_embed.build_graph(N, G, params, model_axis="model")
+        ex = ShardedCudaExecutor(make_model_mesh(2, 2, device=DEVICE),
+                                 model_axis="model")
+        return DirtyScheduler(ig.graph, ex), ig
+
+    def per_tick(sched, ig, at):
+        ms, tabs = [], {}
+        for t, b in enumerate(feed):
+            t0 = time.perf_counter()
+            sched.push(ig.images, b)
+            sched.tick()
+            _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if t + 1 in at:
+                tabs[t + 1] = sched.read_table(ig.centroids)
+        return ms, tabs
+
+    # the per-tick run of the same mesh, and the single-device twin
+    sp, igp = mesh_sched()
+    p_ms, p_tab = per_tick(sp, igp, (K, T))
+    if not sp.executor.supports_window() or sp.megatick_windows:
+        raise AssertionError("the model mesh refused the window path")
+    ig_t = image_embed.build_graph(N, G, params)
+    twin = DirtyScheduler(ig_t.graph, _executor())
+    t_ms, t_tab = per_tick(twin, ig_t, (K, T))
+
+    # one window of K ticks
+    sw, igw = mesh_sched()
+    t0 = time.perf_counter()
+    r = sw.tick_many([{igw.images: b} for b in feed[:K]])
+    r.block()
+    _sync()
+    w_ms = (time.perf_counter() - t0) * 1e3
+    (queue,) = [q for key, q in sw.executor._window_cache.items()
+                if key[0] == "ingress_q"]
+    if (sw.megatick_windows, sw.executor.window_dispatches,
+            sw.megatick_fallbacks) != (1, 1, 0):
+        raise AssertionError(f"A-w: {sw.megatick_windows} windows, "
+                             f"{sw.executor.window_dispatches} dispatches, "
+                             f"{sw.megatick_fallbacks} fallbacks")
+    w_tab = sw.read_table(igw.centroids)
+
+    # the pump at depth 2
+    sf, igf = mesh_sched()
+    fe = IngestFrontend(sf, start=False, depth=2, max_bytes=1 << 34,
+                        window=CoalesceWindow(max_rows=n, max_ticks=2,
+                                              max_latency_s=0.001))
+    try:
+        tks = [fe.submit(igf.images, b, timeout=60) for b in feed]
+        t0 = time.perf_counter()
+        with fe._lock:
+            drained = fe._take_window()
+        fe._run_window(drained)
+        with fe._lock:
+            fe._finish_window()
+        _sync()
+        f_ms = (time.perf_counter() - t0) * 1e3
+        if not all(t.result(timeout=60).applied for t in tks):
+            raise AssertionError("A-w: a pump ticket was not applied")
+    finally:
+        fe.close()
+    want_w = -(-T // 2)
+    if (sf.megatick_windows, sf.executor.window_dispatches,
+            sf.megatick_fallbacks, fe.windows_staged,
+            fe.windows_pipelined) != (want_w, want_w, 0, want_w,
+                                      want_w - 1):
+        raise AssertionError(
+            f"A-w pump: {sf.megatick_windows} windows, "
+            f"{sf.executor.window_dispatches} dispatches, "
+            f"{sf.megatick_fallbacks} fallbacks, {fe.windows_staged} staged,"
+            f" {fe.windows_pipelined} pipelined")
+    (fqueue,) = [q for key, q in sf.executor._window_cache.items()
+                 if key[0] == "ingress_q"]
+    f_tab = sf.read_table(igf.centroids)
+
+    diffs = {"window_vs_per_tick": _cent_diff(w_tab, p_tab[K]),
+             "window_vs_twin": _cent_diff(w_tab, t_tab[K]),
+             "pump_vs_per_tick": _cent_diff(f_tab, p_tab[T]),
+             "pump_vs_twin": _cent_diff(f_tab, t_tab[T]),
+             "per_tick_vs_twin": _cent_diff(p_tab[T], t_tab[T])}
+    for k, v in diffs.items():
+        if not np.isfinite(v) or v > TP_CENT_ATOL:
+            raise AssertionError(f"A-w centroids {k}: {v} (bound "
+                                 f"{TP_CENT_ATOL})")
+    log(f"[model_axis] A-w window: {K} ticks x {n} images in 1 tick_many "
+        f"window on make_model_mesh(2, 2) ({sw.megatick_windows} window, "
+        f"{sw.executor.window_dispatches} dispatch, "
+        f"{sw.megatick_fallbacks} fallbacks), queue {queue.generations} "
+        f"generation(s) of {queue.gen_nbytes / 1e6:.1f} MB; "
+        f"{w_ms / K:.3f} ms a tick (the same mesh per tick "
+        f"{np.median(p_ms[:K]):.3f} ms median of {K}, one device "
+        f"{np.median(t_ms[:K]):.3f}) [{card}]")
+    log(f"[model_axis] A-w pump: {T} ticks through IngestFrontend(depth 2, "
+        f"windows of 2): {sf.megatick_windows} windows, windows_pipelined "
+        f"{fe.windows_pipelined}, queue {fqueue.generations} generations "
+        f"of {fqueue.gen_nbytes / 1e6:.1f} MB; {f_ms / T:.3f} ms a tick "
+        f"(the same mesh per tick {np.median(p_ms):.3f} ms median of {T}, "
+        f"one device {np.median(t_ms):.3f}) [{card}]")
+    log("[model_axis] A-w centroids max|diff| " + ", ".join(
+        f"{k} {v:.3g}" for k, v in diffs.items())
+        + f" (bound {TP_CENT_ATOL})")
+    return {"window_ms_a_tick": w_ms / K, "pump_ms_a_tick": f_ms / T,
+            "per_tick_ms": p_ms, "twin_ms": t_ms, "diffs": diffs,
+            "windows_pipelined": fe.windows_pipelined,
+            "queue_bytes": queue.gen_nbytes}
 
 
 def _mh_args(cfg: Dict[str, object], keys) -> List[str]:
@@ -6103,9 +6266,144 @@ def phase_multihost(card: str, group: Dict[str, object] = MH_GROUP
                                     for t in ksum["ticks"])
             + f" [{card}]")
         _mh_lines("B2", ksums, card)
+        bw = multihost_windows(card, tmp, group, sums, ksums)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"b1": sums, "b2": ksums}
+    return {"b1": sums, "b2": ksums, "bw": bw}
+
+
+def multihost_windows(card: str, tmp: str, group: Dict[str, object],
+                      b1: list, b2: list) -> Dict[str, object]:
+    """Leg B-w: the window path across the processes, in one more pair
+    of children (``--case window``): B1's churn as one window of
+    ``multihost_worker.WINDOW_K`` ticks, a collective checkpoint between windows
+    restored into fresh schedulers and one more window on both, then
+    B2's k-NN through an ``IngestFrontend`` at depth 2. Beside them a
+    twin of the same mesh shape in this process (the PageRank windows)
+    and a single-device twin through the same frontend (the k-NN); the
+    per-tick numbers are B1's and B2's children's (``b1``, ``b2``)."""
+    from reflow_tpu_torch.parallel import make_mesh
+    from reflow_tpu_torch.parallel import multihost_worker as mw
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    nproc = group["nproc"]
+    where = f"{nproc} {group['backend']} processes"
+    # one --seed reaches both cases of a window child
+    cfg, kcfg, K = MH_PR, dict(MH_KNN, seed=MH_PR["seed"]), mw.WINDOW_K
+    # both cases on (dcn nproc, delta 2), as B1
+    bw = _mh_group(tmp, "bw", [
+        "--case", "window", "--record", "ranks", "--delta", "2",
+        "--ckpt", os.path.join(tmp, "ckpt_w"),
+        "--restore-rtol", str(MH_TWIN_RTOL),
+        *_mh_args(cfg, ("n_nodes", "n_edges", "churn", "tol", "seed")),
+        *_mh_args(kcfg, ("Q", "D", "dim", "k", "scan_chunk",
+                         "preload_chunk", "preload_chunks", "insert_ticks",
+                         "per_tick", "retract", "query_update"))], group)
+    tdev = "cuda:0" if DEVICE is None else DEVICE
+    twin_out: Dict[str, np.ndarray] = {}
+    ktwin: Dict[str, np.ndarray] = {}
+    tck = os.path.join(tmp, "twin_ckpt_w")
+    try:
+        tsum = mw.drive_pagerank_windows(
+            cfg, lambda: ShardedCudaExecutor(make_mesh(
+                2 * nproc, dcn=nproc, device=tdev)),
+            save=lambda s: save_checkpoint(s, tck),
+            load=lambda s: load_checkpoint(s, tck), out=twin_out,
+            record="ranks", restore_rtol=MH_TWIN_RTOL)
+        ktsum = mw.drive_knn_frontend(kcfg, _executor(), ktwin)
+        sums, tables = bw.wait()
+    finally:
+        bw.kill()
+    n = cfg["n_nodes"]
+    worst = {}
+    for tag in ("b0", "w1", "cont", "restored"):
+        want = _mh_ranks([twin_out] * nproc, tag, nproc)
+        got = _mh_ranks(tables, tag, nproc)
+        worst[tag] = float((np.abs(got - want)
+                            / np.maximum(np.abs(want), 1.0)).max())
+        if got.shape != (n,) or not np.isfinite(got).all() \
+                or worst[tag] > MH_TWIN_RTOL:
+            raise AssertionError(f"B-w {tag}: ranks {got.shape} vs the "
+                                 f"twin's, max rel {worst[tag]}")
+    for s in sums:
+        pr, kn = s["pagerank"], s["knn"]
+        if (pr["windows"], pr["window_dispatches"], pr["fallbacks"]) != \
+                (2, 2, 0):
+            raise AssertionError(f"B-w child {s['pid']}: PageRank windows "
+                                 f"{pr['windows']}, dispatches "
+                                 f"{pr['window_dispatches']}, fallbacks "
+                                 f"{pr['fallbacks']}")
+        if pr["vs_reference"] > PAGERANK_MAX_REL_ERR:
+            raise AssertionError(f"B-w child {s['pid']}: ranks vs the "
+                                 f"reference {pr['vs_reference']}")
+        if (kn["windows"], kn["window_dispatches"], kn["fallbacks"]) != \
+                (ktsum["windows"], ktsum["windows"], 0) \
+                or kn["windows_pipelined"] != ktsum["windows_pipelined"] \
+                or not kn["windows_pipelined"]:
+            raise AssertionError(f"B-w child {s['pid']}: k-NN windows "
+                                 f"{kn['windows']}, dispatches "
+                                 f"{kn['window_dispatches']}, pipelined "
+                                 f"{kn['windows_pipelined']}; the twin's "
+                                 f"{ktsum['windows']}")
+        if _on_card() and not (kn["launches"][0] and kn["launches"][1]):
+            raise AssertionError(f"B-w child {s['pid']} launched (topk, "
+                                 f"topk_merge) {kn['launches']}")
+    for i, t in enumerate(tables):
+        got = {key: a for key, a in t.items() if key.startswith("f")}
+        diff = [key for key in ktwin
+                if key not in got or not np.array_equal(got[key],
+                                                        ktwin[key])]
+        if set(got) != set(ktwin) or diff:
+            raise AssertionError(f"B-w child {i}: the k-NN tables differ "
+                                 f"from the single-device twin's at "
+                                 f"{diff[:6]}")
+    if len({s["pagerank"]["digest"] for s in sums}) != 1:
+        raise AssertionError("B-w: the dedup digests differ")
+    p0, k0 = sums[0]["pagerank"], sums[0]["knn"]
+    wt = {t["tag"]: t for t in p0["ticks"]}
+    churn_ms = [t["ms"] for t in b1[0]["ticks"]
+                if t["tag"] not in ("t0", "once", "cont", "restored")]
+    knn_tick_ms = [t["ms"] for t in b2[0]["ticks"]]
+    log(f"[multihost] B-w config 3 ({n} nodes, {cfg['n_edges']} edges) on "
+        f"(dcn {nproc}, delta 2) over {where}: the churn as windows of {K} "
+        f"ticks through tick_many, child 0 {p0['windows']} windows, "
+        f"{p0['window_dispatches']} dispatches, {p0['fallbacks']} "
+        f"fallbacks, queue {p0['queue_bytes'] / 1e6:.3f} MB a generation "
+        f"(this process's shards); window ms a tick (passes a window) "
+        + ", ".join(f"{tag} {wt[tag]['ms'] / wt[tag]['ticks']:.1f} "
+                    f"({wt[tag]['passes']})"
+                    for tag in ("w1", "cont", "restored"))
+        + f"; B1's churn ticks one at a time on the same mesh "
+        + ", ".join(f"{x:.1f}" for x in churn_ms)
+        + f" ms; ranks vs the one-process twin's windows by tag "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (bound {MH_TWIN_RTOL}), restored vs live "
+        + ", ".join(f"{s['pagerank']['restored_vs_live']:.3g}"
+                    for s in sums)
+        + f", vs the reference {p0['vs_reference']:.3g} [{card}]")
+    log(f"[multihost] B-w config 4's k-NN through IngestFrontend(depth "
+        f"{mw.FRONTEND_DEPTH}, windows of {mw.FRONTEND_TICKS}) on "
+        f"(dcn {nproc}, delta 2) over {where}: child 0 {k0['windows']} "
+        f"windows, {k0['window_dispatches']} dispatches, "
+        f"{k0['fallbacks']} fallbacks, windows_pipelined "
+        f"{k0['windows_pipelined']}, queues {k0['queue_bytes'] / 1e6:.3f} "
+        f"MB a generation (summed over the window shapes); round ms "
+        f"(ticks) "
+        + ", ".join(f"{r['ms']:.1f} ({r['ticks']})" for r in k0["rounds"])
+        + f", {sum(r['ms'] for r in k0['rounds']) / sum(r['ticks'] for r in k0['rounds']):.1f} ms a tick "
+        f"(B2 one tick at a time: " + ", ".join(f"{x:.1f}"
+                                               for x in knn_tick_ms)
+        + f" ms); every round's table equal to the single-device twin's "
+        f"through the same frontend bit for bit; (topk, topk_merge) "
+        f"launches a child " + ", ".join(str(tuple(s["knn"]["launches"]))
+                                         for s in sums)
+        + f" (B2 per tick: " + ", ".join(str(tuple(s["launches"]))
+                                        for s in b2) + f") [{card}]")
+    _mh_lines("B-w", sums, card)
+    return {"pagerank": [s["pagerank"] for s in sums],
+            "knn": [s["knn"] for s in sums], "worst": worst,
+            "launches": [sum(s["knn"]["launches"][i] for s in sums)
+                         for i in range(2)]}
 
 
 def _rank_nid(tables: Dict[str, np.ndarray], tag: str, r: int) -> str:
@@ -6182,7 +6480,10 @@ def main() -> int:
                    "subs_leader": fleet["subs_leader"][i],
                    "subs_replica": fleet["subs_replica"][i],
                    "lockcheck": lockcheck["launches"][i],
-                   "mesh_knn": mesh["launches"][i]}
+                   "mesh_knn": mesh["launches"][i],
+                   "multihost_knn": sum(s["launches"][i]
+                                        for s in multihost["b2"]),
+                   "multihost_window_knn": multihost["bw"]["launches"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)

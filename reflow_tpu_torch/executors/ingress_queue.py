@@ -53,13 +53,27 @@ depth-D pump allocates at most D sets.
 ``placement`` is the device the buffers live on (a ``torch.device`` or
 its name; None = the current CUDA device, as every entry point of the
 port), or a ``(mesh, axis)`` pair: the sharded executor's queue splits
-each source's capacity axis over the mesh's shards, as the JAX
-package's sharded queue does. Shard ``j`` then holds rows ``[j*cap/n,
-(j+1)*cap/n)`` of every slot in its own ``[K, cap/n]`` buffer on its
-own device, a slot write copies each shard's rows straight into that
-shard's buffer, and :meth:`stacked` hands the window a
+each source's capacity axis over the mesh's DATA shards (``axis``, one
+name or a tuple of them, flattened first-major), as the JAX package's
+sharded queue places a ``[K, cap]`` stack with ``P(None, axis)``. Data
+shard ``j`` then holds rows ``[j*cap/n, (j+1)*cap/n)`` of every slot in
+its own ``[K, cap/n]`` buffer, where ``n`` is the data size (``cap % n``
+is checked). The placement follows the JAX one on the other two counts:
+
+- mesh axes outside ``axis`` (a model axis) replicate: the members of a
+  model group share their data shard's ONE buffer, on the device of the
+  member at model index 0, so they can never read different rows (the
+  executor's region hands a member on another device a copy of it);
+- on a mesh across processes the queue holds only this process's data
+  shards (the data indices of ``mesh.local_ranks``, a contiguous block
+  from ``data_base``), and a slot write takes their rows out of the
+  GLOBAL host batch every process writes alike.
+
+A slot write copies each shard's rows straight into that shard's
+buffer, and :meth:`stacked` hands the window a
 :class:`~reflow_tpu_torch.executors.device_delta.ShardedDelta` per
-source (the row slices the sharded pass consumes as they are).
+source: one part per data shard this process holds (all ``n`` on one
+controller), the row slices the sharded pass consumes as they are.
 
 ``slot_nbytes`` is the admission-side view of the same reservation: the
 device bytes one host batch will occupy in its queue slot, used by the
@@ -97,6 +111,28 @@ def slot_nbytes(spec, rows: int) -> int:
     return cap * (4 + 4 + per_val * torch_dtype(spec.value_dtype).itemsize)
 
 
+def _data_shards(mesh, axis) -> tuple:
+    """``(n_data, data_base, devices)`` of a mesh placement: the data
+    size over ``axis``, the first data index this process holds, and the
+    device of each of its data shards in data order (the member at model
+    index 0 of each model group; the other axes are model axes)."""
+    data = tuple(axis) if isinstance(axis, tuple) else (axis,)
+    model = tuple(a for a in mesh.axis_names if a not in data)
+    n_data = int(np.prod([mesh.shape[a] for a in data]))
+    first: Dict[int, tuple] = {}
+    for r in mesh.local_ranks:
+        d = mesh.axis_index(r, data)
+        mi = mesh.axis_index(r, model) if model else 0
+        if d not in first or mi < first[d][0]:
+            first[d] = (mi, r)
+    held = sorted(first)
+    base = held[0]
+    if held != list(range(base, base + len(held))):
+        raise ValueError(f"this process's data shards {held} are not a "
+                         f"contiguous block")
+    return n_data, base, [mesh.device_list[first[d][1]] for d in held]
+
+
 def _host_values(batch, n: int, vshape: tuple) -> np.ndarray:
     """A batch's values as one ``[n, *vshape]`` array (object columns of
     per-row arrays are stacked, as ``to_device`` stacks them)."""
@@ -119,19 +155,22 @@ class DeviceIngressQueue:
         self.k = int(k)
         self.caps = dict(caps)
         self._specs = dict(specs)
+        #: data shards the capacity axis splits over, and the first of
+        #: them this process holds (1 and 0 without a mesh)
+        self.n_data, self.data_base = 1, 0
         if isinstance(placement, tuple):
-            mesh, _axis = placement
-            #: one device per shard (the capacity axis is split over them)
-            self.shard_devices = list(mesh.device_list)
-            n = len(self.shard_devices)
+            mesh, axis = placement
+            self.n_data, self.data_base, self.shard_devices = _data_shards(
+                mesh, axis)
             for nid, cap in self.caps.items():
-                if cap % n:
+                if cap % self.n_data:
                     raise ValueError(
                         f"node {nid}: queue capacity {cap} is not a "
-                        f"multiple of the mesh size {n}")
+                        f"multiple of the mesh's {self.n_data} data shards")
             self.placement = self.shard_devices[0]
         else:
             self.placement = resolve_device(placement)
+            #: one device per data shard this process holds
             self.shard_devices = [self.placement]
         self._sharded = isinstance(placement, tuple)
         self._cuda = self.placement.type == "cuda"
@@ -142,8 +181,11 @@ class DeviceIngressQueue:
         self.nbytes = 0
         #: host staging bytes (pinned on the card) of the same generations
         self.host_nbytes = 0
-        self.gen_nbytes = sum(k * slot_nbytes(specs[nid], cap)
-                              for nid, cap in caps.items())
+        #: device bytes of one generation: this process's data shards'
+        #: share of every source's [K, cap] stack
+        self.gen_nbytes = sum(
+            k * slot_nbytes(specs[nid], cap) // self.n_data
+            * len(self.shard_devices) for nid, cap in caps.items())
         #: generation -> {nid: DeviceDelta}; _staging is the generation
         #: writes land in, _inflight the sealed ones in dispatch order,
         #: _free the reusable ones (LIFO so the depth-1 flow ping-pongs on
@@ -172,8 +214,8 @@ class DeviceIngressQueue:
             spec = self._specs[nid]
             vshape = tuple(spec.value_shape)
             shape, vfull = (self.k, cap), (self.k, cap) + vshape
-            # one [K, cap/n] buffer per shard, on the shard's device
-            cl = cap // n
+            # one [K, cap/n] buffer per data shard, on the shard's device
+            cl = cap // self.n_data
             bufs[nid] = [DeviceDelta(
                 torch.zeros((self.k, cl), dtype=torch.int32, device=dev),
                 torch.zeros((self.k, cl) + vshape,
@@ -253,8 +295,8 @@ class DeviceIngressQueue:
             parts = list(dd) if isinstance(dd, ShardedDelta) else [dd]
             if any(a is not b for p, q in zip(parts, old[nid])
                    for a, b in zip(p, q)):
-                self._dirty[gen][nid] = [[self.caps[nid] // n] * self.k
-                                         for _ in range(n)]
+                cl = self.caps[nid] // self.n_data
+                self._dirty[gen][nid] = [[cl] * self.k for _ in range(n)]
             adopted[nid] = parts
         self._gens[gen] = adopted
         self._inflight.remove(gen)
@@ -302,20 +344,24 @@ class DeviceIngressQueue:
                     f"(max {int(bkeys.max())}, min {int(bkeys.min())})")
         gen = self._ensure_staging()
         parts = self._gens[gen][nid]
-        cl = cap // len(parts)
-        if n:
+        cl = cap // self.n_data
+        # the global rows this process's data shards take
+        lo0 = self.data_base * cl
+        hi0 = min(n, lo0 + len(parts) * cl)
+        if hi0 > lo0:
             hk, hv, hw = self._host[gen][nid]
             vshape = tuple(self._specs[nid].value_shape)
-            hk[t, :n].numpy()[:] = bkeys
-            hw[t, :n].numpy()[:] = batch.weights
-            hv[t, :n].numpy()[:] = _host_values(batch, n, vshape)
-        else:
+            hk[t, lo0:hi0].numpy()[:] = bkeys[lo0:hi0]
+            hw[t, lo0:hi0].numpy()[:] = np.asarray(batch.weights)[lo0:hi0]
+            hv[t, lo0:hi0].numpy()[:] = _host_values(
+                batch, n, vshape)[lo0:hi0]
+        if not n:
             self.zero_writes += 1
-        # shard j takes rows [j*cl, (j+1)*cl) of the slot (one shard, the
-        # whole slot, without a mesh)
+        # data shard j takes rows [(base+j)*cl, (base+j+1)*cl) of the
+        # slot (one shard, the whole slot, without a mesh)
         for j, (dev, dirty) in enumerate(zip(parts,
                                              self._dirty[gen][nid])):
-            lo = j * cl
+            lo = lo0 + j * cl
             m = min(max(n - lo, 0), cl)
             if m:
                 for d, h in zip(dev, (hk, hv, hw)):
@@ -333,8 +379,9 @@ class DeviceIngressQueue:
 
     def stacked(self) -> Dict[int, object]:
         """The staging generation's contents as the [K, cap] ingress
-        stack the window's tick loop reads (a ``ShardedDelta`` of the
-        shards' [K, cap/n] stacks under a mesh placement)."""
+        stack the window's tick loop reads (under a mesh placement a
+        ``ShardedDelta`` of the [K, cap/n] stacks of the data shards this
+        process holds, in data order)."""
         gen = self._gens[self._ensure_staging()]
         if self._sharded:
             return {nid: ShardedDelta(p) for nid, p in gen.items()}

@@ -29,6 +29,17 @@ dcn=NPROC)`` (each dcn row one process's shards) and runs a case:
   only: the scheduler's sink branch and the error check must still run
   on every process.
 
+- ``window``: the window path across the processes. Config 3's build
+  tick, then a churn window of ``WINDOW_K`` ticks through
+  ``tick_many`` (global host batches: each process's ingress queue
+  holds its own shards' slots), a collective checkpoint between windows
+  restored into a fresh scheduler and one more window on both; then the
+  k-NN feed through an ``IngestFrontend`` at depth 2 (windows of 2
+  ticks, pumped in this thread so every process forms the same
+  windows). ``--window-fault`` makes the last process raise inside the
+  first churn window: every process must fail within the group timeout
+  (the summary's ``window_failed`` and ``failed_after_s``).
+
 ``--no-fixpoint`` has the scheduler drive a loop's passes itself (its
 next-pass branch then reads every process's egress counts).
 
@@ -63,10 +74,12 @@ from reflow_tpu_torch.executors.device_delta import (  # noqa: E402
 from reflow_tpu_torch.scheduler import DirtyScheduler, SourceCursor  # noqa
 from reflow_tpu_torch.workloads import knn, pagerank  # noqa: E402
 
-__all__ = ["PAGERANK", "KNN", "STREAM", "WorkerGroup", "drive_knn",
-           "drive_pagerank", "drive_stream", "knn_feed", "local_capacity",
-           "main", "pagerank_arena", "split_rows", "stream_feed",
-           "twin_batch"]
+__all__ = ["FRONTEND_DEPTH", "FRONTEND_TICKS", "PAGERANK", "KNN", "STREAM",
+           "WINDOW_K", "WorkerGroup",
+           "drive_knn", "drive_knn_frontend", "drive_pagerank",
+           "drive_pagerank_windows", "drive_stream", "knn_feed",
+           "local_capacity", "main", "pagerank_arena", "split_rows",
+           "stream_feed", "twin_batch"]
 
 #: the test's PageRank: 256 nodes, 2,048 edges, two processes of 4 shards
 PAGERANK = dict(n_nodes=256, n_edges=2048, churn=0.02, churn_ticks=1,
@@ -77,6 +90,9 @@ KNN = dict(Q=16, D=1024, dim=32, k=4, scan_chunk=64, preload_chunk=256,
            query_update=4, seed=18)
 #: the test's keyed-min stream: 64 keys, a first tick of 48 rows
 STREAM = dict(keys=64, rows=48, seed=21)
+#: the window case: a churn window of 4 ticks before the checkpoint
+#: and one after it; the k-NN frontend's windows of 2 ticks at depth 2
+WINDOW_K, FRONTEND_TICKS, FRONTEND_DEPTH = 4, 2, 2
 
 
 # -- the global batch as the processes lay it out ---------------------------
@@ -153,6 +169,41 @@ def record_shards(out: Dict[str, np.ndarray], tag: str, ex,
 Ingest = Callable[..., bool]
 
 
+def _pagerank_graph(cfg: Dict, ex):
+    """Config 3's graph with its arena sized for ``ex``'s shards."""
+    mesh = getattr(ex, "mesh", None)
+    n_shards = 1 if mesh is None else mesh.size
+    return pagerank.build_graph(cfg["n_nodes"], tol=cfg["tol"],
+                                arena_capacity=pagerank_arena(
+                                    n_shards, cfg["n_edges"], cfg["churn"]))
+
+
+def _restored_vs_live(ex, ex2, nid: int, nid2: int,
+                      restore_rtol: float) -> float:
+    """The largest relative difference of two runs' emitted ranks, shard
+    by shard; raises above ``restore_rtol``."""
+    worst = 0.0
+    for (_, sa), (_, sb) in zip(_shards(ex), _shards(ex2)):
+        a = sa[nid]["emitted"].cpu().numpy()
+        b = sb[nid2]["emitted"].cpu().numpy()
+        worst = max(worst, float((np.abs(a - b)
+                                  / np.maximum(np.abs(a), 1.0)).max()))
+    if worst > restore_rtol:
+        raise AssertionError(f"restored run differs from the live one by "
+                             f"{worst} (relative)")
+    return worst
+
+
+def _vs_reference(sched, pr, web) -> Dict:
+    """This process's owned ranks against the dense reference."""
+    ref = pagerank.reference_ranks(web)
+    table = sched.read_table(pr.new_rank)
+    worst = max(abs(v - ref[k]) / max(abs(ref[k]), 1.0)
+                for k, v in table.items())
+    return {"owned": len(table), "owned_lo": min(table),
+            "owned_hi": max(table), "vs_reference": float(worst)}
+
+
 def drive_pagerank(cfg: Dict, make_ex: Callable[[], object], ingest: Ingest,
                    *, nproc: int, save: Callable, load: Callable,
                    out: Dict[str, np.ndarray], record: str = "all",
@@ -168,14 +219,7 @@ def drive_pagerank(cfg: Dict, make_ex: Callable[[], object], ingest: Ingest,
     summary; the tables of every tick land in ``out``."""
     n, e, churn = cfg["n_nodes"], cfg["n_edges"], cfg["churn"]
     ex = make_ex()
-    mesh = getattr(ex, "mesh", None)
-    n_shards = 1 if mesh is None else mesh.size
-
-    def graph():
-        return pagerank.build_graph(n, tol=cfg["tol"], arena_capacity=(
-            pagerank_arena(n_shards, e, churn)))
-
-    pr = graph()
+    pr = _pagerank_graph(cfg, ex)
     sched = DirtyScheduler(pr.graph, ex, max_loop_iters=500)
     web = pagerank.WebGraph.random(n, e, seed=cfg["seed"])
     keep = [pr.new_rank.id] if record == "ranks" else None
@@ -202,13 +246,7 @@ def drive_pagerank(cfg: Dict, make_ex: Callable[[], object], ingest: Ingest,
         ingest(sched, pr.edges, cb, local_capacity(len(cb), nproc))
         tick(sched, f"t{i + 1}", ex)
 
-    # this process's owned ranks against the dense reference
-    ref = pagerank.reference_ranks(web)
-    table = sched.read_table(pr.new_rank)
-    worst = max(abs(v - ref[k]) / max(abs(ref[k]), 1.0)
-                for k, v in table.items())
-    summary = {"owned": len(table), "owned_lo": min(table),
-               "owned_hi": max(table), "vs_reference": float(worst)}
+    summary = _vs_reference(sched, pr, web)
 
     # the exactly-once round: ids from a shared cursor are the same on
     # every process, so a redelivery dedups everywhere
@@ -224,8 +262,8 @@ def drive_pagerank(cfg: Dict, make_ex: Callable[[], object], ingest: Ingest,
     if drift is not None:
         drift(sched)
     save(sched)
-    pr2 = graph()
     ex2 = make_ex()
+    pr2 = _pagerank_graph(cfg, ex2)
     sched2 = DirtyScheduler(pr2.graph, ex2, max_loop_iters=500)
     load(sched2)
     cur2 = SourceCursor.resume(sched2, pr2.edges)
@@ -237,18 +275,92 @@ def drive_pagerank(cfg: Dict, make_ex: Callable[[], object], ingest: Ingest,
                                 (sched2, pr2, cur2, "restored", ex2)):
         ingest(s, prx.edges, c3, cap, batch_id=c.next_id())
         tick(s, tag, exr)
-    worst = 0.0
-    for (_, sa), (_, sb) in zip(_shards(ex), _shards(ex2)):
-        a = sa[pr.new_rank.id]["emitted"].cpu().numpy()
-        b = sb[pr2.new_rank.id]["emitted"].cpu().numpy()
-        worst = max(worst, float((np.abs(a - b)
-                                  / np.maximum(np.abs(a), 1.0)).max()))
-    if worst > restore_rtol:
-        raise AssertionError(f"restored run differs from the live one by "
-                             f"{worst} (relative)")
+    worst = _restored_vs_live(ex, ex2, pr.new_rank.id, pr2.new_rank.id,
+                              restore_rtol)
     summary.update(restored_vs_live=worst, ticks=ticks,
                    digest=_digest(sched))
     return summary
+
+
+def _queue_bytes(ex) -> int:
+    """Device bytes a generation of the executor's ingress queues holds
+    (this process's data shards' slots)."""
+    return sum(q.gen_nbytes for key, q in ex._window_cache.items()
+               if key[0] == "ingress_q")
+
+
+def _window_engaged(tag: str, sched, windows: int) -> None:
+    """Every window went through the queue: none ran per tick."""
+    ex = sched.executor
+    if (sched.megatick_windows != windows or sched.megatick_fallbacks
+            or ex.window_dispatches != windows):
+        raise AssertionError(
+            f"{tag}: {sched.megatick_windows} windows, "
+            f"{ex.window_dispatches} dispatches, "
+            f"{sched.megatick_fallbacks} fallbacks; expected {windows} "
+            f"windows and no fallback")
+
+
+def drive_pagerank_windows(cfg: Dict, make_ex: Callable[[], object], *,
+                           save: Callable, load: Callable,
+                           out: Dict[str, np.ndarray], record: str = "all",
+                           restore_rtol: float = 1e-5,
+                           fault: Optional[Callable] = None) -> Dict:
+    """Config 3 on the window path: the build tick (global host batches
+    pushed), one churn window of ``WINDOW_K`` ticks through
+    ``tick_many``, a collective save restored into a fresh scheduler,
+    and one more window on the live and the restored scheduler. Every
+    batch is a global host batch: every process writes the same one and
+    its queue keeps its own shards' rows. ``fault(sched)`` (a test's)
+    runs before the first window. The tables after the build and after
+    each window land in ``out`` (``b0``, ``w1``, ``cont``,
+    ``restored``); returns the summary."""
+    n, e, churn, k = cfg["n_nodes"], cfg["n_edges"], cfg["churn"], WINDOW_K
+    ex = make_ex()
+    pr = _pagerank_graph(cfg, ex)
+    sched = DirtyScheduler(pr.graph, ex, max_loop_iters=500)
+    web = pagerank.WebGraph.random(n, e, seed=cfg["seed"])
+    keep = [pr.new_rank.id] if record == "ranks" else None
+    rows: List[Dict] = []
+
+    def run(s, tag, exr, feeds=None):
+        t0 = time.perf_counter()
+        r = s.tick(sync=False) if feeds is None else s.tick_many(feeds)
+        r.block()
+        if not r.quiesced:
+            raise AssertionError(f"{tag}: a tick did not quiesce")
+        rows.append({"tag": tag, "ticks": 1 if feeds is None else len(feeds),
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "passes": int(r.passes)})
+        record_shards(out, tag, exr, keep)
+
+    sched.push(pr.teleport, pagerank.teleport_batch(n))
+    sched.push(pr.edges, web.initial_batch())
+    run(sched, "b0", ex)
+    if fault is not None:
+        fault(sched)
+    run(sched, "w1", ex, [{pr.edges: web.churn(churn)} for _ in range(k)])
+    _window_engaged("pagerank", sched, 1)
+    gen_bytes = _queue_bytes(ex)
+
+    save(sched)
+    ex2 = make_ex()
+    pr2 = _pagerank_graph(cfg, ex2)
+    sched2 = DirtyScheduler(pr2.graph, ex2, max_loop_iters=500)
+    load(sched2)
+    batches = [web.churn(churn) for _ in range(k)]
+    for s, prx, tag, exr in ((sched, pr, "cont", ex),
+                             (sched2, pr2, "restored", ex2)):
+        run(s, tag, exr, [{prx.edges: b} for b in batches])
+    _window_engaged("pagerank", sched, 2)
+    _window_engaged("pagerank restored", sched2, 1)
+    worst = _restored_vs_live(ex, ex2, pr.new_rank.id, pr2.new_rank.id,
+                              restore_rtol)
+    return dict(_vs_reference(sched, pr, web),
+                windows=sched.megatick_windows,
+                window_dispatches=ex.window_dispatches,
+                fallbacks=sched.megatick_fallbacks, queue_bytes=gen_bytes,
+                ticks=rows, restored_vs_live=worst, digest=_digest(sched))
 
 
 def _digest(sched) -> int:
@@ -324,6 +436,68 @@ def drive_knn(cfg: Dict, ex, out: Dict[str, np.ndarray]) -> Dict:
             topk_mod.TOPK_LAUNCHES - l0[0],
             topk_mod.TOPK_MERGE_LAUNCHES - l0[1]]})
     return {"ticks": ticks, "queries": len(sched.read_table(kg.index))}
+
+
+def drive_knn_frontend(cfg: Dict, ex, out: Dict[str, np.ndarray]) -> Dict:
+    """The k-NN feed through an ``IngestFrontend`` at depth
+    ``FRONTEND_DEPTH``, in two rounds: the queries, the preload and the
+    inserts (one tick each but the queries', which share the first
+    preload's: windows of ``FRONTEND_TICKS`` ticks, each staged while
+    the one before is in flight), then the retraction with the query
+    update (one tick). The pump runs in this thread (``start=False``),
+    one iteration a round, so every process of a group forms the same
+    windows. The index
+    table after each round lands in ``out`` (``f<round>/emitted``,
+    ``f<round>/em_has``)."""
+    from reflow_tpu_torch.kernels import topk as topk_mod
+    from reflow_tpu_torch.serve import CoalesceWindow, IngestFrontend
+
+    kg = knn_graph(cfg)
+    sched = DirtyScheduler(kg.graph, ex)
+    feed = knn_feed(cfg)
+    ticks = FRONTEND_TICKS
+    # a round is admitted whole before the pump runs: the budget must
+    # hold it (two preload chunks of config 4 are 102 MB of slots)
+    fe = IngestFrontend(sched, start=False, depth=FRONTEND_DEPTH,
+                        max_bytes=1 << 40,
+                        window=CoalesceWindow(max_rows=cfg["per_tick"],
+                                              max_ticks=ticks,
+                                              max_latency_s=0.001))
+    rounds = [feed[:-2], feed[-2:]]
+    out_rounds = []
+    l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+    try:
+        for i, items in enumerate(rounds):
+            tks = [fe.submit(kg.queries if src == "q" else kg.docs, batch,
+                             batch_id=bid, timeout=60)
+                   for bid, src, batch, _kind in items]
+            t0 = time.perf_counter()
+            tick0 = sched._tick
+            with fe._lock:
+                drained = fe._take_window()
+            fe._run_window(drained)
+            with fe._lock:
+                fe._finish_window()
+            if ex.device.type == "cuda":
+                torch.cuda.synchronize(ex.device)
+            ms = (time.perf_counter() - t0) * 1e3
+            if not all(t.result(timeout=60).applied for t in tks):
+                raise AssertionError(f"round {i}: a ticket was not applied")
+            st = ex._node_state(kg.index.id)
+            for key in ("emitted", "em_has"):
+                _flat(st[key], f"f{i}/{key}", out)
+            out_rounds.append({"ms": ms, "ticks": sched._tick - tick0})
+    finally:
+        fe.close()
+    _window_engaged("knn", sched, sum(-(-r["ticks"] // ticks)
+                                      for r in out_rounds))
+    return {"rounds": out_rounds, "windows": sched.megatick_windows,
+            "window_dispatches": ex.window_dispatches,
+            "fallbacks": sched.megatick_fallbacks,
+            "windows_pipelined": fe.windows_pipelined,
+            "queue_bytes": _queue_bytes(ex),
+            "launches": [topk_mod.TOPK_LAUNCHES - l0[0],
+                         topk_mod.TOPK_MERGE_LAUNCHES - l0[1]]}
 
 
 def stream_feed(cfg: Dict) -> List[tuple]:
@@ -462,7 +636,10 @@ def _args(argv):
     ap.add_argument("--device", default=None,
                     help="cpu, or cuda:<i> (default: the card)")
     ap.add_argument("--case", default="pagerank",
-                    choices=("pagerank", "knn", "stream"))
+                    choices=("pagerank", "knn", "stream", "window"))
+    ap.add_argument("--window-fault", action="store_true",
+                    help="the last process raises inside the first "
+                         "churn window (window case)")
     ap.add_argument("--no-fixpoint", action="store_true",
                     help="the scheduler drives the loop's passes")
     ap.add_argument("--delta", type=int, default=4,
@@ -555,6 +732,8 @@ def main(argv=None) -> int:
         elif args.case == "knn":
             cfg = _cfg(KNN, args)
             summary.update(drive_knn(cfg, make_ex(), out))
+        elif args.case == "window":
+            _window_case(args, make_ex, out, summary)
         else:
             summary.update(drive_stream(_cfg(STREAM, args), make_ex(), out))
         tally = spmd.collective_tally()
@@ -572,6 +751,51 @@ def main(argv=None) -> int:
         dist.shutdown()
     print(json.dumps(summary), flush=True)
     return 0
+
+
+def _window_case(args, make_ex, out: Dict[str, np.ndarray],
+                 summary: Dict) -> None:
+    """The window case (see the module docstring): the PageRank windows
+    and the checkpoint between them, then the k-NN frontend; with
+    ``--window-fault`` the first window fails on the last process and
+    every process records how long its group took to fail."""
+    from reflow_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+
+    pid, nproc = args.pid, args.nproc
+    fault = None
+    if args.window_fault:
+        def fault(sched):
+            if pid != nproc - 1:
+                return
+            ex, calls = sched.executor, [0]
+            real = ex.run_region
+
+            def run_region(*a):
+                # a window tick is one region: fail the second
+                calls[0] += 1
+                if calls[0] == 2:
+                    raise RuntimeError("a fault injected into the "
+                                       "window's second tick")
+                return real(*a)
+
+            ex.run_region = run_region
+    t0 = time.time()
+    try:
+        summary["pagerank"] = drive_pagerank_windows(
+            _cfg(PAGERANK, args), make_ex,
+            save=lambda s: save_checkpoint(s, args.ckpt),
+            load=lambda s: load_checkpoint(s, args.ckpt), out=out,
+            record=args.record, restore_rtol=args.restore_rtol, fault=fault)
+    except Exception as e:  # noqa: BLE001 - the injected fault's outcome
+        if not args.window_fault:
+            raise
+        summary["window_failed"] = f"{type(e).__name__}: {e}"[:400]
+        summary["failed_after_s"] = time.time() - t0
+        return
+    if args.window_fault:
+        raise AssertionError("the faulted window did not fail")
+    summary["knn"] = drive_knn_frontend(_cfg(KNN, args), make_ex(), out)
 
 
 class _Drifted(Exception):

@@ -56,7 +56,17 @@ quiescence, the fused loop's tiers, the error check, and the
 scheduler's next pass and sink materialization through
 :meth:`live_anywhere`) reads every process's flags through one
 exchange, so all processes take it alike.
-The window path stays per-tick here (``supports_window`` is False).
+
+**The window path** (``tick_many``, ``stage_window`` -> ``dispatch_window``
+-> ``retire_window``, the serve pump at any depth) runs on every mesh, as
+the JAX package's does. The ingress queue splits a slot over the data
+shards only: the members of a model group share their data shard's
+buffer, and on a mesh across processes each process holds only its own
+data shards' slots, filled from the global host batch every process
+writes alike (``executors/ingress_queue.py``). A window's ticks are the
+same regions as the per-tick path's (the loop-free pass, the fixpoint
+tick with its ``host_gather`` branches), so every process runs the
+window's passes in step.
 
 **Passes and ticks.** A pass (and a whole fixpoint tick, see
 ``executors/fixpoint.py``) is one SPMD region: the ingress batches are
@@ -335,17 +345,10 @@ class ShardedCudaExecutor(CudaExecutor):
         return f"mesh[{self.mesh.size}]"
 
     def _ingress_placement(self):
-        # queue buffers shard their capacity axis over the mesh, so slot
-        # writes land shard-local
+        # queue buffers shard their capacity axis over the data axis (a
+        # model axis replicates; across processes, this process's data
+        # shards only), so slot writes land shard-local
         return (self.mesh, self.axis)
-
-    def supports_window(self) -> bool:
-        """The window path's queue slots shard over every mesh entry of
-        one process: a model axis or a mesh across processes ticks
-        per-tick instead."""
-        if self.m > 1 or self.mesh.spans_processes:
-            return False
-        return super().supports_window()
 
     def _node_state(self, nid: int):
         if nid not in self._shards[0]:

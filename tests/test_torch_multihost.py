@@ -229,6 +229,126 @@ def test_drifted_dedup_window_fails_the_collective_save(tmp_path):
     assert not (tmp_path / "ckpt" / "meta.pkl").exists()
 
 
+# -- the window path across the processes ------------------------------------
+
+@pytest.fixture(scope="module")
+def window_pair(tmp_path_factory):
+    """One pair of ``--case window`` children for the window tests: the
+    PageRank windows around a collective checkpoint, then the k-NN
+    through a depth-2 frontend."""
+    tmp = tmp_path_factory.mktemp("window")
+    sums, tables = _spawn(tmp, "--case", "window", "--ckpt",
+                          str(tmp / "ckpt"))
+    return sums, tables
+
+
+def _twin_windows(tmp_path):
+    twin: dict = {}
+    tck = tmp_path / "twin_ckpt"
+    summary = mw.drive_pagerank_windows(
+        mw.PAGERANK,
+        lambda: ShardedCudaExecutor(make_mesh(8, dcn=2, device="cpu")),
+        save=lambda s: save_checkpoint(s, str(tck)),
+        load=lambda s: load_checkpoint(s, str(tck)), out=twin)
+    return summary, twin
+
+
+def test_two_process_pagerank_window_equals_single_controller(
+        window_pair, tmp_path):
+    """Config 3's churn as one window of 4 ticks through ``tick_many`` on
+    (dcn 2, delta 4) over two processes: each process's queue holds its
+    own shards' slots of the global batches, the window engaged on both
+    (no per-tick fallback), and the owned tables after the build and the
+    window equal the single-controller mesh's window bit for bit."""
+    from reflow_tpu_torch.executors.ingress_queue import slot_nbytes
+
+    sums, tables = window_pair
+    cfg = mw.PAGERANK
+    spec = ppr.build_graph(cfg["n_nodes"]).edges.spec
+    rows = len(ppr.WebGraph.random(cfg["n_nodes"], cfg["n_edges"],
+                                   seed=cfg["seed"]).churn(cfg["churn"]))
+    for s in sums:
+        pr = s["pagerank"]
+        assert pr["windows"] == pr["window_dispatches"] == 2
+        assert pr["fallbacks"] == 0
+        # K slots of a churn batch's bucket, half of it on each process
+        assert pr["queue_bytes"] == \
+            mw.WINDOW_K * slot_nbytes(spec, rows) // 2
+        assert pr["vs_reference"] < 5e-4
+    assert sums[0]["pagerank"]["digest"] == sums[1]["pagerank"]["digest"]
+    summary, twin = _twin_windows(tmp_path)
+    assert summary["windows"] == 2 and summary["fallbacks"] == 0
+    n = 0
+    for t in tables:
+        got = {key: a for key, a in t.items()
+               if key.split("/")[0] in ("b0", "w1", "cont")}
+        n += _assert_bit_equal(got, twin)
+    assert n > 50
+    assert [r["passes"] for r in summary["ticks"]] == \
+        [r["passes"] for r in sums[0]["pagerank"]["ticks"]]
+
+
+def test_two_process_window_checkpoint_restores(window_pair, tmp_path):
+    """A collective checkpoint taken between two windows (every queue
+    generation retired) and restored into fresh schedulers: the next
+    window on the restored run equals the live run's bit for bit, on
+    each process and against the single-controller twin's."""
+    sums, tables = window_pair
+    for s in sums:
+        assert s["pagerank"]["restored_vs_live"] == 0.0
+    for t in tables:
+        cont = {key[len("cont/"):]: a for key, a in t.items()
+                if key.startswith("cont/")}
+        rest = {key[len("restored/"):]: a for key, a in t.items()
+                if key.startswith("restored/")}
+        assert cont and set(cont) == set(rest)
+        for key in cont:
+            np.testing.assert_array_equal(rest[key], cont[key], err_msg=key)
+    _, twin = _twin_windows(tmp_path)
+    for t in tables:
+        _assert_bit_equal({key: a for key, a in t.items()
+                           if key.startswith("restored/")}, twin)
+
+
+def test_two_process_knn_frontend_windows_equal_single_device(window_pair):
+    """Config 4's k-NN through an ``IngestFrontend`` at depth 2 on (dcn
+    2, delta 4) over two processes: three windows (the second staged
+    while the first was in flight), no fallback, and the index table at
+    every round's end equal to a single-device executor's through the
+    same frontend, bit for bit."""
+    from reflow_tpu_torch.executors import get_executor
+
+    sums, tables = window_pair
+    for s in sums:
+        kn = s["knn"]
+        assert kn["windows"] == kn["window_dispatches"] == 3
+        assert kn["fallbacks"] == 0 and kn["windows_pipelined"] == 1
+        assert [r["ticks"] for r in kn["rounds"]] == [4, 1]
+    twin: dict = {}
+    tsum = mw.drive_knn_frontend(mw.KNN, get_executor("cuda", device="cpu"),
+                                 twin)
+    assert tsum["windows"] == 3 and tsum["windows_pipelined"] == 1
+    for t in tables:
+        got = {key: a for key, a in t.items() if key.startswith("f")}
+        assert _assert_bit_equal(got, twin) == 4
+
+
+def test_a_window_fault_in_one_process_fails_both(tmp_path):
+    """The last process raises inside the first churn window: its peer,
+    waiting in the window's next exchange, fails too, within the group
+    timeout, instead of hanging."""
+    sums, _ = mw.WorkerGroup(
+        2, "gloo", ["--case", "window", "--window-fault", "--ckpt",
+                    str(tmp_path / "ckpt")],
+        out_dir=str(tmp_path), tag="fault", device="cpu", limit_s=LIMIT_S,
+        timeout_s=30).wait()
+    assert "fault injected" in sums[1]["window_failed"]
+    assert sums[0]["window_failed"]
+    for s in sums:
+        assert s["failed_after_s"] < 30
+        assert "pagerank" not in s and "knn" not in s
+
+
 def test_nccl_refuses_two_ranks_on_one_card():
     """nccl needs a card per process; two processes on fewer cards raise
     before any rendezvous, and nothing falls back to gloo."""

@@ -355,10 +355,30 @@ Phases, each printing its own lines:
    queue's bytes a generation, ``windows_pipelined`` and the ms a tick
    beside the per-tick runs of the same mesh.
 
+20. **Picking the executor from the environment** — every leg's
+   scheduler built only through ``ReflowConfig.from_env`` of an explicit
+   environment (``CONFIG_ENVS``), never ``os.environ``, each beside a
+   twin built by hand. Leg a (``REFLOW_EXECUTOR=cuda``): config 4's k-NN
+   at full width with phase 17's preload cut (2 x 65,536 docs): the
+   queries with the preload (a rescan), an insert of 8,192 fresh docs
+   and a retraction of 1,024; after every tick the table equal bit for
+   bit to ``DirtyScheduler(graph, get_executor("cuda"))``'s on the same
+   deltas, the (topk, topk_merge) launches equal to the twin's and not
+   zero, the executor on the card. Leg b (``cuda``,
+   ``REFLOW_LINEAR_FIXPOINT=0``, ``REFLOW_MAX_LOOP_ITERS=500``): config 3
+   at full width, the initial tick and 2 churn ticks, on the row
+   program with no fused-loop CSR rebuild; ranks within 1e-3 relative of
+   the float64 reference; ``max_loop_iters`` 500. Leg c
+   (``REFLOW_EXECUTOR=sharded``, ``REFLOW_MESH_DEVICES=4``, built on
+   ``cuda:0``): leg a's first two ticks on the 4-shard mesh, each table
+   bit for bit the twin's. Leg d (``REFLOW_EXECUTOR=tpu``): refused, its
+   message printed. Printed: a line a leg, with the ms a tick beside the
+   twin's and the launches; ``config`` in ``launches_by_path``.
+
 Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
-them, must stay 0. Phases 13-16 and 18 zero them again and count their
-own paths' launches apart from their twins'; phase 17 and phase 19's
-legs B and B-w count them in their children (``multihost_knn``,
+them, must stay 0. Phases 13-16, 18 and 20 zero them again and count
+their own paths' launches apart from their twins'; phase 17 and phase
+19's legs B and B-w count them in their children (``multihost_knn``,
 ``multihost_window_knn``); legs A and A-w launch none.
 
 The last lines are the kernels' JSON record, the card line, and
@@ -4519,7 +4539,6 @@ def tier_knn(card: str, fs: str, tmp: str, cfg: Dict[str, int] = FULL,
                    for p in range(kn["hammers"])]
         for t in hammers:
             t.start()
-        hot_peak = quiet_peak = 0
         for j in range(kn["quiet_batches"]):
             b = wordcount.ingest_lines(_wc_lines(6, 0, j), vocab=dict(vocab))
             res = h_quiet.submit(wc["wc_quiet"][1], b).result(
@@ -4527,9 +4546,17 @@ def tier_knn(card: str, fs: str, tmp: str, cfg: Dict[str, int] = FULL,
             if not res.applied:
                 raise AssertionError(f"wc_quiet batch {j}: {res}")
             quiet_batches.append(b)
-            hot_peak = max(hot_peak, cp.level("wc_hot"))
-            quiet_peak = max(quiet_peak, cp.level("wc_quiet"))
         surge_s = time.perf_counter() - t_surge
+        # each tenant's peak rung, from the control plane's own record of
+        # every step it took in the surge: a rung may be held for only a
+        # tick or two, which a read after each quiet batch can miss (under
+        # CPU contention the control thread ticks a quarter as often)
+        surge_end = cp._clock()
+        hot_peak, quiet_peak = (max(
+            (a["level"] for a in list(cp.actions)
+             if a["kind"] == "brownout_step" and a["graph"] == name
+             and cp_t0 <= a["now"] <= surge_end), default=0)
+            for name in ("wc_hot", "wc_quiet"))
         quiet_adm = list(h_quiet.frontend.admission_s)
         quiet_p99 = percentile(quiet_adm, 99)
         stop.set()
@@ -6406,6 +6433,199 @@ def multihost_windows(card: str, tmp: str, group: Dict[str, object],
                          for i in range(2)]}
 
 
+# -- phase 20: the executor picked from the environment -----------------------
+
+#: legs a and c: config 4 at full width, the preload cut to 2 x 65,536
+#: docs as in phase 17
+CONFIG_KNN = dict(FULL, preload_chunks=2, insert_ticks=1)
+#: leg b: config 3 at full width, the initial tick and 2 churn ticks
+CONFIG_PR = dict(PAGERANK, churn_ticks=2)
+#: each leg's environment, handed to ``ReflowConfig.from_env`` (never
+#: ``os.environ``)
+CONFIG_ENVS = {
+    "a": {"REFLOW_EXECUTOR": "cuda"},
+    "b": {"REFLOW_EXECUTOR": "cuda", "REFLOW_LINEAR_FIXPOINT": "0",
+          "REFLOW_MAX_LOOP_ITERS": "500"},
+    "c": {"REFLOW_EXECUTOR": "sharded",
+          "REFLOW_MESH_DEVICES": str(MESH_SHARDS)},
+    "d": {"REFLOW_EXECUTOR": "tpu"},
+}
+
+
+def _config_knn_ticks(cfg: Dict[str, int], seed: int) -> List[tuple]:
+    """(kind, [(source, batch), ...]) of legs a and c: the queries with
+    the preload (a rescan), one insert of fresh docs, one retraction."""
+    feed = _knn_feed(cfg, seed)
+    groups = (("query insert", ("query insert", "preload")),
+              ("insert", ("insert",)), ("retract", ("retract",)))
+    return [(kind, [(src, batch) for _, src, batch, k in feed if k in ks])
+            for kind, ks in groups]
+
+
+def _config_knn_run(tag: str, sched, kg, ticks: List[tuple],
+                    want: Callable[[str], tuple]) -> Dict[str, object]:
+    """The ticks through ``sched``, each timed and its (topk, topk_merge)
+    launches counted and checked against ``want(kind)``; the table after
+    every tick."""
+    ms, launches, tables = [], [], []
+    for kind, pushes in ticks:
+        l0 = _launches()
+        t0 = time.perf_counter()
+        for src, batch in pushes:
+            sched.push(kg.queries if src == "q" else kg.docs, batch)
+        sched.tick()
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = _since(l0)
+        if got != want(kind):
+            raise AssertionError(f"{tag} {kind} tick launched (topk, "
+                                 f"topk_merge) {got}, expected {want(kind)}")
+        launches.append(got)
+        tables.append(sched.read_table(kg.index))
+    return {"ms": ms, "launches": launches, "tables": tables}
+
+
+def _config_tables(tag: str, got: List[Dict], want: List[Dict]) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        bad = _table_diff(a, b)
+        if bad or len(a) != len(b):
+            raise AssertionError(f"{tag}: tick {i}'s table differs from the "
+                                 f"twin's at queries {bad[:8]}")
+
+
+def _total(launches: List[tuple]) -> tuple:
+    return (sum(x[0] for x in launches), sum(x[1] for x in launches))
+
+
+def phase_config(card: str, knn_cfg: Dict[str, int] = CONFIG_KNN,
+                 pr_cfg: Dict[str, object] = CONFIG_PR,
+                 seed: int = 20) -> Dict[str, object]:
+    """Phase 20: each leg's scheduler built only through
+    ``ReflowConfig.from_env(CONFIG_ENVS[leg])``, beside a twin built by
+    hand. Leg a (``cuda``): config 4's k-NN, its tables bit for bit the
+    twin's (``DirtyScheduler(graph, get_executor("cuda"))``) after a
+    rescan, an insert and a retraction tick, the launches equal and
+    non-zero. Leg b (``cuda``, the fused loop off, 500 passes at most):
+    config 3 on the row program, ranks within 1e-3 of the reference.
+    Leg c (``sharded``, 4 shards on ``cuda:0``): leg a's rescan and
+    insert ticks, bit for bit the twin's. Leg d (``tpu``): refused."""
+    from reflow_tpu_torch import ReflowConfig
+    from reflow_tpu_torch.parallel.shard import ShardedCudaExecutor
+
+    chunks = knn_cfg["D"] // knn_cfg["scan_chunk"]
+    ticks = _config_knn_ticks(knn_cfg, seed)
+    configs = {leg: ReflowConfig.from_env(env)
+               for leg, env in CONFIG_ENVS.items()}
+    for leg in "abc":
+        log(f"[config] leg {leg}: {CONFIG_ENVS[leg]} -> {configs[leg]}")
+    # the main path's counts: zeroed here, read after leg c; the twin's
+    # launches are counted apart, tick by tick
+    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+
+    # leg a: the cuda executor beside a twin built by hand
+    kg, kg_t = _knn_graph(knn_cfg), _knn_graph(knn_cfg)
+    sched = configs["a"].scheduler(kg.graph, device=DEVICE)
+    if sched.executor.name != "cuda" or \
+            sched.executor.device.type != _device_type():
+        raise AssertionError(f"leg a built {sched.executor.name} on "
+                             f"{sched.executor.device}")
+    a = _config_knn_run("leg a", sched, kg, ticks,
+                        lambda kind: _want_launches(kind, chunks))
+    del sched
+    twin = _config_knn_run("leg a's twin", DirtyScheduler(
+        kg_t.graph, _executor()), kg_t, ticks,
+        lambda kind: _want_launches(kind, chunks))
+    _config_tables("leg a", a["tables"], twin["tables"])
+    if _total(a["launches"]) != _total(twin["launches"]) or (
+            _on_card() and 0 in _total(a["launches"])):
+        raise AssertionError(f"leg a launched {_total(a['launches'])}, the "
+                             f"twin {_total(twin['launches'])}")
+    log(f"[config] leg a (cuda): ms a tick {[round(x, 3) for x in a['ms']]}"
+        f" (query insert + preload, insert, retract), twin "
+        f"{[round(x, 3) for x in twin['ms']]}; (topk, topk_merge) "
+        f"{a['launches']}, twin {twin['launches']}; tables bit for bit "
+        f"[{card}]")
+
+    # leg b: config 3 on the row program, at most 500 passes a tick
+    n, e, churn = pr_cfg["n_nodes"], pr_cfg["n_edges"], pr_cfg["churn"]
+    arena = bucket_capacity(e) + 8 * bucket_capacity(2 * int(churn * e) + 2)
+    pg = pagerank.build_graph(n, tol=pr_cfg["tol"], arena_capacity=arena)
+    web = pagerank.WebGraph.random(n, e, seed=pr_cfg["seed"])
+    sched = configs["b"].scheduler(pg.graph, device=DEVICE)
+    ex = sched.executor
+    if sched.max_loop_iters != 500 or ex.linear_fixpoint is not False:
+        raise AssertionError(f"leg b: max_loop_iters {sched.max_loop_iters}"
+                             f", linear_fixpoint {ex.linear_fixpoint}")
+    l0 = _launches()
+    b_ms, passes = [], []
+    pushes = [[(pg.teleport, pagerank.teleport_batch(n)),
+               (pg.edges, web.initial_batch())]]
+    pushes += [[(pg.edges, web.churn(churn))]
+               for _ in range(pr_cfg["churn_ticks"])]
+    for tick_pushes in pushes:
+        t0 = time.perf_counter()
+        for src, batch in tick_pushes:
+            sched.push(src, batch)
+        res = sched.tick()
+        _sync()
+        b_ms.append((time.perf_counter() - t0) * 1e3)
+        passes.append(res.passes)
+        if not res.quiesced:
+            raise AssertionError(f"leg b tick {res.tick} did not quiesce")
+    fused = sum(ex.csr_rebuilds.values())
+    prog = type(ex._fx_program).__name__
+    if not isinstance(ex._fx_program, FixpointProgram) or fused:
+        raise AssertionError(f"leg b ran {prog}, fused-loop CSR rebuilds "
+                             f"{fused}")
+    if _since(l0) != (0, 0):
+        raise AssertionError(f"leg b launched a top-k kernel: {_since(l0)}")
+    err = rank_error(sched, pg, web, n)
+    if err["rel_err"] > PAGERANK_MAX_REL_ERR:
+        raise AssertionError(f"leg b: relative error {err['rel_err']:.3g}")
+    del sched, ex
+    log(f"[config] leg b (cuda, REFLOW_LINEAR_FIXPOINT=0, "
+        f"REFLOW_MAX_LOOP_ITERS=500): the row program ({prog}), fused-loop "
+        f"CSR rebuilds {fused}; ms a tick {[round(x, 3) for x in b_ms]} "
+        f"(initial, {pr_cfg['churn_ticks']} churn), passes {passes}; "
+        f"max|rank - ref| / max(ref, 1) = {err['rel_err']:.6g} (bound "
+        f"{PAGERANK_MAX_REL_ERR:g}); no top-k launch [{card}]")
+
+    # leg c: the sharded executor, 4 shards on cuda:0
+    kg_c = _knn_graph(knn_cfg)
+    sched = configs["c"].scheduler(
+        kg_c.graph, device="cuda:0" if _on_card() else DEVICE)
+    ex = sched.executor
+    if not isinstance(ex, ShardedCudaExecutor) or ex.n != MESH_SHARDS or \
+            any(d.type != _device_type() for d in ex.mesh.device_list):
+        raise AssertionError(f"leg c built {type(ex).__name__} on "
+                             f"{ex.mesh.device_list}")
+    c = _config_knn_run("leg c", sched, kg_c, ticks[:2],
+                        lambda kind: _mesh_want(kind, chunks, MESH_SHARDS))
+    on = ex.mesh.device_list[0]
+    del sched, ex
+    _config_tables("leg c", c["tables"], twin["tables"][:2])
+    log(f"[config] leg c (sharded, {MESH_SHARDS} shards on {on}): ms a "
+        f"tick {[round(x, 3) for x in c['ms']]} (query insert + preload, "
+        f"insert), twin {[round(x, 3) for x in twin['ms'][:2]]}; "
+        f"(topk, topk_merge) {c['launches']}; tables bit for bit [{card}]")
+
+    # leg d: the JAX package's executor name
+    try:
+        configs["d"].make_executor(device=DEVICE)
+    except ValueError as err_d:
+        log(f"[config] leg d (REFLOW_EXECUTOR=tpu) refused: {err_d}")
+    else:
+        raise AssertionError("leg d: REFLOW_EXECUTOR=tpu was not refused")
+    launches = _total(a["launches"] + c["launches"])
+    twin_l = _total(twin["launches"])
+    if (launches[0] + twin_l[0], launches[1] + twin_l[1]) != _launches():
+        raise AssertionError(f"phase 20's launches {launches} and the "
+                             f"twin's {twin_l} do not sum to the counts "
+                             f"{_launches()}")
+    return {"launches": launches, "a": a, "b_ms": b_ms, "c": c,
+            "twin_ms": twin["ms"], "passes": passes, "rel_err": err["rel_err"]}
+
+
 def _rank_nid(tables: Dict[str, np.ndarray], tag: str, r: int) -> str:
     return next(k.split("/")[2] for k in tables
                 if k.startswith(f"{tag}/r{r}/") and k.endswith("/emitted"))
@@ -6463,6 +6683,7 @@ def main() -> int:
     mesh = timed(phase_mesh, card)
     timed(phase_model_axis, card)
     multihost = timed(phase_multihost, card)
+    config = timed(phase_config, card)
     log(f"[tier] ship lag, ms from the ack to the follower's horizon "
         f"(insert ticks, median): over TCP {tier['lag_ms']:.3f} (phase 15),"
         f" in process {replica['lag_ms_r0']:.3f} (phase 14, r0) [{card}]")
@@ -6483,7 +6704,8 @@ def main() -> int:
                    "mesh_knn": mesh["launches"][i],
                    "multihost_knn": sum(s["launches"][i]
                                         for s in multihost["b2"]),
-                   "multihost_window_knn": multihost["bw"]["launches"][i]}
+                   "multihost_window_knn": multihost["bw"]["launches"][i],
+                   "config": config["launches"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": recs}), flush=True)

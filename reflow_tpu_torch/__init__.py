@@ -8,29 +8,35 @@ hand-written CUDA. The NumPy :class:`CpuExecutor` is the oracle; the
 ``"cuda"`` executor (``get_executor("cuda")``, or ``device="cpu"`` to
 run its plain PyTorch path on the CPU) runs the ported lowerings.
 
-Ported so far: the k-NN re-index workload served end to end
-(``IngestFrontend`` -> ``DirtyScheduler`` -> ``CudaExecutor`` -> the
-KnnIndex lowering -> the top-k kernel), every row lowering with
-PageRank, word-count, TF-IDF and SSSP, and the ViT-B/16 image-embed ETL
-(``models``, ``workloads.image_embed``: a Map whose ``params`` are the
-model's weights), and the window path: K ticks staged into the device
-ingress queue and run in one executor call (``tick_many``), pipelined by
-the serving pump at depth > 1, and durable ingestion: the
-:class:`DurableScheduler` logs every accepted batch to a write-ahead log
-before it runs, ``utils.checkpoint`` saves the executor's device state
-(full or as a chain of deltas), and :func:`recover` restores a crashed
-run from checkpoint plus log tail.
+Ported (PRs 1-16), everything the JAX package does but the pieces left
+out on purpose (ROADMAP.md): the k-NN re-index workload served end to
+end (``IngestFrontend`` -> ``DirtyScheduler`` -> ``CudaExecutor`` -> the
+KnnIndex lowering -> the top-k kernel, redesigned for the H100); every
+row lowering with PageRank on the host-driven and the fused loop,
+word-count, TF-IDF, SSSP and the multiset Join; the ViT-B/16 image-embed
+ETL (``models``, ``workloads.image_embed``); the window path (K ticks
+through the device ingress queue in one executor call, pipelined by the
+serving pump); durable ingestion (the write-ahead log,
+:class:`DurableScheduler`, checkpoints, :func:`recover`); replication,
+failover and compaction; the serving tier and the wire (``serve``,
+``net``); fleet telemetry, standing-query subscriptions and the
+multi-process harness (``obs``, ``subs``, ``proc``); reflow-lint for the
+port (``analysis``); the device mesh on one controller and across
+processes, with a model axis (``parallel``); and :class:`ReflowConfig`,
+which picks the executor and the scheduler's bounds from the
+``REFLOW_*`` environment (``ReflowConfig.from_env().scheduler(graph)``).
 """
 
 from reflow_tpu_torch.delta import DeltaBatch, Spec
-from reflow_tpu_torch.executors import CpuExecutor, get_executor
+from reflow_tpu_torch.executors import CpuExecutor, Executor, get_executor
 from reflow_tpu_torch.graph import FlowGraph
 from reflow_tpu_torch.scheduler import DirtyScheduler
 from reflow_tpu_torch.serve import IngestFrontend
+from reflow_tpu_torch.utils.config import ReflowConfig
 from reflow_tpu_torch.wal import DurableScheduler, recover
 
 __version__ = "0.1.0"
 
 __all__ = ["DeltaBatch", "Spec", "FlowGraph", "DirtyScheduler",
-           "DurableScheduler", "CpuExecutor", "get_executor",
-           "IngestFrontend", "recover", "__version__"]
+           "DurableScheduler", "Executor", "CpuExecutor", "IngestFrontend",
+           "get_executor", "recover", "ReflowConfig", "__version__"]

@@ -86,6 +86,13 @@ class Executor(abc.ABC):
         """Convert a (possibly device-resident) sink egress batch to host."""
         return batch
 
+    def check_host_batch(self, source: Node, batch: DeltaBatch) -> None:
+        """Refuse, with ``DeliveryError``, a host batch for ``source``
+        this executor could not fold as the CPU oracle does. The
+        scheduler asks before it accepts the batch (dedup id, log,
+        pending), so a refused batch leaves no trace. The CPU oracle
+        takes every batch."""
+
     def refresh_minmax(self, node: Node, batch: DeltaBatch) -> None:
         """Maintenance hook for bounded min/max state (no-op by default):
         rebuild the candidate buffers of every key in ``batch`` from a

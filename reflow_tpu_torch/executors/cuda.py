@@ -68,6 +68,7 @@ from reflow_tpu_torch.executors.arena import propagate_plan_caps
 from reflow_tpu_torch.executors.base import Executor
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      bucket_capacity,
+                                                     check_keys,
                                                      devices_of,
                                                      resolve_device,
                                                      to_device, to_host)
@@ -75,7 +76,8 @@ from reflow_tpu_torch.executors.fixpoint import (FixpointProgram, analyze,
                                                  slot_ingress)
 from reflow_tpu_torch.executors.linear_fixpoint import (
     LinearFixpointProgram, analyze_linear, resid_state)
-from reflow_tpu_torch.executors.lowerings import (LOWERINGS, join_state,
+from reflow_tpu_torch.executors.lowerings import (DEVICE_REDUCERS,
+                                                  LOWERINGS, join_state,
                                                   knn_state, lower_node,
                                                   minmax_refresh_core,
                                                   reduce_state)
@@ -294,7 +296,11 @@ class CudaExecutor(Executor):
                     f"{node}: the device lowering needs key_space > 0 "
                     f"on every keyed-op input Spec")
         if op.kind == "reduce":
-            # every reducer Reduce accepts has a device lowering
+            if op.how not in DEVICE_REDUCERS:
+                raise GraphError(
+                    f"{node}: reducer {op.how!r} has no device lowering "
+                    f"yet (have {DEVICE_REDUCERS}); run it on the cpu "
+                    f"executor")
             self.states[node.id] = reduce_state(in_specs[0], node.spec,
                                                 self.device, op)
         elif op.kind == "join":
@@ -364,8 +370,9 @@ class CudaExecutor(Executor):
                 dev_ingress[nid] = DeviceDelta(*(t.to(self.device)
                                                  for t in b))
             else:
-                dev_ingress[nid] = to_device(b, self.graph.nodes[nid].spec,
-                                             device=self.device)
+                node = self.graph.nodes[nid]
+                dev_ingress[nid] = to_device(b, node.spec, device=self.device,
+                                             source=f"source {node.name!r}")
         return dev_ingress
 
     def run_pass(self, plan: Sequence[Node],
@@ -564,7 +571,8 @@ class CudaExecutor(Executor):
         t_h0 = time.perf_counter() if _trace.ENABLED else 0.0
         for t, f in enumerate(feeds):
             for nid in node_ids:
-                queue.write(t, nid, f[nid])
+                queue.write(t, nid, f[nid],
+                            f"source {self.graph.nodes[nid].name!r}")
         if _trace.ENABLED:
             _trace.evt("queue_write", t_h0, time.perf_counter() - t_h0,
                        args={"ticks": K, "slots": K * len(node_ids),
@@ -734,6 +742,12 @@ class CudaExecutor(Executor):
 
         return body
 
+    def check_host_batch(self, source: Node, batch: DeltaBatch) -> None:
+        """Keys outside int32 or at or past the source Spec's
+        ``key_space`` (``device_delta.check_keys``): the lowerings would
+        drop such a row. The upload checks again."""
+        check_keys(batch.keys, source.spec, f"source {source.name!r}")
+
     # -- host boundary out -------------------------------------------------
 
     def materialize(self, batch) -> DeltaBatch:
@@ -749,7 +763,8 @@ class CudaExecutor(Executor):
         from it and their overflow latches reset, in place. The aggregate
         cannot change (a contradicting replay sets the sticky error).
         Call between ticks; the scheduler's wrapper checks the node."""
-        d = to_device(batch, node.inputs[0].spec, device=self.device)
+        d = to_device(batch, node.inputs[0].spec, device=self.device,
+                      source=f"{node.name!r}'s refresh")
         self.states[node.id] = minmax_refresh_core(
             node.op, node.inputs[0].spec.key_space,
             tuple(node.spec.value_shape),

@@ -20,9 +20,10 @@ import torch
 from reflow_tpu_torch.delta import DeltaBatch, Spec, host_dtype, torch_dtype
 from reflow_tpu_torch.utils.faults import DeliveryError
 
-__all__ = ["DeviceDelta", "ShardedDelta", "bucket_capacity", "check_weight_mass",
-           "check_weight_mass_value",
-           "devices_of", "resolve_device", "to_device", "to_host",
+__all__ = ["DeviceDelta", "ShardedDelta", "bucket_capacity", "check_keys",
+           "check_weight_mass", "check_weight_mass_value",
+           "devices_of", "key_refusal", "resolve_device", "to_device",
+           "to_host",
            "MAX_BATCH_WEIGHT_MASS"]
 
 MIN_CAPACITY = 64
@@ -153,9 +154,43 @@ def check_weight_mass_value(mass) -> None:
             "float32 range; split the batch across ticks")
 
 
+def key_refusal(keys: np.ndarray, spec: Spec,
+                source: str = "batch") -> Optional[str]:
+    """Why the device path refuses these host keys, or None: keys
+    outside int32 (the key columns are int32, and assigning them would
+    wrap; the JAX ``to_device`` wraps silently), and keys at or past the
+    Spec's ``key_space`` when it is declared (> 0). The device lowerings
+    index their tables by key and drop such a row, as the JAX package's
+    do, where the CPU oracle keeps it: an accepted row would be lost with
+    no error. Negative keys pass; the lowerings wrap them once, as the
+    JAX package's do."""
+    k64 = np.asarray(keys).astype(np.int64)
+    if not len(k64):
+        return None
+    hi, lo = int(k64.max()), int(k64.min())
+    if hi > _I32.max or lo < _I32.min:
+        return (f"{source}: keys exceed the int32 key range [{_I32.min}, "
+                f"{_I32.max}] (max {hi}, min {lo})")
+    if 0 < spec.key_space <= hi:
+        return (f"{source}: key {hi} is at or past the Spec's key_space "
+                f"{spec.key_space}; the device path holds keys in "
+                f"[0, {spec.key_space}) (negative keys wrap once)")
+    return None
+
+
+def check_keys(keys: np.ndarray, spec: Spec,
+               source: str = "batch") -> np.ndarray:
+    """:func:`key_refusal` as a :class:`DeliveryError`; returns the keys
+    as int64."""
+    why = key_refusal(keys, spec, source)
+    if why is not None:
+        raise DeliveryError(why)
+    return np.asarray(keys).astype(np.int64)
+
+
 def to_device(batch: DeltaBatch, spec: Spec,
               capacity: Optional[int] = None,
-              device=None) -> DeviceDelta:
+              device=None, *, source: str = "batch") -> DeviceDelta:
     """Host DeltaBatch -> padded DeviceDelta (the source host boundary),
     on ``device`` (see :func:`resolve_device`: cuda unless named).
 
@@ -166,10 +201,9 @@ def to_device(batch: DeltaBatch, spec: Spec,
     toward zero, as in the JAX package (an int8 k-NN source zeroes unit
     float32 vectors; push pre-quantized rows).
 
-    Keys outside int32 raise :class:`DeliveryError` before anything is
-    uploaded, as :meth:`DeviceIngressQueue.write` does: the key column
-    is int32, and assigning them would wrap (the JAX ``to_device`` wraps
-    silently).
+    Keys outside int32 or at or past the Spec's ``key_space`` raise
+    :class:`DeliveryError` naming ``source`` before anything is uploaded,
+    as :meth:`DeviceIngressQueue.write` does (:func:`check_keys`).
     """
     device = resolve_device(device)
     n = len(batch)
@@ -182,12 +216,7 @@ def to_device(batch: DeltaBatch, spec: Spec,
     values = np.zeros((cap,) + tuple(spec.value_shape),
                       host_dtype(spec.value_dtype))
     if n:
-        k64 = batch.keys.astype(np.int64)
-        if int(k64.max()) > _I32.max or int(k64.min()) < _I32.min:
-            raise DeliveryError(
-                f"batch keys exceed the int32 key range [{_I32.min}, "
-                f"{_I32.max}] (max {int(k64.max())}, min {int(k64.min())})")
-        keys[:n] = k64
+        keys[:n] = check_keys(batch.keys, spec, source)
         weights[:n] = batch.weights
         values[:n] = np.asarray(
             np.stack([np.asarray(v) for v in batch.values])

@@ -92,13 +92,11 @@ from reflow_tpu_torch.delta import host_dtype, torch_dtype
 from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
                                                      ShardedDelta,
                                                      bucket_capacity,
+                                                     check_keys,
                                                      check_weight_mass,
                                                      resolve_device)
-from reflow_tpu_torch.utils.faults import DeliveryError
 
 __all__ = ["DeviceIngressQueue", "slot_nbytes"]
-
-_I32 = np.iinfo(np.int32)
 
 
 def slot_nbytes(spec, rows: int) -> int:
@@ -319,11 +317,13 @@ class DeviceIngressQueue:
 
     # -- slot writes --------------------------------------------------------
 
-    def write(self, t: int, nid: int, batch) -> None:
+    def write(self, t: int, nid: int, batch,
+              source: Optional[str] = None) -> None:
         """Fill slot ``(t, nid)`` of the staging generation from a host
         batch (a zero-row batch zeroes the slot on the device). Every
         slot must be written every window — the buffers persist, so a
-        skipped slot would replay a previous window's rows."""
+        skipped slot would replay a previous window's rows. ``source``
+        names the batch's source in the errors the key check raises."""
         cap = self.caps[nid]
         n = len(batch)
         if n > cap:
@@ -331,17 +331,11 @@ class DeviceIngressQueue:
                 f"batch of {n} rows exceeds queue slot capacity {cap} "
                 f"for node {nid}")
         if n:
-            check_weight_mass(batch)   # same host-boundary guard as upload
-            bkeys = np.asarray(batch.keys)
-            if (int(bkeys.max()) > _I32.max
-                    or int(bkeys.min()) < _I32.min):
-                # the slot buffers are int32: assigning int64 keys would
-                # silently wrap anything >= 2^31 — refuse at the host
-                # boundary instead of folding a corrupted key
-                raise DeliveryError(
-                    f"node {nid}: batch keys exceed the int32 ingress "
-                    f"key range [{_I32.min}, {_I32.max}] "
-                    f"(max {int(bkeys.max())}, min {int(bkeys.min())})")
+            check_weight_mass(batch)   # same host-boundary guards as upload
+            # the slot buffers are int32, and the lowerings drop a key
+            # past the Spec's key_space: refuse both at the host boundary
+            bkeys = check_keys(batch.keys, self._specs[nid],
+                               source or f"node {nid}")
         gen = self._ensure_staging()
         parts = self._gens[gen][nid]
         cl = cap // self.n_data

@@ -37,6 +37,9 @@ clamp them (``mode="drop"`` and the default gather). PyTorch raises on
 the CPU and asserts on the card instead, so every keyed scatter here
 goes through :func:`_table_index` (wrap a negative key once, clamp the
 index, mask the row out of the scatter) — never an out-of-range index.
+A host upload refuses a key at or past its source's ``key_space``
+(``device_delta.check_keys``), so such a key reaches a lowering only
+from a re-keying op or a device batch pushed as it is.
 
 In place: the arenas, the Reduce's sparse-mode tables, the min/max
 buffers and the Join's left table are updated in place (the JAX package
@@ -67,11 +70,14 @@ from reflow_tpu_torch.kernels.topk import (NEG, chunked_corpus_topk, scores,
 __all__ = ["lower_node", "knn_state", "reduce_state", "join_state",
            "join_core", "minmax_state", "minmax_core", "minmax_refresh_core",
            "reduce_core", "reduce_dense_fold",
-           "LOWERINGS", "LINEAR_DEVICE_REDUCERS"]
+           "LOWERINGS", "DEVICE_REDUCERS", "LINEAR_DEVICE_REDUCERS"]
 
-#: the reducers that lower to linear scatter-adds (min and max lower to
-#: the bounded candidate buffer; the scheduler's ``refresh_minmax``
-#: refuses the linear ones)
+#: the reducers with a device lowering (the executors' ``bind`` refuses
+#: any other): sum/count/mean lower to linear scatter-adds, min/max to
+#: the bounded candidate buffer
+DEVICE_REDUCERS = ("sum", "count", "mean", "min", "max")
+#: the reducers that lower to linear scatter-adds (the scheduler's
+#: ``refresh_minmax`` refuses these)
 LINEAR_DEVICE_REDUCERS = ("sum", "count", "mean")
 
 
@@ -676,7 +682,10 @@ def minmax_core(op, K: int, out_vshape, odtype, state, d: DeviceDelta,
     iff it is strictly lex-below ``over_lo``; when later retractions
     hollow the buffer past that point the answer is unknowable from
     bounded state and the sticky ``error`` is set. Rows of a key outside
-    ``[0, K)`` are dropped (a negative key wraps once).
+    ``[0, K)`` are dropped, and a negative key wraps once, with the JAX
+    package's one exception: its slotting sorts the raw keys behind a
+    ``-1`` sentinel, so when ``-1`` is the delta's smallest live key
+    below ``K`` its rows open no slot and drop. The port drops them too.
 
     **Slots.** The JAX package sizes the slot table by the delta's
     capacity ``C`` (``C·R + C`` merged rows a call). At most ``min(C,
@@ -707,7 +716,10 @@ def minmax_core(op, K: int, out_vshape, odtype, state, d: DeviceDelta,
 
     with span("reduce.minmax.slots"):
         idx, inb = _table_index(d.keys, K)
-        live = (d.weights != 0) & inb
+        nz = d.weights != 0
+        # JAX's sentinel: key -1 opens no slot when no live key is smaller
+        m1_first = ~torch.any(nz & (d.keys < -1))
+        live = nz & inb & ~((d.keys == -1) & m1_first)
         dval = torch.where(live[:, None],
                            d.values.reshape(C, V).to(torch.float32) * sign,
                            inf)

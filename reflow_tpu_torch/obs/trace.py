@@ -45,7 +45,8 @@ __all__ = ["ENABLED", "RING_CAPACITY", "SAMPLE_EVERY", "STAGES",
            "WINDOW_SPANS",
            "TraceCtx", "enable", "disable", "enabled", "reset", "evt",
            "events", "mint", "mint_cause", "sample", "set_flight_hook",
-           "ticket_stages"]
+           "ticket_stages", "wal_accum_reset", "wal_accum_add",
+           "wal_accum_take"]
 
 #: hot-path gate — read directly (``if trace.ENABLED:``) at every
 #: instrumentation site; never wrapped in a function call
@@ -248,6 +249,26 @@ def ticket_stages(ctx: TraceCtx, *, t_adm: float, t_ready: float,
         args["cause"] = ctx.cause
     for name, s, e in spans:
         evt(name, s, e - s, track=track, args=args)
+
+
+# -- WAL time accumulator ----------------------------------------------------
+# A per-thread sum of WAL append and fsync seconds, for instrumentation
+# outside the package: the frontend measures the durability wait as its
+# own span and does not feed it.
+
+def wal_accum_reset() -> None:
+    _tls.wal_s = 0.0
+
+
+def wal_accum_add(s: float) -> None:
+    _tls.wal_s = getattr(_tls, "wal_s", 0.0) + s
+
+
+def wal_accum_take() -> float:
+    """The thread's sum since its last reset or take, and reset it."""
+    s = getattr(_tls, "wal_s", 0.0)
+    _tls.wal_s = 0.0
+    return s
 
 
 if env_flag("REFLOW_TRACE"):

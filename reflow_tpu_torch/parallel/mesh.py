@@ -38,7 +38,8 @@ import torch
 
 from reflow_tpu_torch.executors.device_delta import (
     DeviceDelta, ShardedDelta, bucket_capacity, check_weight_mass_value,
-    resolve_device, to_device)
+    key_refusal, resolve_device, to_device)
+from reflow_tpu_torch.utils.faults import DeliveryError
 
 __all__ = ["DELTA_AXIS", "DCN_AXIS", "MODEL_AXIS", "Mesh", "PartSpec",
            "ShardedDelta", "join_by_spec", "make_mesh", "make_model_mesh",
@@ -228,7 +229,9 @@ def shard_batch(chunks, spec, mesh: Mesh, *, capacity=None):
     the result like any batch. On a one-device mesh the result is the
     global ``DeviceDelta`` (chunk ``i`` in rows ``[i*per, (i+1)*per)``);
     across devices a :class:`ShardedDelta`. The weight-mass bound every
-    host->device path enforces is checked on the global batch."""
+    host->device path enforces is checked on the global batch, and each
+    chunk's keys at its upload (``check_keys``: int32, below the Spec's
+    ``key_space``)."""
     n = mesh.size
     if mesh.spans_processes:
         raise ValueError("a mesh across processes ingests through "
@@ -243,8 +246,9 @@ def shard_batch(chunks, spec, mesh: Mesh, *, capacity=None):
            else bucket_capacity(max(len(c) for c in chunks)))
     check_weight_mass_value(sum(int(np.abs(np.asarray(c.weights)).sum())
                                 for c in chunks if len(c)))
-    parts = [to_device(c, spec, capacity=per, device=d)
-             for c, d in zip(chunks, mesh.device_list)]
+    parts = [to_device(c, spec, capacity=per, device=d,
+                       source=f"shard_batch chunk {i}")
+             for i, (c, d) in enumerate(zip(chunks, mesh.device_list))]
     if mesh.single_device:
         return DeviceDelta(*(torch.cat(cols) for cols in zip(*parts)))
     return ShardedDelta(parts)
@@ -261,8 +265,11 @@ def shard_batch_process_local(chunk, spec, mesh: Mesh, *, capacity: int):
     share one device, else a :class:`ShardedDelta`. The sharded executor
     reads a device batch pushed on a mesh across processes as this
     process's rows. The weight-mass guard runs on the GLOBAL mass, one
-    ``process_allgather`` of the local masses. On a mesh of one process
-    the result is the whole batch."""
+    ``process_allgather`` of the local masses, and so does the key guard
+    (``key_refusal``): a process whose chunk holds a refused key sends
+    -1 for its mass, and every process raises the same
+    :class:`DeliveryError` instead of leaving its peers in the gather. On
+    a mesh of one process the result is the whole batch."""
     from reflow_tpu_torch.parallel import dist
 
     n = mesh.size
@@ -274,9 +281,20 @@ def shard_batch_process_local(chunk, spec, mesh: Mesh, *, capacity: int):
         raise ValueError(
             f"local chunk ({len(chunk)} rows) exceeds this process's "
             f"share {n_local} of capacity {capacity}")
+    why = key_refusal(
+        chunk.keys, spec,
+        f"shard_batch_process_local: process {mesh.process_index}'s chunk")
     mass = int(np.abs(np.asarray(chunk.weights)).sum()) if len(chunk) else 0
     if mesh.spans_processes:
-        mass = int(dist.process_allgather(np.int64(mass)).sum())
+        got = dist.process_allgather(np.int64(-1 if why else mass))
+        refused = np.flatnonzero(got < 0)
+        if len(refused) and why is None:
+            why = (f"shard_batch_process_local: process "
+                   f"{int(refused[0])}'s chunk holds a key the device path "
+                   f"refuses (see that process's error)")
+        mass = int(got.sum())
+    if why is not None:
+        raise DeliveryError(why)
     check_weight_mass_value(mass)
     local = mesh.local_ranks
     devs = [mesh.device_list[r] for r in local]

@@ -40,6 +40,12 @@ dcn=NPROC)`` (each dcn row one process's shards) and runs a case:
   first churn window: every process must fail within the group timeout
   (the summary's ``window_failed`` and ``failed_after_s``).
 
+- ``badkey``: ``shard_batch_process_local`` where only the last
+  process's chunk holds a key at its Spec's ``key_space``: every process
+  must raise the same ``DeliveryError`` at once (the summary's
+  ``refused`` and ``refused_after_s``), and a clean call after it must
+  still meet in the gather (``after``, the rows this process holds).
+
 ``--no-fixpoint`` has the scheduler drive a loop's passes itself (its
 next-pass branch then reads every process's egress counts).
 
@@ -68,7 +74,7 @@ _T0 = time.time()
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from reflow_tpu_torch.delta import DeltaBatch  # noqa: E402
+from reflow_tpu_torch.delta import DeltaBatch, Spec  # noqa: E402
 from reflow_tpu_torch.executors.device_delta import (  # noqa: E402
     DeviceDelta, bucket_capacity, to_device)
 from reflow_tpu_torch.scheduler import DirtyScheduler, SourceCursor  # noqa
@@ -636,7 +642,8 @@ def _args(argv):
     ap.add_argument("--device", default=None,
                     help="cpu, or cuda:<i> (default: the card)")
     ap.add_argument("--case", default="pagerank",
-                    choices=("pagerank", "knn", "stream", "window"))
+                    choices=("pagerank", "knn", "stream", "window",
+                             "badkey"))
     ap.add_argument("--window-fault", action="store_true",
                     help="the last process raises inside the first "
                          "churn window (window case)")
@@ -734,6 +741,8 @@ def main(argv=None) -> int:
             summary.update(drive_knn(cfg, make_ex(), out))
         elif args.case == "window":
             _window_case(args, make_ex, out, summary)
+        elif args.case == "badkey":
+            _badkey_case(args, make_ex().mesh, summary)
         else:
             summary.update(drive_stream(_cfg(STREAM, args), make_ex(), out))
         tally = spmd.collective_tally()
@@ -796,6 +805,32 @@ def _window_case(args, make_ex, out: Dict[str, np.ndarray],
     if args.window_fault:
         raise AssertionError("the faulted window did not fail")
     summary["knn"] = drive_knn_frontend(_cfg(KNN, args), make_ex(), out)
+
+
+def _badkey_case(args, mesh, summary: Dict) -> None:
+    """The badkey case (see the module docstring)."""
+    from reflow_tpu_torch.parallel.mesh import shard_batch_process_local
+    from reflow_tpu_torch.utils.faults import DeliveryError
+
+    spec = Spec((), np.float32, key_space=8)
+
+    def chunk(keys):
+        return DeltaBatch(np.array(keys, np.int64),
+                          np.ones(len(keys), np.float32))
+
+    last = args.pid == args.nproc - 1
+    t0 = time.time()
+    try:
+        shard_batch_process_local(chunk([1, 8 if last else 2]), spec, mesh,
+                                  capacity=2 * mesh.size)
+    except DeliveryError as e:
+        summary["refused"] = str(e)
+        summary["refused_after_s"] = time.time() - t0
+    else:
+        raise AssertionError("the bad key passed")
+    got = shard_batch_process_local(chunk([1, 2]), spec, mesh,
+                                    capacity=2 * mesh.size)
+    summary["after"] = int(got.nonzero())
 
 
 class _Drifted(Exception):

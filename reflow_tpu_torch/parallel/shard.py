@@ -486,7 +486,9 @@ class ShardedCudaExecutor(CudaExecutor):
             if isinstance(b, (DeviceDelta, ShardedDelta)):
                 out[nid] = b
                 continue
-            d = to_device(b, self.graph.nodes[nid].spec, device=self.device)
+            node = self.graph.nodes[nid]
+            d = to_device(b, node.spec, device=self.device,
+                          source=f"source {node.name!r}")
             if self.mesh.spans_processes:
                 per = d.capacity // self.n
                 lo, hi = self._vbase * per, (self._vbase + self._nv) * per

@@ -165,8 +165,10 @@ class StagedCudaExecutor(CudaExecutor):
                 dev_ingress[nid] = DeviceDelta(*(t.to(dev) for t in b))
             else:
                 # uploads land directly on the consuming stage's device
+                node = self.graph.nodes[nid]
                 dev_ingress[nid] = to_device(
-                    b, self.graph.nodes[nid].spec, device=dev)
+                    b, node.spec, device=dev,
+                    source=f"source {node.name!r}")
         self._track_arena(plan, {nid: d.capacity
                                  for nid, d in dev_ingress.items()})
 

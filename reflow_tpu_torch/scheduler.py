@@ -249,6 +249,7 @@ class DirtyScheduler:
         """
         if source.kind not in ("source", "loop"):
             raise GraphError(f"can only push to sources/loops, not {source}")
+        self.check_host_batch(source, batch)
         if batch_id is not None and not self._register_batch_id(batch_id):
             return False
         # device-resident batches are enqueued unconditionally: their
@@ -259,6 +260,16 @@ class DirtyScheduler:
             return True
         self._pending[source.id].append(batch)
         return True
+
+    def check_host_batch(self, source: Node, batch) -> None:
+        """Raise ``DeliveryError`` for a host batch the executor refuses
+        (``Executor.check_host_batch``: on a device executor, keys at or
+        past the source's ``key_space``). ``push`` and ``tick_many`` ask
+        before they accept anything, and so do the durable scheduler
+        before it logs and the serving frontend before it admits. A
+        device batch is not read back to check."""
+        if not hasattr(batch, "nonzero"):
+            self.executor.check_host_batch(source, batch)
 
     def _register_batch_id(self, batch_id: str) -> bool:
         """Record ``batch_id`` in the bounded dedup window. Returns False
@@ -470,6 +481,9 @@ class DirtyScheduler:
         if any(self._pending.values()):
             raise GraphError("tick_many cannot run with pending push()ed "
                              "batches; tick() them first")
+        for f in feeds:
+            for src, b in f.items():
+                self.check_host_batch(src, b)
         if feed_ids is not None:
             if len(feed_ids) != len(feeds):
                 raise GraphError(

@@ -75,6 +75,7 @@ from reflow_tpu_torch.graph import GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
 from reflow_tpu_torch.scheduler import SourceCursor
 from reflow_tpu_torch.utils.config import env_int
+from reflow_tpu_torch.utils.faults import DeliveryError
 from reflow_tpu_torch.utils.runtime import named_lock
 
 from .budget import AdmissionBudget
@@ -283,6 +284,14 @@ class IngestFrontend:
                 "was uploaded from, not another device batch")
         t0 = time.perf_counter()
         deadline = None if timeout is None else t0 + timeout
+        try:
+            # the executor's refusal (a key past the source's key_space)
+            # fails this ticket alone, before its id is admitted: a
+            # corrected resubmit with the same id goes through
+            self.sched.check_host_batch(source, batch)
+            refusal = None
+        except DeliveryError as e:
+            refusal = str(e)
         with self._lock:
             self._crash_point("producer_submit")
             self.submitted += 1
@@ -310,6 +319,12 @@ class IngestFrontend:
                     DEDUPED, batch_id,
                     reason="batch_id already admitted"))
                 self._trace_submit(ticket, "deduped")
+                return ticket
+            if refusal is not None:
+                self.rejected += 1
+                ticket._resolve(TicketResult(REJECTED, batch_id,
+                                             reason=refusal))
+                self._trace_submit(ticket, "rejected")
                 return ticket
             device = hasattr(batch, "nonzero")
             rows = 0 if device else len(batch)

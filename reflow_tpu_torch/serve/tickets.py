@@ -22,7 +22,8 @@ APPLIED = "applied"
 #: the batch's id was already accepted (exactly-once dedup)
 DEDUPED = "deduped"
 #: backpressure refused admission (``reject`` policy, oversized batch,
-#: or a ``block`` admission that timed out)
+#: or a ``block`` admission that timed out), or the executor refused
+#: the batch (a key past its source's ``key_space``; the reason says)
 REJECTED = "rejected"
 #: the ``shed-oldest`` policy evicted this already-admitted batch to
 #: make room for a newer one — the upstream must re-send it

@@ -8,7 +8,13 @@ reading its default. Discovery: ``python -c "from
 reflow_tpu_torch.utils.config import knob_table; print(knob_table())"``.
 
 Only the knobs the ported modules read are declared; their names and
-defaults are the JAX package's, so one environment drives both.
+defaults are the JAX package's, so one environment drives both, with
+one exception: ``REFLOW_EXECUTOR`` defaults to ``"cuda"`` (the JAX
+package's to ``"cpu"``), because the port's entry points run on the card
+unless the caller asks for the CPU.
+
+:class:`ReflowConfig` is the executor and scheduler choice read from
+these knobs: ``ReflowConfig.from_env().scheduler(graph)``.
 """
 
 from __future__ import annotations
@@ -17,8 +23,8 @@ import dataclasses
 import os
 from typing import Dict, Optional
 
-__all__ = ["Knob", "KNOBS", "declare", "env_flag", "env_float", "env_int",
-           "env_str", "knob_table"]
+__all__ = ["Knob", "KNOBS", "ReflowConfig", "declare", "env_flag",
+           "env_float", "env_int", "env_str", "knob_table"]
 
 
 # -- knob registry ----------------------------------------------------------
@@ -110,6 +116,20 @@ def knob_table() -> str:
                     f"{k.doc} |")
     return "\n".join(rows)
 
+
+# -- core runtime knobs -----------------------------------------------------
+
+declare("REFLOW_EXECUTOR", "str", "cuda",
+        "executor registry name: cpu (the NumPy oracle) / cuda / sharded "
+        "/ staged")
+declare("REFLOW_MAX_LOOP_ITERS", "int", 10_000,
+        "fixpoint pass bound per tick (DirtyScheduler.max_loop_iters)")
+declare("REFLOW_DEDUP_WINDOW", "int", 1 << 20,
+        "idempotent-push dedup horizon (batch ids remembered)")
+declare("REFLOW_MESH_DEVICES", "int", None,
+        "mesh size for the sharded executor (unset = all local devices)")
+declare("REFLOW_LINEAR_FIXPOINT", "flag", True,
+        "fused delta-vector loop on cuda/sharded executors (0 disables)")
 
 # -- the knobs the port reads -----------------------------------------------
 
@@ -256,3 +276,66 @@ declare("REFLOW_SUB_MAX_FRAMES", "int", 256,
 declare("REFLOW_SUB_IO_TIMEOUT_S", "float", 5.0,
         "per-operation send/recv timeout on subscription "
         "connections (Subscriber <-> SubscriptionServer)")
+
+
+# -- the config dataclass ---------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ReflowConfig:
+    """The executor and scheduler choice, from the core runtime knobs."""
+
+    #: executor registry name: cpu (the NumPy oracle), cuda, sharded,
+    #: staged
+    executor: str = "cuda"
+    #: fixpoint pass bound per tick (DirtyScheduler.max_loop_iters)
+    max_loop_iters: int = 10_000
+    #: idempotent-push dedup horizon (batch ids remembered)
+    dedup_window: int = 1 << 20
+    #: mesh size for the sharded executor (None = one shard per card)
+    mesh_devices: Optional[int] = None
+    #: False turns off the fused delta-vector loop (cuda/sharded)
+    linear_fixpoint: bool = True
+
+    @staticmethod
+    def from_env(env=None) -> "ReflowConfig":
+        return ReflowConfig(
+            executor=env_str("REFLOW_EXECUTOR", env=env),
+            max_loop_iters=env_int("REFLOW_MAX_LOOP_ITERS", env=env),
+            dedup_window=env_int("REFLOW_DEDUP_WINDOW", env=env),
+            mesh_devices=env_int("REFLOW_MESH_DEVICES", env=env),
+            linear_fixpoint=env_flag("REFLOW_LINEAR_FIXPOINT", env=env),
+        )
+
+    def make_executor(self, *, device=None):
+        """A fresh executor of this config's kind, on ``device`` (the
+        card unless named; ``cpu`` takes none). With no card and no
+        ``device`` a device executor raises: it never falls back to the
+        CPU. JAX's name ``"tpu"`` is refused by name; the registry
+        refuses any other unknown name, as JAX's does."""
+        from reflow_tpu_torch.executors import get_executor
+
+        name = self.executor
+        if name == "tpu":
+            raise ValueError(
+                "REFLOW_EXECUTOR='tpu' is the JAX package's executor; the "
+                "port's are cpu, cuda, sharded and staged, and 'cuda' is "
+                "the H100's")
+        kwargs = {}
+        if name == "sharded":
+            from reflow_tpu_torch.parallel import make_mesh
+
+            kwargs["mesh"] = make_mesh(self.mesh_devices, device=device)
+        elif name != "cpu":
+            kwargs["device"] = device
+        if name in ("cuda", "sharded"):
+            kwargs["linear_fixpoint"] = self.linear_fixpoint
+        return get_executor(name, **kwargs)
+
+    def scheduler(self, graph, *, device=None):
+        """A ``DirtyScheduler`` over ``graph`` on :meth:`make_executor`'s
+        executor, with this config's loop bound and dedup window."""
+        from reflow_tpu_torch.scheduler import DirtyScheduler
+
+        return DirtyScheduler(graph, self.make_executor(device=device),
+                              max_loop_iters=self.max_loop_iters,
+                              dedup_window=self.dedup_window)

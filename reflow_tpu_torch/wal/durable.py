@@ -219,6 +219,9 @@ class DurableScheduler(DirtyScheduler):
         if source.kind not in ("source", "loop"):
             # fail before logging what the base scheduler would reject
             return super().push(source, batch, batch_id=batch_id)
+        # refuse before the id is minted or held and before the log: a
+        # refused batch must not replay at recover()
+        self.check_host_batch(source, batch)
         if batch_id is None:
             batch_id = self._mint_auto_id(source)
         elif batch_id in self._seen_batch_ids:
@@ -266,6 +269,9 @@ class DurableScheduler(DirtyScheduler):
         # commit), not one per micro-batch. Device-resident feeds log
         # their registered pre-image (no readback); only an unregistered
         # device feed pays the forced materialize.
+        for f in feeds:
+            for src, b in f.items():
+                self.check_host_batch(src, b)   # before anything is logged
         logged, records = self._window_records(feeds, feed_ids)
         self._crash_point("before_append")
         # request=False: the window is ONE logical commit — the marker

@@ -317,16 +317,16 @@ def test_to_device_refuses_keys_beyond_int32(bad):
 
 def test_scheduler_push_of_a_key_beyond_int32_raises_before_the_tick():
     """Through the scheduler, the port's device executor refuses the
-    batch at the tick's upload with ``DeliveryError``; the tick horizon
-    does not move."""
+    batch at the push with ``DeliveryError`` (the upload holds the same
+    check); nothing is pending and the tick horizon does not move."""
     g = P.FlowGraph()
     src = g.source("s", P.Spec((), np.float32, key_space=8))
     g.sink(g.reduce(src, "sum"), "out")
     sched = P.DirtyScheduler(g, _port_ex())
-    sched.push(src, P.DeltaBatch(np.array([2 ** 31], np.int64),
-                                 np.ones(1, np.float32)))
     with pytest.raises(DeliveryError, match="int32"):
-        sched.tick()
+        sched.push(src, P.DeltaBatch(np.array([2 ** 31], np.int64),
+                                     np.ones(1, np.float32)))
+    assert not any(sched._pending.values())
     assert sched._tick == 0
 
 

@@ -20,7 +20,10 @@ from reflow_tpu import DirtyScheduler as JDirtyScheduler
 from reflow_tpu.executors import get_executor as jget_executor
 from reflow_tpu.workloads import knn as jknn
 from reflow_tpu_torch.convert import states_from_jax, states_to_numpy
+from reflow_tpu_torch.executors.device_delta import (DeviceDelta,
+                                                     bucket_capacity)
 from reflow_tpu_torch.graph import FlowGraph, GraphError
+from reflow_tpu_torch.utils.faults import DeliveryError
 from reflow_tpu_torch.workloads import knn as pknn
 
 Q, D, DIM, K = 16, 256, 32, 4
@@ -143,11 +146,37 @@ def test_in_place_update_and_query_retraction():
     assert set(port) == set(range(3, Q))
 
 
+def _drive_device(run, ticks):
+    """``_drive`` with each tick's rows for one source pushed as one device
+    batch built by hand: how the lowering meets a key the port's upload
+    refuses (a key at or past ``key_space``)."""
+    for pushes in ticks:
+        for src in ("q", "d"):
+            rows = [p for p in pushes if p[0] == src]
+            if not rows:
+                continue
+            keys = np.concatenate([np.asarray(p[1]) for p in rows])
+            vals = np.concatenate([np.asarray(p[2]) for p in rows])
+            w = np.concatenate([np.full(len(p[1]), p[3]) for p in rows])
+            cap = bucket_capacity(len(keys))
+            pad = cap - len(keys)
+            node = run.kg.queries if src == "q" else run.kg.docs
+            run.sched.push(node, DeviceDelta(
+                torch.from_numpy(np.pad(keys, (0, pad)).astype(np.int32)),
+                torch.from_numpy(np.pad(vals, ((0, pad), (0, 0)))),
+                torch.from_numpy(np.pad(w, (0, pad)).astype(np.int32))))
+        run.tick()
+    return run
+
+
 @pytest.mark.parametrize("bad", [[D, D + 7], [-1, -3], [-D - 5]])
 def test_out_of_range_doc_keys_match_jax(bad):
     """Keys outside [0, key_space): the JAX package wraps a negative key
     once, clamps its gathers and drops its scatters; the port reproduces
-    that result on both paths and never indexes out of range."""
+    that result on both paths and never indexes out of range. A key at
+    or past ``key_space`` is refused by the port's upload
+    (``DeliveryError``), so those rows reach the lowering as a device
+    batch pushed as it is; negative keys pass the upload."""
     rng = np.random.default_rng(9)
     base = [("q", np.arange(Q), rng.standard_normal((Q, DIM)
                                                     ).astype(np.float32), 1),
@@ -159,7 +188,12 @@ def test_out_of_range_doc_keys_match_jax(bad):
                   [base, [("d", bad, v, 1),                # rescan
                           ("d", np.arange(2), np.zeros((2, DIM),
                                                        np.float32), -1)]]):
-        port = _drive(Run("port"), ticks).table()
+        if bad.max() >= D:
+            with pytest.raises(DeliveryError, match=f"key_space {D}"):
+                _drive(Run("port"), ticks)
+            port = _drive_device(Run("port"), ticks).table()
+        else:
+            port = _drive(Run("port"), ticks).table()
         _assert_tables(port, _drive(Run("jax"), ticks).table())
 
 

@@ -349,6 +349,22 @@ def test_a_window_fault_in_one_process_fails_both(tmp_path):
         assert "pagerank" not in s and "knn" not in s
 
 
+def test_a_bad_key_in_one_process_chunk_fails_every_process(tmp_path):
+    """Only the last process's chunk holds a key at its Spec's
+    ``key_space``: ``shard_batch_process_local`` raises DeliveryError in
+    both processes, at once rather than after the group timeout, and
+    the next clean call still meets in the gather."""
+    sums, _ = mw.WorkerGroup(
+        2, "gloo", ["--case", "badkey"], out_dir=str(tmp_path),
+        tag="badkey", device="cpu", limit_s=LIMIT_S, timeout_s=30).wait()
+    assert "process 1's chunk: key 8 is at or past the Spec's " \
+        "key_space 8" in sums[1]["refused"]
+    assert "process 1's chunk holds a key" in sums[0]["refused"]
+    for s in sums:
+        assert s["refused_after_s"] < 30
+        assert s["after"] == 2
+
+
 def test_nccl_refuses_two_ranks_on_one_card():
     """nccl needs a card per process; two processes on fewer cards raise
     before any rendezvous, and nothing falls back to gloo."""

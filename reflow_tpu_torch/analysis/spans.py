@@ -7,9 +7,10 @@ for. One rule machine-checks the contract:
 
 - **span-kind-undocumented** — a span kind emitted anywhere in
   ``reflow_tpu_torch/`` (a string-literal first argument to
-  ``trace.evt(...)``, an entry of ``obs.trace.STAGES``, or a flight
-  ``note("...")`` event) must appear backticked in the span catalog of
-  ``docs/guide.md``. Dynamic families (``f"control.{...}"``) are
+  ``trace.evt(...)`` or ``trace.span(...)``, an entry of
+  ``obs.trace.STAGES`` or ``obs.trace.DEVICE_SPANS``, or a flight
+  ``note("...")`` event) must appear backticked in a span catalog:
+  ``docs/guide.md``'s, or the port's own, ``reflow_tpu_torch/obs/spans.md``. Dynamic families (``f"control.{...}"``) are
   documented by their prefix — a backticked token starting with
   ``control.`` covers the family.
 
@@ -19,7 +20,10 @@ site and asks for one line of prose, not a waiver.
 
 The port's copy of ``reflow_tpu/analysis/spans.py``: the port emits the
 reference's span kinds under the same names, so its emit sites are
-held to the same catalog in ``docs/guide.md``.
+held to the same catalog in ``docs/guide.md``; the spans only the port
+emits are in its own catalog. The port has two emit sites more than the
+reference: ``span("...")`` blocks and the card's spans
+(``DEVICE_SPANS``).
 """
 
 from __future__ import annotations
@@ -34,37 +38,45 @@ from reflow_tpu_torch.analysis.core import (PORT, Corpus, Finding,
 
 RULES = {
     "span-kind-undocumented": "span kind emitted in reflow_tpu_torch/ but "
-                              "absent from the docs/guide.md span "
-                              "catalog",
+                              "absent from the span catalogs "
+                              "(docs/guide.md, reflow_tpu_torch/obs/"
+                              "spans.md)",
 }
 
-#: the documentation corpus the catalog lives in, repo-relative
-_GUIDE = os.path.join("docs", "guide.md")
+#: the documents the catalogs live in, repo-relative: the JAX package's
+#: and the port's own, for the spans only the port emits
+_CATALOGS = (os.path.join("docs", "guide.md"),
+             os.path.join("reflow_tpu_torch", "obs", "spans.md"))
 
 _BACKTICK = re.compile(r"`([^`\n]+)`")
 
 
 def _doc_tokens(root: str) -> Optional[Set[str]]:
-    try:
-        text = open(os.path.join(root, _GUIDE),
-                    encoding="utf-8", errors="replace").read()
-    except OSError:
-        return None
-    return set(_BACKTICK.findall(text))
+    """The backticked tokens of every catalog found (None: none is)."""
+    tokens: Optional[Set[str]] = None
+    for rel in _CATALOGS:
+        try:
+            text = open(os.path.join(root, rel),
+                        encoding="utf-8", errors="replace").read()
+        except OSError:
+            continue
+        tokens = (tokens or set()) | set(_BACKTICK.findall(text))
+    return tokens
 
 
 def _evt_name(call: ast.Call) -> Optional[Tuple[str, bool]]:
     """``(name, is_prefix)`` for a span-emitting call, else None.
 
-    Matches ``evt("name", ...)`` / ``<mod>.evt("name", ...)`` and
-    flight ``note("name", ...)`` / ``<mod>.note("name", ...)``. An
+    Matches ``evt("name", ...)`` / ``<mod>.evt("name", ...)``,
+    ``span("name", ...)`` / ``<mod>.span("name", ...)`` and flight
+    ``note("name", ...)`` / ``<mod>.note("name", ...)``. An
     f-string first argument yields its leading constant text as a
     prefix family (``f"control.{kind}"`` -> ``("control.", True)``).
     """
     f = call.func
     attr = f.attr if isinstance(f, ast.Attribute) else (
         f.id if isinstance(f, ast.Name) else None)
-    if attr not in ("evt", "note") or not call.args:
+    if attr not in ("evt", "note", "span") or not call.args:
         return None
     arg = call.args[0]
     if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
@@ -77,13 +89,15 @@ def _evt_name(call: ast.Call) -> Optional[Tuple[str, bool]]:
 
 
 def _stage_names(tree: ast.AST) -> List[Tuple[str, int]]:
-    """String elements of the module-level ``STAGES = (...)`` tuple —
-    ``ticket_stages`` emits them through a variable the call-site scan
+    """String elements of the module-level ``STAGES = (...)`` and
+    ``DEVICE_SPANS = (...)`` tuples — ``ticket_stages`` and the device
+    spans' resolution emit them through a variable the call-site scan
     can't see."""
     out: List[Tuple[str, int]] = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Assign) \
-                and any(isinstance(t, ast.Name) and t.id == "STAGES"
+                and any(isinstance(t, ast.Name)
+                        and t.id in ("STAGES", "DEVICE_SPANS")
                         for t in node.targets) \
                 and isinstance(node.value, (ast.Tuple, ast.List)):
             for el in node.value.elts:
@@ -97,7 +111,7 @@ def _stage_names(tree: ast.AST) -> List[Tuple[str, int]]:
 def span_pass(corpus: Corpus) -> List[Finding]:
     tokens = _doc_tokens(corpus.root)
     if tokens is None:
-        return []  # no guide in this checkout; nothing to hold against
+        return []  # no catalog in this checkout; nothing to hold against
     findings: List[Finding] = []
     seen: Set[str] = set()
 
@@ -114,9 +128,9 @@ def span_pass(corpus: Corpus) -> List[Finding]:
         if not ok:
             findings.append(Finding(
                 "span-kind-undocumented", path, line,
-                f"{what} is emitted here but not in the docs/guide.md "
-                f"span catalog — add one backticked line saying what "
-                f"it measures"))
+                f"{what} is emitted here but not in a span catalog "
+                f"(docs/guide.md, reflow_tpu_torch/obs/spans.md) — add "
+                f"one backticked line saying what it measures"))
 
     for sf in corpus.under(PORT):
         if sf.tree is None:

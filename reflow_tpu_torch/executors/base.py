@@ -33,6 +33,9 @@ class Executor(abc.ABC):
         #: device→host readbacks done by :meth:`materialize` (forced
         #: syncs on a streaming path; always 0 for host executors)
         self.materialize_count = 0
+        #: the scheduler's tick horizon before the call in flight: the
+        #: call's ticks are ``tick_base + 1`` on (device spans' numbers)
+        self.tick_base = 0
 
     def fresh(self) -> "Executor":
         """A new, unbound executor of this one's kind and options (a

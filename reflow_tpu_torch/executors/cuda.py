@@ -41,6 +41,16 @@ rebind). A min/max Reduce binds the bounded candidate buffer
 from a replay), and a Join whose left Spec is not unique binds the
 two-arena multiset form.
 
+Tick spans: while tracing is on, each tick's launches (each turn of the
+window's K loop, each :meth:`run_pass`, each :meth:`run_tick_fixpoint`)
+are bracketed on a card by a pair of timing CUDA events on the stream, a
+``device_tick`` span once resolved (``obs.trace``); the scheduler's
+``tick_base`` numbers them. A turn of the K loop is a host-side
+``tick_launch`` span too (a per-tick call is its ``device_dispatch``),
+and the window's stage and retire are ``queue_stage`` and
+``queue_retire`` spans. With tracing off nothing is recorded and no
+event is made.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do): on the CPU every kernel wrapper takes its plain PyTorch
 version, because the tensors it is given lie on the CPU.
@@ -85,7 +95,6 @@ from reflow_tpu_torch.graph import FlowGraph, GraphError, Node
 from reflow_tpu_torch.obs import trace as _trace
 from reflow_tpu_torch.parallel.spmd import SOLO, run_solo
 from reflow_tpu_torch.utils.config import env_int
-from reflow_tpu_torch.utils.metrics import profile_annotation
 from reflow_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["CudaExecutor", "StagedWindow"]
@@ -145,6 +154,10 @@ def _error_reason(node: Node) -> str:
 
 class CudaExecutor(Executor):
     name = "cuda"
+
+    #: record ``device_tick`` spans while tracing is on (a mesh's
+    #: executors do not: one device's stream would stand for all)
+    device_spans = True
 
     def __init__(self, *, device=None, fixpoint: bool = True,
                  linear_fixpoint: bool = True):
@@ -243,9 +256,36 @@ class CudaExecutor(Executor):
 
     def read_branch(self, t: torch.Tensor) -> list:
         """Read a small tensor back to decide a host branch (counted in
-        ``host_syncs``, so in the scheduler's ``forced_syncs``)."""
+        ``host_syncs``, so in the scheduler's ``forced_syncs``; a
+        ``branch_sync`` span)."""
         self._note_sync()
-        return t.tolist()
+        with _trace.span("branch_sync"):
+            return t.tolist()
+
+    def _on_card(self) -> bool:
+        """Does this executor record ``device_tick`` spans (a single CUDA
+        device)?"""
+        return self.device_spans and self.device.type == "cuda"
+
+    def _tick_begin(self, launch: bool = False):
+        """Start one tick's spans (call under ``trace.ENABLED``): on a
+        card its ``device_tick`` pair's start event, and with ``launch``
+        the host's ``tick_launch``. Returns the token :meth:`_tick_end`
+        takes."""
+        return (time.perf_counter() if launch else None,
+                _trace.device_tick_begin(self.device)
+                if self._on_card() else None)
+
+    def _tick_end(self, token, t: int = 0) -> None:
+        """End the spans of the call's tick ``t`` (0-based; the
+        scheduler's ``tick_base`` + 1 + ``t``)."""
+        t0, dev = token
+        tick = self.tick_base + 1 + t
+        if dev is not None:
+            _trace.device_tick_end(dev, tick)
+        if t0 is not None:
+            _trace.evt("tick_launch", t0, time.perf_counter() - t0,
+                       args={"tick": tick, "device": self.device_label})
 
     def read_scalars(self, t: torch.Tensor) -> list:
         """A fixpoint loop's one packed readback of a pass."""
@@ -382,12 +422,15 @@ class CudaExecutor(Executor):
         # fail loudly BEFORE an append could be truncated
         self._track_arena(plan, {nid: d.capacity
                                  for nid, d in dev_ingress.items()})
+        tok = self._tick_begin() if _trace.ENABLED else None
         states, egress = self.build_pass_fn(list(plan))(
             self._op_states(), dev_ingress)
         self._set_op_states(states)
-        if _trace.ENABLED:
+        if tok is not None:
+            self._tick_end(tok)
             _trace.evt("device_dispatch", t0, time.perf_counter() - t0,
-                       args={"kind": "pass", "device": str(self.device)})
+                       args={"kind": "pass", "tick": self.tick_base + 1,
+                             "device": str(self.device)})
         # everything stays device-resident: sink batches are materialized
         # by the scheduler once per tick
         return egress
@@ -418,12 +461,15 @@ class CudaExecutor(Executor):
             self._track_arena(
                 list(st.exit_plan),
                 {n.id: 2 * n.inputs[0].spec.key_space for n in st.boundary})
+        tok = self._tick_begin() if _trace.ENABLED else None
         states, sink_egress, carry, iters, rows, converged = \
             self._fx_program(self._op_states(), plan, dev_ingress, max_iters)
         self._set_op_states(states)
-        if _trace.ENABLED:
+        if tok is not None:
+            self._tick_end(tok)
             _trace.evt("device_dispatch", t0, time.perf_counter() - t0,
-                       args={"kind": "fixpoint", "device": str(self.device)})
+                       args={"kind": "fixpoint", "tick": self.tick_base + 1,
+                             "device": str(self.device)})
         passes = 1 + iters + (1 if st.exit_plan else 0)
         # nodes the loop and exit passes ran beyond the phase-A plan (the
         # scheduler's dirty-set report), only if the loop iterated
@@ -526,6 +572,7 @@ class CudaExecutor(Executor):
         graphs the fixpoint program is built here, so the caller may
         commit irreversible work (a WAL append) between stage and
         dispatch."""
+        t_st0 = time.perf_counter() if _trace.ENABLED else 0.0
         if not self.supports_window():
             return None
         K = len(feeds)
@@ -579,6 +626,9 @@ class CudaExecutor(Executor):
                              "inflight": queue.in_flight})
         stack = queue.stacked()
         gen = queue.seal()
+        if _trace.ENABLED:
+            _trace.evt("queue_stage", t_st0, time.perf_counter() - t_st0,
+                       args={"ticks": K, "device": self.device_label})
         return StagedWindow(plan, caps, K, max_iters, queue, gen, stack,
                             qsig)
 
@@ -607,9 +657,17 @@ class CudaExecutor(Executor):
     def retire_window(self, sw: StagedWindow) -> None:
         """Tail of the window lifecycle: hand the window's stack back to
         the ingress queue and free its generation. Off the critical path
-        — a pipelined pump runs this after the NEXT window is staged."""
+        — a pipelined pump runs this after the NEXT window is staged.
+        While tracing, the device spans the card has completed are
+        resolved here (no wait), and the step is a ``queue_retire``
+        span."""
+        t0 = time.perf_counter() if _trace.ENABLED else 0.0
         sw.queue.retire(sw.gen, sw.fresh)
         sw.fresh = None
+        if _trace.ENABLED:
+            _trace.device_resolve()
+            _trace.evt("queue_retire", t0, time.perf_counter() - t0,
+                       args={"ticks": sw.K, "device": self.device_label})
 
     def cancel_window(self, sw: StagedWindow) -> None:
         """Abandon a staged window whose dispatch never ran: the
@@ -623,9 +681,13 @@ class CudaExecutor(Executor):
         extra_dirty)`` tuple (None when the fixpoint program has no
         ``call_many``). The stack the window hands back is parked on
         ``sw`` for the retire step; the call is labelled
-        ``reflow.window[K]`` for a device trace."""
+        ``reflow.window[K]`` for a device trace. While tracing, each turn
+        of the K loop is a ``tick_launch`` span and on a card a
+        ``device_tick`` span."""
         plan, stack, caps, K = sw.plan, sw.stack, sw.caps, sw.K
         t_d0 = time.perf_counter() if _trace.ENABLED else 0.0
+        spans = ((lambda: self._tick_begin(launch=True)), self._tick_end) \
+            if _trace.ENABLED else None
         if not self.graph.loops:
             # loop-free sink-free graph (e.g. streaming TF-IDF): one pass
             # a tick over the K slots, no per-tick egress by construction
@@ -637,19 +699,19 @@ class CudaExecutor(Executor):
                     list(plan))
             self._track_arena(plan, caps)
             states = self._op_states()
-            with profile_annotation(f"reflow.window[{K}]"):
+            with _trace.span(None, label=f"reflow.window[{K}]"):
                 for t in range(K):
+                    tok = spans[0]() if spans else None
                     states, egress = pass_fn(states, slot_ingress(stack, t))
+                    if tok is not None:
+                        spans[1](tok, t)
                     if egress:
                         raise RuntimeError("loop-free sink-free pass "
                                            "produced egress")
             self._set_op_states(states)
             sw.fresh = stack
             if _trace.ENABLED:
-                _trace.evt("device_dispatch", t_d0,
-                           time.perf_counter() - t_d0,
-                           args={"kind": "window", "ticks": K,
-                                 "device": self.device_label})
+                self._trace_dispatch(t_d0, K)
             return K, 0, 0, True, set()
 
         prog = self._ensure_fx_program()
@@ -661,17 +723,24 @@ class CudaExecutor(Executor):
             self._track_arena(
                 list(st.exit_plan),
                 {n.id: 2 * n.inputs[0].spec.key_space for n in st.boundary})
-        with profile_annotation(f"reflow.window[{K}]"):
+        with _trace.span(None, label=f"reflow.window[{K}]"):
             new_states, (iters, rows, conv), sw.fresh = prog.call_many(
-                self._op_states(), plan, stack, K, sw.max_iters)
+                self._op_states(), plan, stack, K, sw.max_iters,
+                spans=spans)
         if _trace.ENABLED:
-            _trace.evt("device_dispatch", t_d0, time.perf_counter() - t_d0,
-                       args={"kind": "window", "ticks": K,
-                             "device": self.device_label})
+            self._trace_dispatch(t_d0, K)
         self._set_op_states(new_states)
         extra_dirty = set(st.region_ids) | {n.id for n in st.exit_plan}
         passes_base = K * (1 + (1 if st.exit_plan else 0))
         return passes_base, iters, rows, conv, extra_dirty
+
+    def _trace_dispatch(self, t_d0: float, K: int) -> None:
+        """The ``device_dispatch`` span of a window of ``K`` ticks; its
+        ``tick`` is the window's last."""
+        _trace.evt("device_dispatch", t_d0, time.perf_counter() - t_d0,
+                   args={"kind": "window", "ticks": K,
+                         "tick": self.tick_base + K,
+                         "device": self.device_label})
 
     def on_states_replaced(self) -> None:
         """The state tree was swapped wholesale (a restore): drop the

@@ -203,8 +203,11 @@ def make_scan_program(tick_fn):
     tick of the row program that halts at ``max_iters`` does not resume
     inside a window; its converged flag comes back False.
 
-    Returns ``scan_fn(states, ing_stack, n_ticks) -> (states',
-    (iters[K], rows[K], converged[K]), stack)``. The loop already reads
+    Returns ``scan_fn(states, ing_stack, n_ticks, spans=None) ->
+    (states', (iters[K], rows[K], converged[K]), stack)``; ``spans``, a
+    ``(begin, end)`` pair, brackets each turn of the loop, the tick's
+    scalars' readback included (``end(begin(), t)``: the executor's tick
+    spans). The loop already reads
     each tick's three scalars on the host; they are uploaded again as
     ``[K]`` tensors on the stack's device only so that the result has
     the form of JAX's scan outputs, and ``block()`` reads them back (one
@@ -213,15 +216,18 @@ def make_scan_program(tick_fn):
     retire.
     """
 
-    def scan_fn(op_states, ing_stack, n_ticks: int):
+    def scan_fn(op_states, ing_stack, n_ticks: int, spans=None):
         states = op_states
         ys = []
         for t in range(n_ticks):
+            tok = spans[0]() if spans else None
             states, sink_eg, _carry, iters, rows, conv = tick_fn(
                 states, slot_ingress(ing_stack, t))
             if sink_eg:
                 raise RuntimeError("macro-tick requires a sink-free graph")
             ys.append((int(iters), int(rows), bool(conv)))
+            if tok is not None:
+                spans[1](tok, t)
         first = next(iter(ing_stack.values()))
         dev = (first[0] if isinstance(first, ShardedDelta)
                else first).keys.device
@@ -240,13 +246,14 @@ class _MacroTickMixin:
 
     def call_many(self, op_states, plan: Sequence[Node],
                   ing_stack: Dict[int, DeviceDelta], n_ticks: int,
-                  max_iters: int):
+                  max_iters: int, spans=None):
         """-> (states', (iters[K], rows[K], converged[K]), stack). The
         state a tick leaves (the fused loop's CSR cache included) is the
-        next tick's, exactly as K single-tick calls thread it."""
+        next tick's, exactly as K single-tick calls thread it. ``spans``:
+        see :func:`make_scan_program`."""
         return make_scan_program(
             lambda st, ing: self(st, plan, ing, max_iters))(
-                op_states, ing_stack, n_ticks)
+                op_states, ing_stack, n_ticks, spans)
 
 
 class FixpointProgram(_MacroTickMixin):

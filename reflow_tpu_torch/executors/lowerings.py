@@ -46,15 +46,16 @@ buffers and the Join's left table are updated in place (the JAX package
 donates its state); the ``state`` dict passed in is consumed, and
 ``state_snapshot`` clones.
 
-Profiler spans: each composition opens a ``torch.profiler`` range
-(``reflow::<op>.<part>``) only while a profiler is recording, so a
-traced tick attributes its device time by composition; otherwise a
-span costs one flag check.
+Spans: each composition runs under ``obs.trace.span`` (re-exported here
+as :func:`span`): an obs span ``<op>.<part>`` while tracing is on, a
+``torch.profiler`` range ``reflow::<op>.<part>`` while a profiler
+records, so a traced tick attributes its host time and its device time
+by composition; otherwise a span costs two flag reads. A readback that
+decides a host branch is a ``branch_sync`` span (:func:`_read_branch`).
 """
 
 from __future__ import annotations
 
-import contextlib
 import inspect
 from typing import Optional, Sequence, Tuple
 
@@ -66,6 +67,7 @@ from reflow_tpu_torch.executors.device_delta import DeviceDelta
 from reflow_tpu_torch.graph import GraphError, Node
 from reflow_tpu_torch.kernels.topk import (NEG, chunked_corpus_topk, scores,
                                            topk)
+from reflow_tpu_torch.obs.trace import span
 
 __all__ = ["lower_node", "knn_state", "reduce_state", "join_state",
            "join_core", "minmax_state", "minmax_core", "minmax_refresh_core",
@@ -81,12 +83,14 @@ DEVICE_REDUCERS = ("sum", "count", "mean", "min", "max")
 LINEAR_DEVICE_REDUCERS = ("sum", "count", "mean")
 
 
-def span(name: str):
-    """A ``torch.profiler`` range named ``reflow::<name>`` while a profiler
-    records, else a no-op context."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(f"reflow::{name}")
-    return contextlib.nullcontext()
+def _read_branch(flag: torch.Tensor, on_sync) -> bool:
+    """The readback of a one-element flag that decides a host branch:
+    counted through ``on_sync`` (the executor's ``host_syncs``) and
+    timed as a ``branch_sync`` span, the host blocked on the card."""
+    if on_sync is not None:
+        on_sync()
+    with span("branch_sync"):
+        return bool(flag.item())
 
 
 # -- state builders --------------------------------------------------------
@@ -302,7 +306,8 @@ def _lower_knn(op, node: Node, state, ins, *, on_sync=None
     made on the host from one scalar readback per tick (the ``need_full``
     flag — it depends on ``dlive``, a device table). ``on_sync`` is
     called once for that readback, so the scheduler can count it in
-    ``forced_syncs``.
+    ``forced_syncs``. Spans: ``knn_fold``, ``branch_sync``, then
+    ``knn_rescan`` or ``knn_merge``, then ``knn_emit``.
 
     In place: ``qvec``/``qlive``/``dvec``/``dlive`` are updated in place
     (the JAX package donates its state; copying a 0.8 GB corpus every
@@ -311,71 +316,74 @@ def _lower_knn(op, node: Node, state, ins, *, on_sync=None
     """
     dq, dd = ins
     dev = state["qvec"].device
-    if dq is None:
-        dq = DeviceDelta.empty(node.inputs[0].spec, device=dev)
-    if dd is None:
-        dd = DeviceDelta.empty(node.inputs[1].spec, device=dev)
     Q = node.inputs[0].spec.key_space
     D = node.inputs[1].spec.key_space
     k = op.k
-
-    # an insert whose doc id is ALREADY live is an in-place update: its
-    # stale score may sit in a query's emitted top-k, and the
-    # incremental merge would keep treating it as a valid candidate —
-    # updates therefore rescan, exactly like retractions (checked
-    # against the PRE-fold live mask; padding rows have weight 0; the
-    # gather clamps out-of-range keys, as the JAX package's does)
-    d_idx, _ = _table_index(dd.keys, D)
-    doc_update = torch.any((dd.weights > 0) & state["dlive"][d_idx])
-    # fresh doc-insert and query-retract ticks take the incremental
-    # merge (a retracted query just stops emitting); query
-    # inserts/updates, doc retractions and doc UPDATES rescan the corpus
-    need_full = (torch.any(dd.weights < 0) | torch.any(dq.weights > 0)
-                 | doc_update)
-
     qvec, qlive = state["qvec"], state["qlive"]
     dvec, dlive = state["dvec"], state["dlive"]
-    _fold_vectors_(qvec, qlive, dq)
-    _fold_vectors_(dvec, dlive, dd)
+    with span("knn_fold"):
+        if dq is None:
+            dq = DeviceDelta.empty(node.inputs[0].spec, device=dev)
+        if dd is None:
+            dd = DeviceDelta.empty(node.inputs[1].spec, device=dev)
+        # an insert whose doc id is ALREADY live is an in-place update:
+        # its stale score may sit in a query's emitted top-k, and the
+        # incremental merge would keep treating it as a valid candidate
+        # — updates therefore rescan, exactly like retractions (checked
+        # against the PRE-fold live mask; padding rows have weight 0;
+        # the gather clamps out-of-range keys, as the JAX package's does)
+        d_idx, _ = _table_index(dd.keys, D)
+        doc_update = torch.any((dd.weights > 0) & dlive[d_idx])
+        # fresh doc-insert and query-retract ticks take the incremental
+        # merge (a retracted query just stops emitting); query
+        # inserts/updates, doc retractions and doc UPDATES rescan the
+        # corpus
+        need_full = (torch.any(dd.weights < 0) | torch.any(dq.weights > 0)
+                     | doc_update)
+        _fold_vectors_(qvec, qlive, dq)
+        _fold_vectors_(dvec, dlive, dd)
     emitted, em_has = state["emitted"], state["em_has"]
 
-    if on_sync is not None:
-        on_sync()
-    if bool(need_full.item()):
-        vals, ids = chunked_corpus_topk(qvec, dvec, dlive, k, op.scan_chunk)
+    if _read_branch(need_full, on_sync):
+        with span("knn_rescan"):
+            vals, ids = chunked_corpus_topk(qvec, dvec, dlive, k,
+                                            op.scan_chunk)
     else:
         # current top-k rows stay valid (no retractions): merge them with
         # scores against just the delta docs
-        em_ids = emitted[:, :, 0].to(torch.int32)                   # [Q, k]
-        em_vals = torch.where(em_has[:, None] & (em_ids >= 0),
-                              emitted[:, :, 1], NEG)
-        di = dd.keys                                                # [Cd]
-        s_new = scores(qvec, dvec[d_idx])                           # [Q, Cd]
-        s_new = torch.where((dd.weights > 0)[None, :], s_new, NEG)
-        cand_vals = torch.cat([em_vals, s_new], dim=1)
-        cand_ids = torch.cat([em_ids, di.expand(Q, di.shape[0])], dim=1)
-        # order candidates by id so topk's first-index tie-break matches
-        # the oracle's lowest-doc-id rule on exact score ties
-        cand_ids, order = torch.sort(cand_ids, dim=1, stable=True)
-        cand_vals = torch.gather(cand_vals, 1, order)
-        vals, sel = topk(cand_vals, k)
-        ids = torch.gather(cand_ids, 1, sel.long())
+        with span("knn_merge"):
+            em_ids = emitted[:, :, 0].to(torch.int32)               # [Q, k]
+            em_vals = torch.where(em_has[:, None] & (em_ids >= 0),
+                                  emitted[:, :, 1], NEG)
+            di = dd.keys                                            # [Cd]
+            s_new = scores(qvec, dvec[d_idx])                       # [Q, Cd]
+            s_new = torch.where((dd.weights > 0)[None, :], s_new, NEG)
+            cand_vals = torch.cat([em_vals, s_new], dim=1)
+            cand_ids = torch.cat([em_ids, di.expand(Q, di.shape[0])], dim=1)
+            # order candidates by id so topk's first-index tie-break
+            # matches the oracle's lowest-doc-id rule on exact score ties
+            cand_ids, order = torch.sort(cand_ids, dim=1, stable=True)
+            cand_vals = torch.gather(cand_vals, 1, order)
+            vals, sel = topk(cand_vals, k)
+            ids = torch.gather(cand_ids, 1, sel.long())
 
-    ids = torch.where(vals <= NEG, -1, ids)
-    new_row = torch.stack([ids.float(), vals], dim=-1)             # [Q,k,2]
+    with span("knn_emit"):
+        ids = torch.where(vals <= NEG, -1, ids)
+        new_row = torch.stack([ids.float(), vals], dim=-1)         # [Q,k,2]
 
-    changed = torch.any((new_row != emitted).flatten(1), dim=1)
-    ins_m = qlive & (~em_has | changed)
-    ret_m = em_has & (~qlive | changed)
-    qkeys = torch.arange(Q, dtype=torch.int32, device=dev)
-    out = DeviceDelta(
-        keys=torch.cat([qkeys, qkeys]),
-        values=torch.cat([emitted, new_row]),
-        weights=torch.cat([-ret_m.to(torch.int32), ins_m.to(torch.int32)]),
-    )
-    new_emitted = torch.where(ins_m[:, None, None], new_row, emitted)
-    new_has = torch.where(ins_m, True, torch.where(ret_m & ~qlive, False,
-                                                   em_has))
+        changed = torch.any((new_row != emitted).flatten(1), dim=1)
+        ins_m = qlive & (~em_has | changed)
+        ret_m = em_has & (~qlive | changed)
+        qkeys = torch.arange(Q, dtype=torch.int32, device=dev)
+        out = DeviceDelta(
+            keys=torch.cat([qkeys, qkeys]),
+            values=torch.cat([emitted, new_row]),
+            weights=torch.cat([-ret_m.to(torch.int32),
+                               ins_m.to(torch.int32)]),
+        )
+        new_emitted = torch.where(ins_m[:, None, None], new_row, emitted)
+        new_has = torch.where(ins_m, True, torch.where(ret_m & ~qlive, False,
+                                                       em_has))
     return out, {"qvec": qvec, "qlive": qlive, "dvec": dvec, "dlive": dlive,
                  "emitted": new_emitted, "em_has": new_has}
 
@@ -904,10 +912,7 @@ def _append_arena_(state: dict, keys, vals, w, R: int, on_sync,
     live = w != 0
     n_app = live.sum(dtype=torch.int32)
     if compact is None:
-        over = state["rcount"] + n_app > R
-        if on_sync is not None:
-            on_sync()
-        compact = bool(over.item())
+        compact = _read_branch(state["rcount"] + n_app > R, on_sync)
     if compact:
         with span("arena.compact"):
             state = compact_arena(state)

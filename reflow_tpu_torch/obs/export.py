@@ -51,7 +51,9 @@ def chrome_events() -> List[Dict[str, Any]]:
     exact overwrite count (``Ring.n`` counts every put ever, so drops
     are ``n - cap``); readers must treat such tracks as incomplete
     rather than assuming the window starts at the first surviving
-    event."""
+    event. The card's ``device_tick`` spans (``trace.device_events``)
+    are written too, on their ``device/<label>`` tracks, on the host
+    clock of the rest."""
     return _snapshot()[0]
 
 
@@ -61,6 +63,9 @@ def _snapshot() -> tuple:
     exported file can never drift from the ``ts`` values."""
     with trace._rings_lock:
         rings = list(trace._rings)
+    dev = trace._device_ring()
+    if dev is not None:
+        rings.append(dev)
     raw = []
     dropped: Dict[str, int] = {}
     for r in rings:

@@ -160,6 +160,9 @@ class _LazyNode(Mapping):
 
 class ShardedCudaExecutor(CudaExecutor):
     name = "sharded"
+    #: no ``device_tick`` spans: one shard's stream would stand for the
+    #: mesh's
+    device_spans = False
 
     def __init__(self, mesh: Optional[Mesh] = None, *,
                  fixpoint: bool = True, linear_fixpoint: bool = True,

@@ -347,6 +347,7 @@ class DirtyScheduler:
         sink_ids = {s.id: s for s in self.graph.sinks}
 
         syncs0 = getattr(self.executor, "host_syncs", 0)
+        self.executor.tick_base = self._tick
         while ingress:
             if passes >= self.max_loop_iters:
                 # PAUSE, don't drop: the leftover loop deltas re-enter as
@@ -505,8 +506,9 @@ class DirtyScheduler:
         fx = None
         plan = self._dirty_plan(sorted({n for f in feeds for n in f}))
         syncs0 = getattr(self.executor, "host_syncs", 0)
+        self.executor.tick_base = self._tick
         if feeds:
-            fx = self._run_window_path(plan, feeds)
+            fx = self._run_window_path(plan, feeds, t0)
         if fx is None:
             # fallback: ordinary streaming ticks, aggregated lazily (no
             # readbacks here — everything combines at block(), keeping
@@ -540,11 +542,14 @@ class DirtyScheduler:
             self.history.append(agg)
             return agg
 
+        t_r0 = time.perf_counter() if _trace.ENABLED else 0.0
         self._note_branch_syncs(syncs0)
         K = len(feeds)
         host_rows = sum(len(b) for f in feeds for b in f.values())
         result = self._fused_result(fx, K, host_rows, plan, t0)
         if _trace.ENABLED:
+            _trace.evt("tick_result", t_r0, time.perf_counter() - t_r0,
+                       args={"ticks": K})
             _trace.evt("tick_many", t0, result.wall_s,
                        args={"ticks": K, "fused": True})
         self.history.append(result)
@@ -595,7 +600,7 @@ class DirtyScheduler:
                                    host_dtype(spec.value_dtype)),
                           np.zeros(0, np.int64))
 
-    def _run_window_path(self, plan, feeds):
+    def _run_window_path(self, plan, feeds, t0: float):
         """Try the ingress-queue window on this tick_many call: pad
         ragged per-tick feeds to the window's union source set with
         zero-row deltas (weight-0 rows are semantic no-ops, so the window
@@ -605,6 +610,8 @@ class DirtyScheduler:
         executor refusals fall back to the per-tick path, counted in
         ``megatick_fallbacks``. Device-resident batches skip
         silently (they ride their own path by design, not a fallback).
+        While tracing, ``[t0, the executor's call]`` (the dirty plan and
+        the padding) is a ``tick_plan`` span, as in :meth:`stage_window`.
         """
         run = getattr(self.executor, "run_window", None)
         if run is None or not self.window_support:
@@ -629,6 +636,10 @@ class DirtyScheduler:
             for nid in union:
                 if nid not in f:
                     f[nid] = self._zero_batch(nid)
+        if _trace.ENABLED:
+            args = {"ticks": K}
+            _trace.evt("tick_plan", t0, time.perf_counter() - t0,
+                       args=args)
         fx = run(plan, padded, self.max_loop_iters)
         if fx is None:
             self.megatick_fallbacks += 1
@@ -661,6 +672,7 @@ class DirtyScheduler:
         (:meth:`_log_window_feeds`) and registered its batch ids, so the
         caller MUST follow with ``dispatch_staged`` — abandoning a
         staged window is a crash, not a fallback."""
+        t0 = time.perf_counter() if _trace.ENABLED else 0.0
         if any(self._pending.values()):
             raise GraphError("stage_window cannot run with pending "
                              "push()ed batches; tick() them first")
@@ -692,6 +704,10 @@ class DirtyScheduler:
             for nid in union:
                 if nid not in f:
                     f[nid] = self._zero_batch(nid)
+        if _trace.ENABLED:
+            args = {"ticks": K}
+            _trace.evt("tick_plan", t0, time.perf_counter() - t0,
+                       args=args)
         sw = stage(plan, padded, self.max_loop_iters)
         if sw is None:
             return None
@@ -724,17 +740,21 @@ class DirtyScheduler:
         and ``retire_staged`` this one later."""
         t0 = time.perf_counter()
         syncs0 = getattr(self.executor, "host_syncs", 0)
+        self.executor.tick_base = self._tick
         fx = self.executor.dispatch_window(handle.sw)
         if fx is None:
             # stage_window guaranteed the fused program exists — a None
             # here is a lifecycle bug, and the window's records are
             # already logged, so falling back would double-log
             raise GraphError("staged window refused dispatch")
+        t_r0 = time.perf_counter() if _trace.ENABLED else 0.0
         self._note_branch_syncs(syncs0)
         self.megatick_windows += 1
         result = self._fused_result(fx, handle.k, handle.host_rows,
                                     handle.plan, t0)
         if _trace.ENABLED:
+            _trace.evt("tick_result", t_r0, time.perf_counter() - t_r0,
+                       args={"ticks": handle.k})
             _trace.evt("tick_many", t0, result.wall_s,
                        args={"ticks": handle.k, "fused": True,
                              "staged": True})

@@ -907,6 +907,8 @@ class IngestFrontend:
                               len(chunk), t_ready, t_exec0, t_exec1)
             with self._lock:
                 self._pending_res += 1
+            if tr:
+                self._trace_retire_wait(block, time.perf_counter())
             self._wire_block(block)
         if tr:
             _trace.evt("window", t_w0, time.perf_counter() - t_w0,
@@ -945,6 +947,8 @@ class IngestFrontend:
         iw = self._inflight.popleft()
         tr = _trace.ENABLED
         t_r0 = time.perf_counter() if tr else 0.0
+        if tr:
+            self._trace_retire_wait(iw.block, t_r0)
         self.sched.retire_staged(iw.handle)
         if tr:
             _trace.evt("window_retire", t_r0, time.perf_counter() - t_r0,
@@ -955,6 +959,17 @@ class IngestFrontend:
     def _settle_all(self) -> None:
         while self._inflight:
             self._settle_one()
+
+    def _trace_retire_wait(self, block: _ResBlock, t_end: float) -> None:
+        """The ``retire_wait`` span of one dispatched window: from its
+        dispatch's end to the start of its retire (on the pipelined path,
+        the wait for the next window's stage and dispatch; on the serial
+        path, the moment before its tickets are wired)."""
+        _trace.evt("retire_wait", block.t_exec1, t_end - block.t_exec1,
+                   args={"graph": self.name or "frontend",
+                         "first": block.items[0][1] if block.items else None,
+                         "last": block.items[-1][1] if block.items else None,
+                         "ticks": block.nticks})
 
     def _wire_block(self, block: _ResBlock) -> None:
         """Park one executed chunk's tickets on the durable watermark

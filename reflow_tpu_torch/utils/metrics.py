@@ -11,8 +11,8 @@ frontend's and the serving tier's counters.
 The JAX package traces with ``jax.profiler``; here :func:`profile_trace`
 runs ``torch.profiler`` (CPU and, where there is a card, CUDA activity)
 and writes a Chrome trace, and :func:`profile_annotation` labels a block
-with a ``torch.profiler.record_function`` range, which shows in such a
-trace beside the ``reflow::`` ranges the lowerings emit.
+with a ``torch.profiler`` range through ``obs.trace.span``, which shows in
+such a trace beside the ``reflow::`` ranges the lowerings' spans emit.
 """
 
 from __future__ import annotations
@@ -392,36 +392,12 @@ def profile_trace(log_dir: str):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-#: warn once, then stay silent: dispatch-path annotation failures must
-#: not spam a log line per window
-_annotation_warned = False
-
-
-@contextlib.contextmanager
 def profile_annotation(name: str, *, enabled: bool = True):
-    """Label a block with a ``torch.profiler.record_function`` range
-    named ``name`` (the window dispatch uses ``reflow.window[K]``).
+    """Label a block with a ``torch.profiler`` range named ``name`` while
+    a profiler records (the window dispatch uses ``reflow.window[K]``):
+    ``obs.trace.span`` with no obs span, the one helper for both.
+    ``enabled=False`` runs the block unlabelled."""
+    from reflow_tpu_torch.obs import trace
 
-    ``enabled=False`` (and any profiler failure) degrades to running the
-    block unannotated: annotation is observability, never correctness.
-    Failures warn once per process.
-    """
-    global _annotation_warned
-    if not enabled:
-        yield
-        return
-    try:
-        ctx = torch.profiler.record_function(name)
-        ctx.__enter__()
-    except Exception as e:  # noqa: BLE001 - degrade to a no-op label
-        if not _annotation_warned:
-            _annotation_warned = True
-            warnings.warn(
-                f"torch.profiler unavailable ({e!r}); profile_annotation "
-                f"is a no-op", RuntimeWarning, stacklevel=3)
-        yield
-        return
-    try:
-        yield
-    finally:
-        ctx.__exit__(None, None, None)
+    return (trace.span(None, label=name) if enabled
+            else contextlib.nullcontext())

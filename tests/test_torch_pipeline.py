@@ -440,8 +440,9 @@ def test_int64_keys_beyond_int32_rejected():
 def test_window_spans_recorded():
     """With tracing on, the window path records the spans
     ``obs.trace.WINDOW_SPANS`` names: the slot writes, one dispatch a
-    window, the fused ``tick_many`` (staged on the pump's path), and the
-    pump's stage and retire."""
+    window, the fused ``tick_many`` (staged on the pump's path), the
+    pump's stage and retire, and one ``retire_wait`` a window, from its
+    dispatch's end to its retire."""
     from reflow_tpu_torch.obs import trace
 
     g, s, _r = _graph()
@@ -467,3 +468,14 @@ def test_window_spans_recorded():
     kinds = sorted(ev[4]["kind"] for ev in evs
                    if ev[0] == "device_dispatch")
     assert kinds == ["window", "window"]
+    waits = sorted((ev for ev in evs if ev[0] == "retire_wait"),
+                   key=lambda ev: ev[1])
+    retires = sorted((ev for ev in evs if ev[0] == "window_retire"),
+                     key=lambda ev: ev[1])
+    execs = sorted((ev for ev in evs if ev[0] == "pump_execute"),
+                   key=lambda ev: ev[1])
+    assert len(waits) == len(retires) == len(execs) == 2
+    for w, r, x in zip(waits, retires, execs):
+        assert w[1] == pytest.approx(x[1] + x[2], abs=1e-9)
+        assert w[1] + w[2] <= r[1]
+        assert w[4]["ticks"] == w[4]["last"] - w[4]["first"] + 1

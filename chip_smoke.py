@@ -9,18 +9,28 @@ Phases, each printing its own lines:
 
 1. **Device** — the card's name and power limit; TF32 off for matmul and
    cuDNN (the port's float32 scoring must stay float32).
-2. **Build** — ``reflow_tpu_torch/csrc/topk.cu`` compiled by ``nvcc``
-   for ``sm_90a`` into the git-ignored ``reflow_tpu_torch/_build/``.
+2. **Build** — ``reflow_tpu_torch/csrc/topk.cu`` and ``scan_score.cu``
+   compiled by ``nvcc`` for ``sm_90a`` into the git-ignored
+   ``reflow_tpu_torch/_build/``.
 3. **Kernels vs their plain versions** — each kernel entry's wrapper
    (``topk``, and the scan step ``topk_merge``) on card tensors at the
    shapes the main path gives it (and at edge shapes), held to exact
-   equality with the plain PyTorch version; device times (from a
+   equality with the plain PyTorch version; the scan's scoring kernel
+   (``scan_scores``: a corpus chunk's float32 scores, int8 or bf16 docs)
+   held to its plain version within ``SCAN_TOL`` (float32 sums in
+   another order) at the main shape and at ragged ones, its dequantized
+   operands to ``score_form``'s bit for bit (one-hot queries), a launch
+   repeated bit for bit; device times (from a
    ``torch.profiler`` trace) and CUDA-event times of each entry, warm
    (back to back, input in L2) and cold (L2 flushed by a 64 MB write
    between calls, the flush left out of both), beside the plain
-   version's and the one-call library yardstick's. The cases include
-   the sharded k-NN's shapes (phase 18): the ring merge's [256, 32] and
-   an incremental tick's [256, 16 + 8192]; the first is timed too.
+   version's and the one-call library yardstick's (``torch.topk``; for
+   the scoring kernel ``torch.matmul`` of the bf16 operands, which the
+   port never calls: it rounds its output to bf16), and the scoring
+   kernel's time over the corpus's chunks in turn, as a rescan reads
+   them. The cases include the sharded k-NN's shapes (phase 18): the
+   ring merge's [256, 32] and an incremental tick's [256, 16 + 8192];
+   the first is timed too.
 4. **Serving slice at full width** — the k-NN re-index workload
    (BASELINE.md config 4: 256 queries, a 2^20-id corpus of 768-dim int8
    embeddings, k = 16, scan chunk 8192) served through
@@ -33,8 +43,8 @@ Phases, each printing its own lines:
    The table is checked against a brute-force top-k over the same
    corpus, and the kernel launch counts (zeroed just before the path,
    read just after) prove the path ran through the kernels: one ``topk``
-   per incremental tick, one ``topk_merge`` per corpus chunk of a rescan
-   tick. The frontend runs at its default depth 2 with device-keyed
+   per incremental tick, one ``scan_scores`` and one ``topk_merge`` per
+   corpus chunk of a rescan tick. The frontend runs at its default depth 2 with device-keyed
    admission: every host-batch tick is one window staged through the
    ingress queue (``stage_window``/``dispatch_staged``/``retire_staged``),
    the device-made preload runs tick by tick; printed: the
@@ -363,8 +373,8 @@ Phases, each printing its own lines:
    queries with the preload (a rescan), an insert of 8,192 fresh docs
    and a retraction of 1,024; after every tick the table equal bit for
    bit to ``DirtyScheduler(graph, get_executor("cuda"))``'s on the same
-   deltas, the (topk, topk_merge) launches equal to the twin's and not
-   zero, the executor on the card. Leg b (``cuda``,
+   deltas, the (topk, topk_merge, scan_score) launches equal to the
+   twin's and not zero, the executor on the card. Leg b (``cuda``,
    ``REFLOW_LINEAR_FIXPOINT=0``, ``REFLOW_MAX_LOOP_ITERS=500``): config 3
    at full width, the initial tick and 2 churn ticks, on the row
    program with no fused-loop CSR rebuild; ranks within 1e-3 relative of
@@ -375,11 +385,18 @@ Phases, each printing its own lines:
    message printed. Printed: a line a leg, with the ms a tick beside the
    twin's and the launches; ``config`` in ``launches_by_path``.
 
-Phases 5-12 run no hand-written kernel; the top-k counts, zeroed before
-them, must stay 0. Phases 13-16, 18 and 20 zero them again and count
-their own paths' launches apart from their twins'; phase 17 and phase
-19's legs B and B-w count them in their children (``multihost_knn``,
-``multihost_window_knn``); legs A and A-w launch none.
+Every launch count is a triple (``topk``, ``topk_merge``,
+``scan_score``): every k-NN corpus here is int8, so a rescan scores each
+corpus chunk with one ``scan_scores`` launch before its ``topk_merge``.
+Phases 5-12 run no hand-written kernel; the counts, zeroed before them,
+must stay 0. Phases 13-16, 18 and 20 zero them again and count their own
+paths' launches apart from their twins' (on the replica and follower
+threads by the per-thread tallies); phase 17 and phase 19's legs B and
+B-w count them in their children (``multihost_knn``,
+``multihost_window_knn``); legs A and A-w launch none. Each path's
+launches are checked tick by tick against the prediction, and at the
+end each path's ``scan_score`` launches against its ``topk_merge``
+launches.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -416,7 +433,9 @@ from reflow_tpu_torch.executors.fixpoint import FixpointProgram
 from reflow_tpu_torch.executors.linear_fixpoint import LinearFixpointProgram
 from reflow_tpu_torch.kernels import _build
 from reflow_tpu_torch.kernels import topk as topk_mod
-from reflow_tpu_torch.kernels.topk import (NEG, scores, topk, topk_merge,
+from reflow_tpu_torch.kernels.topk import (NEG, scan_scores,
+                                           scan_scores_plain, score_form,
+                                           scores, topk, topk_merge,
                                            topk_merge_plain, topk_plain)
 from reflow_tpu_torch.models import vit
 from reflow_tpu_torch.serve import (APPLIED, DEDUPED, CoalesceWindow,
@@ -438,10 +457,12 @@ from reflow_tpu_torch.wal.ship import ShipAck, Shipment, ShipNack
 from reflow_tpu_torch.workloads import (image_embed, knn, pagerank, sssp,
                                         tfidf, wordcount)
 
-#: H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 outside
-#: the tensor cores, for the kernels' least-time bounds
+#: H100 SXM peaks (NVIDIA's data sheet): memory rate, float32 outside
+#: the tensor cores and bf16 dense on them, for the kernels' least-time
+#: bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989.4e12
 
 #: BASELINE.md config 4 at full width (bench_configs.py's published
 #: setting); the corpus preload is cut to 15 x 65536 live docs so the
@@ -456,6 +477,17 @@ FULL = dict(Q=256, D=1 << 20, dim=768, k=16, scan_chunk=8192,
 #: entry's is a carry of k plus one 8192-doc chunk (a rescan step)
 MAIN_Q, MAIN_N, MAIN_K = 256, 16 + 8192, 16
 MAIN_CHUNK = 8192
+#: the scoring kernel against its plain version: float32 sums of 768
+#: products of unit vectors, taken in another order, differ by a few
+#: float32 ulps of 1.0; 1e-5 is half the benchmark's score_gap and
+#: rank_gap limit of 2e-5
+SCAN_TOL = 1e-5
+#: (queries, docs, dim, doc dtype) of the scoring kernel's cases: the
+#: main path's shape for both tables, then ragged ones (queries and docs
+#: not multiples of the kernel's 128, dim not a multiple of its 64)
+SCAN_CASES = [(256, 8192, 768, "int8"), (256, 8192, 768, "bf16"),
+              (37, 1000, 768, "int8"), (130, 203, 48, "int8"),
+              (37, 1001, 96, "bf16"), (1, 1, 16, "int8")]
 #: bytes written between calls to time a kernel with a cold L2 (50 MB)
 FLUSH_BYTES = 64 << 20
 #: traced runs of one step at most: now and then torch.profiler returns a
@@ -491,6 +523,16 @@ def log(msg: str) -> None:
     print(LOG_PREFIX + msg, flush=True)
 
 
+def zero_launches(by_thread: bool = False) -> None:
+    """Zero the kernels' launch counts (``topk``, ``topk_merge``,
+    ``scan_scores``), and with ``by_thread`` their per-thread tallies."""
+    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+    topk_mod.SCAN_SCORE_LAUNCHES = 0
+    if by_thread:
+        topk_mod.LAUNCHES_BY_THREAD.clear()
+        topk_mod.SCAN_SCORE_BY_THREAD.clear()
+
+
 # -- phase 1: device ------------------------------------------------------
 
 def card_line() -> str:
@@ -518,12 +560,14 @@ def phase_device() -> Dict[str, object]:
 # -- phase 2: build -------------------------------------------------------
 
 def phase_build() -> float:
-    """Compile the top-k kernel; returns the wall seconds."""
+    """Compile the kernels; returns the wall seconds."""
     t0 = time.perf_counter()
-    path = _build.build("topk")
-    secs = time.perf_counter() - t0
-    log(f"[build] topk.cu -> {path.name} in {secs:.2f} s")
-    return secs
+    for name in ("topk", "scan_score"):
+        t1 = time.perf_counter()
+        path = _build.build(name)
+        log(f"[build] {name}.cu -> {path.name} in "
+            f"{time.perf_counter() - t1:.2f} s")
+    return time.perf_counter() - t0
 
 
 # -- phase 3: kernels vs plain --------------------------------------------
@@ -705,9 +749,10 @@ def _same(label: str, got, want, n_cols: int = 0) -> float:
     return float((v - pv).abs().max())
 
 
-def _bound(nbytes: int, ops: int) -> tuple:
+def _bound(nbytes: int, ops: int,
+           ops_per_s: float = F32_OPS_PER_S) -> tuple:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -718,11 +763,112 @@ def _times_line(name: str, t: Dict[str, float]) -> str:
             f"cold events {t['cold_ev']:.5f} ms")
 
 
+def scan_inputs(nq: int, nd: int, dim: int, doc: str, device,
+                seed: int) -> tuple:
+    """bf16 unit-vector queries and docs as a table stores them: int8
+    (round(unit * 127), the first row holding every byte value it can)
+    or bf16; made on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def unit(n):
+        v = torch.randn((n, dim), generator=g, device=device)
+        return v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+
+    q = unit(nq).to(torch.bfloat16)
+    if doc == "bf16":
+        return q, unit(nd).to(torch.bfloat16)
+    d = torch.round(unit(nd) * 127).to(torch.int8)
+    d[0, :min(dim, 256)] = torch.arange(-128, -128 + min(dim, 256),
+                                        device=device).to(torch.int8)
+    return q, d
+
+
+def scan_kernel_record(device, flush, flush_names) -> Dict[str, object]:
+    """Hold the scoring kernel to its plain version within SCAN_TOL on
+    every case, a repeat to the first launch bit for bit, and its
+    dequantized operands to ``score_form``'s (a one-hot query's scores
+    are the operands themselves); time it at the main shape, warm and
+    cold on one chunk and over the corpus's chunks in turn, beside the
+    plain version and ``torch.matmul`` of the bf16 operands. Returns the
+    kernel's record."""
+    err = 0.0
+    for nq, nd, dim, doc in SCAN_CASES:
+        q, d = scan_inputs(nq, nd, dim, doc, device, seed=nd)
+        got = scan_scores(q, d)
+        e = float((got - scan_scores_plain(q, d)).abs().max())
+        if not e <= SCAN_TOL:
+            raise AssertionError(f"scan_scores {nq}x{nd}x{dim} {doc}: "
+                                 f"kernel - plain {e:.3g} > {SCAN_TOL}")
+        if not torch.equal(scan_scores(q, d), got):
+            raise AssertionError(f"scan_scores {nq}x{nd}x{dim} {doc}: a "
+                                 f"repeat differs")
+        err = max(err, e)
+        log(f"[kernels] scan_scores {nq}x{nd}x{dim} {doc} docs: kernel "
+            f"within {e:.3g} of plain (limit {SCAN_TOL}), a repeat bit for "
+            f"bit")
+    eye = torch.eye(FULL["dim"], dtype=torch.bfloat16, device=device)
+    for doc in ("int8", "bf16"):
+        _, d = scan_inputs(1, 64, FULL["dim"], doc, device, seed=4)
+        if not torch.equal(scan_scores(eye, d), score_form(d).float().T):
+            raise AssertionError(f"scan_scores' {doc} operands differ from "
+                                 f"score_form's")
+    log("[kernels] scan_scores one-hot queries: the int8 and bf16 "
+        "operands equal score_form's bit for bit")
+
+    Q, C, dim = MAIN_Q, MAIN_CHUNK, FULL["dim"]
+    q, d = scan_inputs(Q, C, dim, "int8", device, seed=9)
+    out = torch.empty((Q, C), device=device)
+    t = kernel_times(lambda: scan_scores(q, d, out), flush, flush_names)
+    # a rescan's reads: each launch takes the corpus's next chunk
+    _, corpus = scan_inputs(1, FULL["D"], dim, "int8", device, seed=10)
+    at = [0]
+
+    def rescan_step():
+        scan_scores(q, corpus[at[0]:at[0] + C], out)
+        at[0] = (at[0] + C) % FULL["D"]
+
+    scan_dev = device_ms(rescan_step, iters=FULL["D"] // C)
+    del corpus
+    plain_dev = device_ms(lambda: scan_scores_plain(q, d), iters=20)
+    plain_ev = time_ms(lambda: scan_scores_plain(q, d), 50)
+    db = score_form(d)
+    lib_dev = device_ms(lambda: torch.matmul(q, db.T), iters=20)
+    lib_ev = time_ms(lambda: torch.matmul(q, db.T), 100)
+    traced = t["warm_dev"] == t["warm_dev"] and plain_dev == plain_dev
+    if not traced:
+        log("[kernels] scan_score: the profiler trace held no device time; "
+            "the record's times are CUDA-event times")
+    nbytes = C * dim + Q * dim * 2 + Q * C * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * Q * dim * C, BF16_OPS_PER_S)
+    rec = {"name": "scan_score", "route": "cuda",
+           "source": "reflow_tpu_torch/csrc/scan_score.cu",
+           "replaces": "no Pallas kernel: the jnp.dot of "
+                       "reflow_tpu/kernels/topk.py chunked_corpus_topk",
+           "launches": None, "max_abs_err": err,
+           "ms": t["warm_dev"] if traced else t["warm_ev"],
+           "rescan_ms": scan_dev,
+           "plain_ms": plain_dev if traced else plain_ev,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_dev if traced else lib_ev}
+    shape = f"[{Q}, {dim}] x [{C}, {dim}] int8"
+    log(f"[kernels] {_times_line('scan_score ' + shape, t)}; over the "
+        f"corpus's chunks in turn {scan_dev:.5f} ms (device)")
+    log(f"[kernels] scan_score: plain device {plain_dev:.5f} ms, events "
+        f"{plain_ev:.5f} ms; torch.matmul of the bf16 operands (the "
+        f"dequantization left out) device {lib_dev:.5f} ms, events "
+        f"{lib_ev:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}: {nbytes} "
+        f"B); warm device time is {bound_ms / rec['ms'] * 100:.1f}% of "
+        f"the bound, the corpus's chunks in turn "
+        f"{bound_ms / scan_dev * 100:.1f}%")
+    return rec
+
+
 def phase_kernels(device) -> List[Dict[str, object]]:
     """Hold both top-k entries to their plain versions, exactly, on every
     case; time each entry warm and cold at its main-path shape beside
-    the plain version and (for ``topk``) ``torch.topk``. Returns the two
-    kernel records."""
+    the plain version and (for ``topk``) ``torch.topk``; then the
+    scoring kernel (``scan_kernel_record``). Returns the three kernel
+    records."""
     max_err = 0.0
     for label, s, k in topk_cases(device):
         max_err = max(max_err, _same(label, topk(s, k), topk_plain(s, k),
@@ -799,6 +945,7 @@ def phase_kernels(device) -> List[Dict[str, object]]:
             f"device time is {bound_ms / rec['ms'] * 100:.1f}% of the "
             f"bound")
         recs.append(rec)
+    recs.append(scan_kernel_record(device, flush, flush_names))
     return recs
 
 
@@ -857,7 +1004,8 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
         """One batch through submit, flushed and applied; returns the
         wall seconds from submit to the device finishing. ``trace`` runs
         it under ``torch.profiler`` and keeps the trace."""
-        l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES,
+              topk_mod.SCAN_SCORE_LAUNCHES)
         s0 = sched.forced_syncs
         prof = None
         if trace:
@@ -877,7 +1025,8 @@ def serve_slice(cfg: Dict[str, int], device, seed: int = 0,
             raise AssertionError(f"{kind} ticket {res.status}: {res}")
         tickets.append(res)
         launches.append((kind, topk_mod.TOPK_LAUNCHES - l0[0],
-                         topk_mod.TOPK_MERGE_LAUNCHES - l0[1]))
+                         topk_mod.TOPK_MERGE_LAUNCHES - l0[1],
+                         topk_mod.SCAN_SCORE_LAUNCHES - l0[2]))
         syncs.append(sched.forced_syncs - s0)
         if prof is not None:
             traces.append((kind, wall, prof))
@@ -1091,13 +1240,14 @@ def trace_report(kind: str, wall_s: float, prof, card: str,
 def knn_trace_report(kind: str, wall_s: float, prof, chunks: int,
                      card: str) -> Dict[str, object]:
     """:func:`trace_report` of a k-NN tick, plus the scan loop's own
-    device-busy share and, on a rescan tick, the check that no cat,
-    where or gather is issued once per corpus chunk."""
+    device-busy share and, on a rescan tick, the check that each corpus
+    chunk ran one scoring kernel and that no cat, where, gather or
+    matmul is issued once per corpus chunk."""
     rep = trace_report(kind, wall_s, prof, card,
-                       PER_CHUNK_FORBIDDEN + ("aten::matmul",))
+                       PER_CHUNK_FORBIDDEN + ("aten::matmul", "aten::empty"))
     dev, merged, span_us = rep["dev"], rep["merged"], rep["span_us"]
     counts = rep["counts"]
-    if counts["aten::matmul"] == 0:
+    if counts["aten::empty"] == 0:
         # this torch records no host ops of the pump thread
         log(f"[trace] {kind}: host ops of the pump thread not recorded")
         counts = {}
@@ -1114,10 +1264,15 @@ def knn_trace_report(kind: str, wall_s: float, prof, chunks: int,
     if counts:
         log(f"[trace] {kind} host op counts: "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    if kind == "retract":
+        scored = sum("scan_score_kernel" in name for _a, _b, name in dev)
+        if scored != chunks:
+            raise AssertionError(f"rescan tick trace: {scored} scoring "
+                                 f"kernels over {chunks} chunks")
     if kind == "retract" and counts:
-        per_chunk = [op for op in PER_CHUNK_FORBIDDEN
+        per_chunk = [op for op in PER_CHUNK_FORBIDDEN + ("aten::matmul",)
                      if counts[op] >= chunks]
-        if per_chunk or counts["aten::matmul"] < chunks:
+        if per_chunk:
             raise AssertionError(
                 f"rescan tick trace: {counts} over {chunks} chunks "
                 f"({per_chunk} issued once per chunk)")
@@ -1127,19 +1282,20 @@ def knn_trace_report(kind: str, wall_s: float, prof, chunks: int,
 def phase_serve(card: str) -> Dict[str, object]:
     torch.cuda.reset_peak_memory_stats()
     # counts of the main path only
-    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+    zero_launches()
     out = serve_slice(FULL, "cuda")
     total = topk_mod.TOPK_LAUNCHES
     total_merge = topk_mod.TOPK_MERGE_LAUNCHES
+    total_scan = topk_mod.SCAN_SCORE_LAUNCHES
     mem = out["peak_bytes"]
     chunks = FULL["D"] // FULL["scan_chunk"]
-    for kind, n, nm in out["launches"]:
+    for kind, n, nm, ns in out["launches"]:
         rescan = kind in ("retract", "query update", "query insert")
-        want = (0, chunks) if rescan else (1, 0)
-        if (n, nm) != want:
+        want = (0, chunks, chunks) if rescan else (1, 0, 0)
+        if (n, nm, ns) != want:
             raise AssertionError(
-                f"{kind} tick launched topk {n} and topk_merge {nm} times, "
-                f"expected {want[0]} and {want[1]}")
+                f"{kind} tick launched topk {n}, topk_merge {nm} and "
+                f"scan_score {ns} times, expected {want}")
     if (out["recall"] < BRUTE_RECALL
             or out["score_max_abs_diff"] > BRUTE_SCORE_DIFF):
         raise AssertionError(
@@ -1147,7 +1303,7 @@ def phase_serve(card: str) -> Dict[str, object]:
             f"{BRUTE_RECALL}), score max_abs_diff "
             f"{out['score_max_abs_diff']:.3g} (need <= {BRUTE_SCORE_DIFF})")
     win = out["window"]
-    kinds = [kind for kind, _, _ in out["launches"]]
+    kinds = [kind for kind, *_counts in out["launches"]]
     staged = sum(kind != "preload" for kind in kinds)
     # every host-batch tick is one staged window at depth 2; the preload's
     # device-resident batches run tick by tick
@@ -1173,9 +1329,9 @@ def phase_serve(card: str) -> Dict[str, object]:
     med = ins[len(ins) // 2]
     dops = sum(out["insert_ops"]) / sum(out["insert_s"])
     log(f"[serve] {out['tickets']} tickets applied; {out['live_docs']} live "
-        f"docs; (topk, topk_merge) launches per tick "
-        f"{[(n, nm) for _, n, nm in out['launches']]} (totals {total}, "
-        f"{total_merge})")
+        f"docs; (topk, topk_merge, scan_score) launches per tick "
+        f"{[tuple(c) for _, *c in out['launches']]} (totals {total}, "
+        f"{total_merge}, {total_scan})")
     log(f"[serve] check vs brute force: recall {out['recall']:.6f}, score "
         f"max_abs_diff {out['score_max_abs_diff']:.6g}")
     log(f"[serve] insert tick (8192 int8 docs, incremental) median "
@@ -1188,7 +1344,8 @@ def phase_serve(card: str) -> Dict[str, object]:
     for kind, wall, prof in out.pop("traces"):
         knn_trace_report(kind, wall, prof, chunks, card)
     out.update(total_launches=total, total_merge_launches=total_merge,
-               insert_median_s=med, delta_ops_per_s=dops)
+               total_scan_launches=total_scan, insert_median_s=med,
+               delta_ops_per_s=dops)
     return out
 
 
@@ -2968,13 +3125,21 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+#: a launch count (topk, topk_merge, scan_score) with no launch
+NO_LAUNCH = (0, 0, 0)
+
+
 def _launches() -> tuple:
-    return topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES
+    return (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES,
+            topk_mod.SCAN_SCORE_LAUNCHES)
 
 
 def _since(l0: tuple) -> tuple:
-    l1 = _launches()
-    return l1[0] - l0[0], l1[1] - l0[1]
+    return tuple(b - a for a, b in zip(l0, _launches()))
+
+
+def _plus(a, b) -> list:
+    return [x + y for x, y in zip(a, b)]
 
 
 def _knn_feed(cfg: Dict[str, int], seed: int) -> List[tuple]:
@@ -3011,12 +3176,13 @@ def _knn_feed(cfg: Dict[str, int], seed: int) -> List[tuple]:
 
 
 def _want_launches(kind: str, chunks: int) -> tuple:
-    """(topk, topk_merge) launches of one k-NN tick: a rescan merges once
-    a corpus chunk, an incremental tick runs one top-k."""
+    """(topk, topk_merge, scan_score) launches of one k-NN tick: a rescan
+    scores and merges once a corpus chunk, an incremental tick runs one
+    top-k."""
     if not _on_card():
-        return (0, 0)
+        return NO_LAUNCH
     rescan = kind in ("retract", "query update", "query insert")
-    return (0, chunks) if rescan else (1, 0)
+    return (0, chunks, chunks) if rescan else (1, 0, 0)
 
 
 def _knn_graph(cfg: Dict[str, int], sink: bool = False):
@@ -3189,7 +3355,8 @@ def durable_knn(card: str, fs: str, tmp: str,
     if (rep.replayed_ticks != len(tail) or replay_launches != want_replay
             or pending != 1
             or first_launches != _want_launches(feed[-1][3], chunks)
-            or killed_launches != (0, 0) or resend_launches != (0, 0)):
+            or killed_launches != NO_LAUNCH
+            or resend_launches != NO_LAUNCH):
         raise AssertionError(
             f"recovery: {rep.as_dict()}, replay launches {replay_launches} "
             f"(expected {want_replay}), pending {pending}, first tick "
@@ -3248,7 +3415,8 @@ def durable_knn(card: str, fs: str, tmp: str,
         f"{first_s * 1e3:.3f} ms, time to it {(recover_s + first_s) * 1e3:.1f}"
         f" ms [{card}] [{fs}]")
     log(f"[durable] resend of all {len(feed)} batches from the upstream's "
-        f"cursor: {dict(statuses)}; (topk, topk_merge) launches: live "
+        f"cursor: {dict(statuses)}; (topk, topk_merge, scan_score) launches:"
+        f" live "
         f"{[r['launches'] for r in rows]}, replay {replay_launches}, first "
         f"tick {first_launches}, killed window {killed_launches}")
     log(f"[durable] recovered table == uncrashed twin exactly ({live_ids} "
@@ -3438,7 +3606,7 @@ def phase_durable(card: str) -> Dict[str, object]:
     try:
         fs = fs_line(tmp)
         log(f"[durable] WAL and checkpoints under a temp dir: {fs}")
-        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+        zero_launches()
         out = durable_knn(card, fs, tmp)
         # every launch since the zeroing is the durable path's or its
         # twin's (the comparison, left out of the path's count)
@@ -3548,8 +3716,10 @@ def _replica_feed(cfg: Dict[str, int], seed: int) -> tuple:
 
 
 def _on_thread(ident: int) -> tuple:
-    """(topk, topk_merge) launches made so far on one host thread."""
-    return tuple(topk_mod.LAUNCHES_BY_THREAD.get(ident, (0, 0)))
+    """(topk, topk_merge, scan_score) launches made so far on one host
+    thread."""
+    return (*topk_mod.LAUNCHES_BY_THREAD.get(ident, (0, 0)),
+            topk_mod.SCAN_SCORE_BY_THREAD.get(ident, 0))
 
 
 def _since_on(ident: int, l0: tuple) -> tuple:
@@ -3564,7 +3734,7 @@ class _Counted:
     here, apart from the leader's on its pump thread; a receive that
     published a new horizon is timed to its synchronize."""
 
-    def __init__(self, inner, replay=(0, 0)):
+    def __init__(self, inner, replay=NO_LAUNCH):
         self.inner = inner
         self.name = inner.name
         self.replay = list(replay)
@@ -3574,7 +3744,7 @@ class _Counted:
         self.shipped = 0
         self.promote_s = None
         self.promote_t0 = None
-        self.promote_launches = (0, 0)
+        self.promote_launches = NO_LAUNCH
         self.error = None
 
     def __getattr__(self, name):
@@ -3594,7 +3764,7 @@ class _Counted:
             _sync()
             self.apply_s.append((time.perf_counter() - t0, h1 - h0))
         d = _since_on(me, l0)
-        self.replay = [self.replay[0] + d[0], self.replay[1] + d[1]]
+        self.replay = _plus(self.replay, d)
         self.rx.append((t0, time.perf_counter(), len(sh.payload)))
         if isinstance(resp, ShipAck):
             self.shipped += len(sh.payload)
@@ -3681,11 +3851,11 @@ def replicate_knn(card: str, fs: str, tmp: str,
     if r0.bootstraps:
         raise AssertionError("r0 bootstrapped: no checkpoint existed yet")
     followers = [r0]
-    counts = {"leader": [0, 0], "twin": [0, 0], "restart": (0, 0),
-              "recover": (0, 0), "new_leader": [0, 0]}
+    counts = {key: list(NO_LAUNCH) for key in
+              ("leader", "twin", "restart", "recover", "new_leader")}
 
     def add(key, d):
-        counts[key] = [counts[key][0] + d[0], counts[key][1] + d[1]]
+        counts[key] = _plus(counts[key], d)
 
     def replayed() -> tuple:
         return tuple(map(sum, zip(*[p.replay for p in live])))
@@ -3773,7 +3943,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
         ship.attach(r1)
         _sync()
         boot_s = time.perf_counter() - t0
-        if _since(l0) != (0, 0) or r1.bootstraps != 1 \
+        if _since(l0) != NO_LAUNCH or r1.bootstraps != 1 \
                 or r1.published_horizon() != leader._tick:
             raise AssertionError(f"r1's bootstrap: {r1.bootstraps} "
                                  f"bootstraps, horizon "
@@ -3824,7 +3994,7 @@ def replicate_knn(card: str, fs: str, tmp: str,
             ship.attach(r0)
             followers.append(r0)
             live.append(r0)
-            if old_replay != (counts["leader"][0], counts["leader"][1]):
+            if old_replay != tuple(counts["leader"]):
                 raise AssertionError(f"r0 replayed {old_replay}, the leader "
                                      f"launched {counts['leader']}")
         tail_segments = [seq for seq, _p in list_segments(wal_dir)
@@ -4003,13 +4173,12 @@ def replicate_knn(card: str, fs: str, tmp: str,
         fe_t.close()
         leader.close()
 
-    replica = [counts["restart"][0] + counts["recover"][0]
-               + win.promote_launches[0] + counts["new_leader"][0],
-               counts["restart"][1] + counts["recover"][1]
-               + win.promote_launches[1] + counts["new_leader"][1]]
+    replica = [sum(x) for x in zip(
+        counts["restart"], counts["recover"], win.promote_launches,
+        counts["new_leader"])]
     for p in (r1, r0):
-        replica = [replica[0] + p.replay[0], replica[1] + p.replay[1]]
-    replica = [replica[0] + old_replay[0], replica[1] + old_replay[1]]
+        replica = _plus(replica, p.replay)
+    replica = _plus(replica, old_replay)
     if _on_card() and not (replica[0] and replica[1]):
         raise AssertionError(f"the replicas launched {replica}: both "
                              f"top-k entries must run on the replica path")
@@ -4086,7 +4255,8 @@ def replicate_knn(card: str, fs: str, tmp: str,
         f"{to_first_write * 1e3:.1f} ms; the old leader's append fenced, "
         f"a zombie shipment NACKed, no mirror byte changed; the survivor "
         f"and the new leader == the twin [{card}] [{fs}]")
-    log(f"[replica] (topk, topk_merge) launches: leader {counts['leader']}"
+    log(f"[replica] (topk, topk_merge, scan_score) launches: leader "
+        f"{counts['leader']}"
         f", r0 replay {list(old_replay)} (== the leader's), r1 replay "
         f"{r1.replay}, r0 after its restart {r0.replay}, r0's restart "
         f"{list(counts['restart'])}, recovery from the compacted log "
@@ -4105,8 +4275,7 @@ def phase_replication(card: str) -> Dict[str, object]:
     try:
         fs = fs_line(tmp)
         log(f"[replica] WAL, mirrors and checkpoints under a temp dir: {fs}")
-        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
-        topk_mod.LAUNCHES_BY_THREAD.clear()
+        zero_launches(by_thread=True)
         out = replicate_knn(card, fs, tmp)
         got = list(_launches())
         want = [a + b + c for a, b, c in zip(out["leader"], out["replica"],
@@ -4152,17 +4321,19 @@ TIER_WAIT_S = 120.0
 
 
 def tier_want(cfg: Dict[str, int]) -> tuple:
-    """(topk, topk_merge) launches predicted for each k-NN path of the
-    tier (the pool threads, the TCP follower's replay, the twin): the
-    queries and the retraction and the query update rescan (one merge a
-    corpus chunk: 128 each at full width), the preload ticks (15) and
+    """(topk, topk_merge, scan_score) launches predicted for each k-NN
+    path of the tier (the pool threads, the TCP follower's replay, the
+    twin): the queries and the retraction and the query update rescan
+    (one score and one merge a corpus chunk: 128 each at full width),
+    the preload ticks (15) and
     the insert ticks (3 in process, 5 over RPC) run one top-k each; the
     resubmitted insert is deduped and runs no tick. Off the card no
     launch is counted."""
     if not _on_card():
-        return (0, 0)
+        return NO_LAUNCH
+    scans = 3 * (cfg["D"] // cfg["scan_chunk"])
     return (cfg["preload_chunks"] + TIER_LOCAL_INSERTS + cfg["insert_ticks"],
-            3 * (cfg["D"] // cfg["scan_chunk"]))
+            scans, scans)
 
 
 class _Meter:
@@ -4231,7 +4402,7 @@ def _count_path(ex, path: str, tally: Dict[str, List[int]],
     whichever host thread makes them: each call's launches on its own
     thread (the kernels' per-thread tallies) are counted at the call, so
     pool threads that come and go are mapped as they come."""
-    tally[path] = [0, 0]
+    tally[path] = list(NO_LAUNCH)
     for meth in ("run_pass", "dispatch_window", "run_tick_fixpoint"):
         def counted(*a, _real=getattr(ex, meth), **kw):
             me = threading.get_ident()
@@ -4241,8 +4412,7 @@ def _count_path(ex, path: str, tally: Dict[str, List[int]],
             finally:
                 d = _since_on(me, l0)
                 with lock:
-                    tally[path][0] += d[0]
-                    tally[path][1] += d[1]
+                    tally[path] = _plus(tally[path], d)
         setattr(ex, meth, counted)
 
 
@@ -4458,8 +4628,7 @@ def tier_knn(card: str, fs: str, tmp: str, cfg: Dict[str, int] = FULL,
         gc.collect()
         gc.freeze()
         # zero the tallies just before the path
-        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
-        topk_mod.LAUNCHES_BY_THREAD.clear()
+        zero_launches(by_thread=True)
         t_knn = time.perf_counter()
         for item in head + local:
             local_submit(item)
@@ -4469,7 +4638,7 @@ def tier_knn(card: str, fs: str, tmp: str, cfg: Dict[str, int] = FULL,
         for item in (ret, qup):
             rpc_submit(item)
         knn_s = time.perf_counter() - t_knn
-        launches = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        launches = _launches()
         pr_thread.join(timeout=TIER_WAIT_S)
         if errors:
             raise AssertionError("pagerank producer failed") from errors[0]
@@ -4783,7 +4952,8 @@ def tier_knn(card: str, fs: str, tmp: str, cfg: Dict[str, int] = FULL,
         f"{breaker}; then: {timeline(actions[len(surge_actions):])}; "
         f"control counters {control}; both word-count tenants == the CPU "
         f"oracle [{card}]")
-    log(f"[tier] (topk, topk_merge) launches by path: {paths} (predicted "
+    log(f"[tier] (topk, topk_merge, scan_score) launches by path: "
+        f"{paths} (predicted "
         f"{want} each); k-NN leg {knn_s:.1f} s; phase {phase_s:.1f} s "
         f"[{card}]")
     return {"tier": paths["tier"], "tier_replica": paths["tier_replica"],
@@ -4804,11 +4974,13 @@ def phase_tier(card: str) -> Dict[str, object]:
 
 # -- phase 16: fleet telemetry, subscriptions, the multi-process harness ---
 
-#: (topk, topk_merge) launches predicted for each of phase 16's k-NN paths
-#: (the leader's pump, the follower's replay): the queries, the retraction
-#: and the query update rescan (one merge a corpus chunk), the 15 preload
-#: ticks and the 5 insert ticks run one top-k each
-SUBS_WANT = (15 + 5, 3 * (FULL["D"] // FULL["scan_chunk"]))
+#: (topk, topk_merge, scan_score) launches predicted for each of phase
+#: 16's k-NN paths (the leader's pump, the follower's replay): the
+#: queries, the retraction and the query update rescan (one score and one
+#: merge a corpus chunk), the 15 preload ticks and the 5 insert ticks run
+#: one top-k each
+SUBS_WANT = (15 + 5, 3 * (FULL["D"] // FULL["scan_chunk"]),
+             3 * (FULL["D"] // FULL["scan_chunk"]))
 #: the insert ticks during which the view subscriber's link is partitioned
 #: (it heals after the second one's ack)
 SUBS_PARTITION = (1, 2)
@@ -4978,7 +5150,7 @@ def fleet_subs(card: str, fs: str, tmp: str,
 
     def rpc_step(item, skip=()):
         bid, src, batch, kind = item
-        l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        l0 = _launches()
         t0 = time.perf_counter()
         ticket = prod.submit("queries" if src == "q" else "docs", batch,
                              batch_id=bid)
@@ -5004,8 +5176,7 @@ def fleet_subs(card: str, fs: str, tmp: str,
         # the heap the phases before left stays out of full collections
         gc.collect()
         gc.freeze()
-        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
-        topk_mod.LAUNCHES_BY_THREAD.clear()
+        zero_launches(by_thread=True)
         t_leg = time.perf_counter()
         for item in head:
             tick, _t, view = rpc_step(item)
@@ -5042,7 +5213,7 @@ def fleet_subs(card: str, fs: str, tmp: str,
                 check_subs(tick, t_ack, view)
         leg_s = time.perf_counter() - t_leg
         obs.disable()
-        launches = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        launches = _launches()
         # the kernel's answer itself: the follower (equal to the leader and
         # the subscribers' source) against plain top-k over its own tables
         with replica._lock:
@@ -5155,7 +5326,8 @@ def fleet_subs(card: str, fs: str, tmp: str,
         f"{sorted(fleet['nodes'])}, stale {fleet['gauges']['nodes_stale']},"
         f" lag spread {fleet['gauges']['lag_spread']}, subs active "
         f"{fleet['gauges']['subs_active']} [{card}]")
-    log(f"[fleet] (topk, topk_merge) launches by path: {paths} (predicted "
+    log(f"[fleet] (topk, topk_merge, scan_score) launches by path: "
+        f"{paths} (predicted "
         f"{SUBS_WANT} each); leg A {leg_s:.1f} s, with set-up "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return dict(paths)
@@ -5390,7 +5562,7 @@ def lockcheck_leg(card: str) -> Dict[str, object]:
         for leg in ("durable", "replica", "tier"):
             dirs[leg] = os.path.join(tmp, leg)
             os.mkdir(dirs[leg])
-        topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+        zero_launches()
         dur = durable_knn(card, fs, dirs["durable"], cfg)
         rep = replicate_knn(card, fs, dirs["replica"], cfg)
         tier = tier_knn(card, fs, dirs["tier"], cfg, pr_cfg)
@@ -5403,7 +5575,7 @@ def lockcheck_leg(card: str) -> Dict[str, object]:
             "lock_order_errors": raised,
             "cycles_checked": LOCK_MONITOR.cycles_checked,
             "seconds": time.perf_counter() - t0,
-            "launches": [sum(x[0] for x in own), sum(x[1] for x in own)]}
+            "launches": [sum(x) for x in zip(*own)]}
 
 
 def lockcheck_child(argv: List[str]) -> int:
@@ -5489,7 +5661,8 @@ def phase_lockcheck(card: str) -> Dict[str, object]:
         + "; ".join(f"{a} -> {b}" for a, b in unseen))
     log(f"[lockcheck] no LockOrderError; cycles_checked "
         f"{res['cycles_checked']}; the leg {res['seconds']:.1f} s in the "
-        f"child, {secs:.1f} s with its start; (topk, topk_merge) launches "
+        f"child, {secs:.1f} s with its start; (topk, topk_merge, "
+        f"scan_score) launches "
         f"{res['launches']} [{card}]")
     res["unseen"] = unseen
     return res
@@ -5520,14 +5693,14 @@ def _mesh():
 
 
 def _mesh_want(kind: str, chunks: int, n: int) -> tuple:
-    """(topk, topk_merge) launches of one sharded k-NN tick: a rescan
-    scans every shard's corpus slice (``chunks / n`` merges each) and
-    ring-merges (``n - 1`` top-k each); an incremental tick runs one
-    top-k a shard."""
+    """(topk, topk_merge, scan_score) launches of one sharded k-NN tick:
+    a rescan scans every shard's corpus slice (``chunks / n`` scores and
+    merges each) and ring-merges (``n - 1`` top-k each); an incremental
+    tick runs one top-k a shard."""
     if not _on_card():
-        return (0, 0)
+        return NO_LAUNCH
     rescan = kind in ("retract", "query update", "query insert")
-    return (n * (n - 1), chunks) if rescan else (n, 0)
+    return (n * (n - 1), chunks, chunks) if rescan else (n, 0, 0)
 
 
 def _tally_lines(tally: Dict, card: str) -> List[str]:
@@ -5553,10 +5726,10 @@ def mesh_knn(card: str, cfg: Dict[str, int] = MESH_KNN,
     fe_s, fe_t = _knn_frontend(sched_s, cfg), _knn_frontend(sched_t, cfg)
     feed = _knn_feed(cfg, seed)
     ticks: List[Dict[str, object]] = []
-    launches = [0, 0]
+    launches = list(NO_LAUNCH)
     spmd.reset_collective_tally()
     # the main path's counts: zeroed here, read after the last mesh tick
-    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+    zero_launches()
     try:
         for bid, src, batch, kind in feed:
             rec: Dict[str, object] = {"kind": kind}
@@ -5575,11 +5748,11 @@ def mesh_knn(card: str, cfg: Dict[str, int] = MESH_KNN,
                 rec[tag + "_launches"] = _since(l0)
                 rec[tag + "_syncs"] = fe.sched.forced_syncs - s0
             got = rec["mesh_launches"]
-            launches[0] += got[0]
-            launches[1] += got[1]
+            launches = _plus(launches, got)
             if got != _mesh_want(kind, chunks, n):
                 raise AssertionError(
-                    f"mesh {kind} tick launched (topk, topk_merge) {got}, "
+                    f"mesh {kind} tick launched (topk, topk_merge, "
+                    f"scan_score) {got}, "
                     f"expected {_mesh_want(kind, chunks, n)}")
             if rec["twin_launches"] != _want_launches(kind, chunks):
                 raise AssertionError(f"twin {kind} tick launched "
@@ -5643,7 +5816,8 @@ def mesh_knn(card: str, cfg: Dict[str, int] = MESH_KNN,
         log(f"[mesh] knn {kind} tick ({len(ms)}): mesh[{n}] median "
             f"{mesh_med:.3f} ms, single-device twin {twin_med:.3f} ms "
             f"({mesh_med / twin_med:.2f}x) [{card}]")
-    log(f"[mesh] knn (topk, topk_merge) launches a tick, mesh: "
+    log(f"[mesh] knn (topk, topk_merge, scan_score) launches a tick, "
+        f"mesh: "
         f"{[r['mesh_launches'] for r in ticks]}; twin: "
         f"{[r['twin_launches'] for r in ticks]}; mesh totals {launches}")
     log(f"[mesh] knn forced syncs a tick, mesh {[r['mesh_syncs'] for r in ticks]}"
@@ -5835,7 +6009,7 @@ def phase_mesh(card: str) -> Dict[str, object]:
     pr = _mesh_pagerank(card, MESH_PR)
     prd = _mesh_pagerank(card, MESH_PR, defer=2)
     misc = mesh_misc(card)
-    if _since(l0) != (0, 0):
+    if _since(l0) != NO_LAUNCH:
         raise AssertionError("mesh legs B and C launched a top-k kernel")
     return {"launches": knn_out["launches"], "knn": knn_out, "pagerank": pr,
             "deferred": prd, "misc": misc}
@@ -6139,7 +6313,8 @@ def _mh_lines(tag: str, sums: list, card: str) -> None:
             f"boundary {s['staged_bytes'] / 1e6:.3f} MB, exchanges by kind "
             + ", ".join(f"{k} {v[0]} ({v[1] / 1e6:.3f} MB)"
                         for k, v in sorted(s["boundary"].items()))
-            + f"; (topk, topk_merge) launches {tuple(s['launches'])} "
+            + f"; (topk, topk_merge, scan_score) launches "
+            f"{tuple(s['launches'])} "
             f"[{card}]")
 
 
@@ -6279,9 +6454,10 @@ def phase_multihost(card: str, group: Dict[str, object] = MH_GROUP
                 raise AssertionError(f"B2 child {i}: tables differ from the "
                                      f"twin's at {diff[:6]}")
         for s in ksums:
-            if _on_card() and not (s["launches"][0] and s["launches"][1]):
+            if _on_card() and not all(s["launches"]):
                 raise AssertionError(f"B2 child {s['pid']} launched (topk, "
-                                     f"topk_merge) {s['launches']}")
+                                     f"topk_merge, scan_score) "
+                                     f"{s['launches']}")
         log(f"[multihost] B2 config 4's k-NN (Q {kcfg['Q']}, {kcfg['dim']} "
             f"int8, k {kcfg['k']}, chunk {kcfg['scan_chunk']}, preload 2 x "
             f"{kcfg['preload_chunk']}) on (dcn {nproc}, delta {kdelta}) over "
@@ -6372,9 +6548,9 @@ def multihost_windows(card: str, tmp: str, group: Dict[str, object],
                                  f"{kn['window_dispatches']}, pipelined "
                                  f"{kn['windows_pipelined']}; the twin's "
                                  f"{ktsum['windows']}")
-        if _on_card() and not (kn["launches"][0] and kn["launches"][1]):
+        if _on_card() and not all(kn["launches"]):
             raise AssertionError(f"B-w child {s['pid']} launched (topk, "
-                                 f"topk_merge) {kn['launches']}")
+                                 f"topk_merge, scan_score) {kn['launches']}")
     for i, t in enumerate(tables):
         got = {key: a for key, a in t.items() if key.startswith("f")}
         diff = [key for key in ktwin
@@ -6421,7 +6597,8 @@ def multihost_windows(card: str, tmp: str, group: Dict[str, object],
         f"(B2 one tick at a time: " + ", ".join(f"{x:.1f}"
                                                for x in knn_tick_ms)
         + f" ms); every round's table equal to the single-device twin's "
-        f"through the same frontend bit for bit; (topk, topk_merge) "
+        f"through the same frontend bit for bit; (topk, topk_merge, "
+        f"scan_score) "
         f"launches a child " + ", ".join(str(tuple(s["knn"]["launches"]))
                                          for s in sums)
         + f" (B2 per tick: " + ", ".join(str(tuple(s["launches"]))
@@ -6429,8 +6606,8 @@ def multihost_windows(card: str, tmp: str, group: Dict[str, object],
     _mh_lines("B-w", sums, card)
     return {"pagerank": [s["pagerank"] for s in sums],
             "knn": [s["knn"] for s in sums], "worst": worst,
-            "launches": [sum(s["knn"]["launches"][i] for s in sums)
-                         for i in range(2)]}
+            "launches": [sum(x) for x in
+                         zip(*(s["knn"]["launches"] for s in sums))]}
 
 
 # -- phase 20: the executor picked from the environment -----------------------
@@ -6464,9 +6641,9 @@ def _config_knn_ticks(cfg: Dict[str, int], seed: int) -> List[tuple]:
 
 def _config_knn_run(tag: str, sched, kg, ticks: List[tuple],
                     want: Callable[[str], tuple]) -> Dict[str, object]:
-    """The ticks through ``sched``, each timed and its (topk, topk_merge)
-    launches counted and checked against ``want(kind)``; the table after
-    every tick."""
+    """The ticks through ``sched``, each timed and its (topk, topk_merge,
+    scan_score) launches counted and checked against ``want(kind)``; the
+    table after every tick."""
     ms, launches, tables = [], [], []
     for kind, pushes in ticks:
         l0 = _launches()
@@ -6479,7 +6656,8 @@ def _config_knn_run(tag: str, sched, kg, ticks: List[tuple],
         got = _since(l0)
         if got != want(kind):
             raise AssertionError(f"{tag} {kind} tick launched (topk, "
-                                 f"topk_merge) {got}, expected {want(kind)}")
+                                 f"topk_merge, scan_score) {got}, expected "
+                                 f"{want(kind)}")
         launches.append(got)
         tables.append(sched.read_table(kg.index))
     return {"ms": ms, "launches": launches, "tables": tables}
@@ -6494,7 +6672,7 @@ def _config_tables(tag: str, got: List[Dict], want: List[Dict]) -> None:
 
 
 def _total(launches: List[tuple]) -> tuple:
-    return (sum(x[0] for x in launches), sum(x[1] for x in launches))
+    return tuple(map(sum, zip(NO_LAUNCH, *launches)))
 
 
 def phase_config(card: str, knn_cfg: Dict[str, int] = CONFIG_KNN,
@@ -6520,7 +6698,7 @@ def phase_config(card: str, knn_cfg: Dict[str, int] = CONFIG_KNN,
         log(f"[config] leg {leg}: {CONFIG_ENVS[leg]} -> {configs[leg]}")
     # the main path's counts: zeroed here, read after leg c; the twin's
     # launches are counted apart, tick by tick
-    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+    zero_launches()
 
     # leg a: the cuda executor beside a twin built by hand
     kg, kg_t = _knn_graph(knn_cfg), _knn_graph(knn_cfg)
@@ -6542,7 +6720,8 @@ def phase_config(card: str, knn_cfg: Dict[str, int] = CONFIG_KNN,
                              f"twin {_total(twin['launches'])}")
     log(f"[config] leg a (cuda): ms a tick {[round(x, 3) for x in a['ms']]}"
         f" (query insert + preload, insert, retract), twin "
-        f"{[round(x, 3) for x in twin['ms']]}; (topk, topk_merge) "
+        f"{[round(x, 3) for x in twin['ms']]}; (topk, topk_merge, "
+        f"scan_score) "
         f"{a['launches']}, twin {twin['launches']}; tables bit for bit "
         f"[{card}]")
 
@@ -6577,7 +6756,7 @@ def phase_config(card: str, knn_cfg: Dict[str, int] = CONFIG_KNN,
     if not isinstance(ex._fx_program, FixpointProgram) or fused:
         raise AssertionError(f"leg b ran {prog}, fused-loop CSR rebuilds "
                              f"{fused}")
-    if _since(l0) != (0, 0):
+    if _since(l0) != NO_LAUNCH:
         raise AssertionError(f"leg b launched a top-k kernel: {_since(l0)}")
     err = rank_error(sched, pg, web, n)
     if err["rel_err"] > PAGERANK_MAX_REL_ERR:
@@ -6607,7 +6786,8 @@ def phase_config(card: str, knn_cfg: Dict[str, int] = CONFIG_KNN,
     log(f"[config] leg c (sharded, {MESH_SHARDS} shards on {on}): ms a "
         f"tick {[round(x, 3) for x in c['ms']]} (query insert + preload, "
         f"insert), twin {[round(x, 3) for x in twin['ms'][:2]]}; "
-        f"(topk, topk_merge) {c['launches']}; tables bit for bit [{card}]")
+        f"(topk, topk_merge, scan_score) {c['launches']}; tables bit for "
+        f"bit [{card}]")
 
     # leg d: the JAX package's executor name
     try:
@@ -6618,7 +6798,7 @@ def phase_config(card: str, knn_cfg: Dict[str, int] = CONFIG_KNN,
         raise AssertionError("leg d: REFLOW_EXECUTOR=tpu was not refused")
     launches = _total(a["launches"] + c["launches"])
     twin_l = _total(twin["launches"])
-    if (launches[0] + twin_l[0], launches[1] + twin_l[1]) != _launches():
+    if tuple(_plus(launches, twin_l)) != _launches():
         raise AssertionError(f"phase 20's launches {launches} and the "
                              f"twin's {twin_l} do not sum to the counts "
                              f"{_launches()}")
@@ -6666,14 +6846,15 @@ def main() -> int:
     recs = timed(phase_kernels, "cuda")
     serve = timed(phase_serve, card)
     # the other paths run no hand-written kernel: their counts stay 0
-    topk_mod.TOPK_LAUNCHES = topk_mod.TOPK_MERGE_LAUNCHES = 0
+    zero_launches()
     for phase in (phase_pagerank, phase_fused, phase_row_leg,
                   phase_defer_leg, phase_wordcount, phase_tfidf, phase_sssp,
                   phase_multiset, phase_image_embed, phase_window_parity):
         timed(phase, card)
-    if topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES:
+    if (topk_mod.TOPK_LAUNCHES or topk_mod.TOPK_MERGE_LAUNCHES
+            or topk_mod.SCAN_SCORE_LAUNCHES):
         raise AssertionError("a phase after the serving slice launched a "
-                             "top-k kernel")
+                             "hand-written kernel")
     # phases 13-16 zero the counts themselves, just before their paths
     durable = timed(phase_durable, card)
     replica = timed(phase_replication, card)
@@ -6691,8 +6872,8 @@ def main() -> int:
         f"{name[len('phase_'):]} {s:.1f}" for name, s in spent.items())
         + f"; all phases {time.perf_counter() - t_start:.1f} s [{card}]")
     for i, rec in enumerate(recs):
-        by_path = {"serve": serve["total_launches" if rec["name"] == "topk"
-                                  else "total_merge_launches"],
+        by_path = {"serve": serve[("total_launches", "total_merge_launches",
+                                   "total_scan_launches")[i]],
                    "durable": durable["launches"][i],
                    "replica_leader": replica["leader"][i],
                    "replica": replica["replica"][i],
@@ -6708,6 +6889,11 @@ def main() -> int:
                    "config": config["launches"][i]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+    # every k-NN corpus is int8: each path scores every chunk it merges
+    if recs[2]["launches_by_path"] != recs[1]["launches_by_path"]:
+        raise AssertionError(
+            f"scan_score launches by path {recs[2]['launches_by_path']} "
+            f"!= topk_merge's {recs[1]['launches_by_path']}")
     print(json.dumps({"kernels": recs}), flush=True)
     print(f"card: {dev['card']}", flush=True)
     print(json.dumps({"ok": True, "device": {

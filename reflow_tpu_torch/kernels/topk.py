@@ -17,8 +17,13 @@ chunk of scores masked by a live mask. :func:`topk_merge_plain` builds
 the concatenation it stands for.
 
 ``chunked_corpus_topk`` is the streaming form for corpora whose scores
-matrix would not fit memory: one ``torch.matmul`` per corpus chunk,
-folded into the running top-k carry by one :func:`topk_merge` each.
+matrix would not fit memory: each corpus chunk is scored, then folded
+into the running top-k carry by one :func:`topk_merge`. On the card a
+chunk of an int8 or bf16 table is scored by :func:`scan_scores`, which
+launches ``csrc/scan_score.cu`` (bf16 tensor cores, float32 sums, the
+int8 values dequantized inside the kernel); its plain version
+:func:`scan_scores_plain` is the float32 product of the upcast operands,
+which CPU tensors and float32 tables take.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ import torch
 from reflow_tpu_torch.utils.runtime import named_lock
 
 __all__ = ["topk", "topk_plain", "topk_merge", "topk_merge_plain",
-           "chunked_corpus_topk", "score_form", "scores", "NEG",
-           "INT8_EMBED_SCALE", "TOPK_LAUNCHES", "TOPK_MERGE_LAUNCHES",
-           "LAUNCHES_BY_THREAD"]
+           "chunked_corpus_topk", "scan_scores", "scan_scores_plain",
+           "score_form", "scores", "NEG", "INT8_EMBED_SCALE",
+           "TOPK_LAUNCHES", "TOPK_MERGE_LAUNCHES", "SCAN_SCORE_LAUNCHES",
+           "LAUNCHES_BY_THREAD", "SCAN_SCORE_BY_THREAD"]
 
 #: sentinel for "no candidate" — finite so arithmetic/compares stay clean
 NEG = float(np.finfo(np.float32).min)
@@ -51,6 +57,12 @@ TOPK_MERGE_LAUNCHES = 0
 #: the shipper's thread is told apart from its leader's pump); cleared
 #: with the two counts above
 LAUNCHES_BY_THREAD: Dict[int, List[int]] = {}
+#: kernel launches made by :func:`scan_scores` (CUDA tensors only; a
+#: rescan of an int8 or bf16 table makes one a chunk), reset with the two
+#: counts above, and the same by host thread (kept apart from
+#: ``LAUNCHES_BY_THREAD``, whose entries stay two)
+SCAN_SCORE_LAUNCHES = 0
+SCAN_SCORE_BY_THREAD: Dict[int, int] = {}
 
 
 _TALLY_LOCK = named_lock("kernels.topk.tally")
@@ -70,12 +82,24 @@ def _tally(entry: int) -> None:
         LAUNCHES_BY_THREAD.setdefault(threading.get_ident(),
                                       [0, 0])[entry] += 1
 
+
+def _tally_scan() -> None:
+    """Count one launch of the scoring kernel, as :func:`_tally` does."""
+    global SCAN_SCORE_LAUNCHES
+    with _TALLY_LOCK:
+        SCAN_SCORE_LAUNCHES += 1
+        ident = threading.get_ident()
+        SCAN_SCORE_BY_THREAD[ident] = SCAN_SCORE_BY_THREAD.get(ident, 0) + 1
+
 #: the kernels index rows and columns with int32 (a cluster of up to 8
 #: blocks per row, each a tile past its segment's end): shapes stay
 #: below this
 _INT32_ROOM = (1 << 31) - (1 << 16)
 
 _fns = {}
+#: each C entry's source (``csrc/<name>.cu``)
+_SOURCE = {"reflow_topk_f32": "topk", "reflow_topk_merge_f32": "topk",
+           "reflow_scan_score_bf16": "scan_score"}
 
 
 def _kernel(name: str):
@@ -83,11 +107,12 @@ def _kernel(name: str):
     if fn is None:
         from reflow_tpu_torch.kernels._build import load
 
-        fn = getattr(load("topk"), name)
+        fn = getattr(load(_SOURCE[name]), name)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
             "reflow_topk_f32": [p, p, p, i, i, i, i, p],
             "reflow_topk_merge_f32": [p, p, p, p, i, p, p, i, i, i, i, p],
+            "reflow_scan_score_bf16": [p, p, i, p, i, i, i, i, p],
         }[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -266,11 +291,96 @@ def scores(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     product runs in full float32 — TF32 must stay off
     (``torch.backends.cuda.matmul.allow_tf32 = False``, the default),
     else the float32 operands would be rounded to TF32. The cost: the
-    upcast chunk is materialized at 4 bytes/element and the product runs
-    on float32 units, not bf16 tensor cores. The two precisions of the
-    graph (``"highest"``/``"default"``) therefore compute the same
-    thing here; they differ only in the stored dtype that feeds it."""
+    upcast operands are materialized at 4 bytes/element and the product
+    runs on float32 units, not bf16 tensor cores; the corpus scan on the
+    card therefore scores bf16 forms with :func:`scan_scores`, and this
+    product stays for the incremental merge's few delta docs, for float32
+    tables and for CPU tensors. The two precisions of the graph
+    (``"highest"``/``"default"``) compute the same thing here; they
+    differ only in the stored dtype that feeds it."""
     return torch.matmul(score_form(q).float(), score_form(d).float().T)
+
+
+def scan_scores_plain(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`scan_scores`: :func:`scores`, the
+    float32 product of the upcast operands."""
+    return scores(q, d)
+
+
+def _scan_kernel_takes(q: torch.Tensor, d: torch.Tensor) -> bool:
+    """Whether the scoring kernel computes ``scores(q, d)``: bf16
+    queries (a compute form) and an int8 or bf16 doc table."""
+    return (q.dtype == torch.bfloat16
+            and d.dtype in (torch.int8, torch.bfloat16))
+
+
+def _check_scan(q: torch.Tensor, d: torch.Tensor, out: torch.Tensor
+                ) -> None:
+    """Raise unless the scoring kernel takes ``q``, ``d`` and ``out`` (CUDA
+    tensors): shapes, dtypes, one device, contiguity, alignment."""
+    if q.dim() != 2 or d.dim() != 2 or q.shape[1] != d.shape[1]:
+        raise ValueError(f"scan_scores takes q [Q, dim] and d [n, dim], "
+                         f"got {tuple(q.shape)} and {tuple(d.shape)}")
+    if not _scan_kernel_takes(q, d) or out.dtype != torch.float32:
+        raise TypeError(f"the scoring kernel takes bf16 queries, int8 or "
+                        f"bf16 docs and a float32 out, got {q.dtype}, "
+                        f"{d.dtype}, {out.dtype}")
+    nq, dim = q.shape
+    nd = d.shape[0]
+    if tuple(out.shape) != (nq, nd):
+        raise ValueError(f"scan_scores' out must be [{nq}, {nd}], got "
+                         f"{tuple(out.shape)}")
+    if any(t.device != q.device for t in (d, out)):
+        raise ValueError("scan_scores' tensors must share one device")
+    if not all(t.is_contiguous() for t in (q, d, out)):
+        raise ValueError("scan_scores needs contiguous tensors on cuda")
+    per_chunk = 16 if d.dtype == torch.int8 else 8
+    if (dim < 1 or dim % per_chunk or q.data_ptr() % 16
+            or d.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError(f"the scoring kernel needs dim a positive "
+                         f"multiple of {per_chunk} ({d.dtype} docs) and "
+                         f"16-byte aligned tables, got dim {dim}")
+    if nq < 1 or nd < 1 or nd > 128 * 65535:
+        # a block scores 128 docs; the grid's second extent is below 2^16
+        raise ValueError(f"scan_scores shape {nq}x{nd} out of the "
+                         f"kernel's range")
+
+
+def _launch_scan(q: torch.Tensor, d: torch.Tensor, lo: int, n: int,
+                 out: torch.Tensor, stream: int) -> torch.Tensor:
+    """Launch the scoring kernel for doc rows ``[lo, lo + n)`` of ``d``
+    on checked CUDA tensors, writing ``out [Q, n]``."""
+    dim = q.shape[1]
+    err = _kernel("reflow_scan_score_bf16")(
+        q.data_ptr(), d.data_ptr() + lo * dim * d.element_size(),
+        int(d.dtype == torch.int8), out.data_ptr(), q.shape[0], n, dim,
+        q.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"scoring kernel launch failed: cudaError {err} "
+                           f"(queries {tuple(q.shape)}, docs {lo}:{lo + n})")
+    _tally_scan()
+    return out
+
+
+def scan_scores(q: torch.Tensor, d: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[Q, n]`` float32 scores of bf16 queries ``q [Q, dim]`` against
+    docs ``d [n, dim]``: int8 rows dequantized as :func:`score_form` does,
+    or bf16 rows, multiplied in bf16 into float32 sums. A CPU tensor runs
+    :func:`scan_scores_plain`; a CUDA tensor launches the kernel on the
+    current stream (into ``out`` when given), or raises. The kernel sums
+    in another order than the plain version: a few float32 ulps apart."""
+    if q.device.type == "cpu" and d.device.type == "cpu":
+        s = scan_scores_plain(q, d)
+        return s if out is None else out.copy_(s)
+    if out is None:
+        out = torch.empty((q.shape[0], d.shape[0]), dtype=torch.float32,
+                          device=q.device)
+    _check_scan(q, d, out)
+    if q.device.type != "cuda":
+        raise ValueError(f"scan_scores runs on cpu or cuda, not {q.device}")
+    return _launch_scan(q, d, 0, d.shape[0], out,
+                        torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def chunked_corpus_topk(qvec: torch.Tensor, dvec: torch.Tensor,
@@ -281,6 +391,12 @@ def chunked_corpus_topk(qvec: torch.Tensor, dvec: torch.Tensor,
     chunk into a running top-k carry (one :func:`topk_merge` per chunk,
     which reads the carry, the chunk's scores and its slice of ``dlive``
     in place; dead slots count as NEG).
+
+    On the card, when both compute forms are bf16 (int8 or bf16 tables),
+    a chunk is scored by the scoring kernel into one buffer allocated per
+    scan: two launches a chunk. Otherwise (a float32 table, or CPU
+    tensors) a chunk is :func:`scan_scores_plain` of the float32 query
+    form, hoisted out of the loop.
 
     The carry is updated in place: two (values, ids) buffers allocated
     once per scan take turns as a step's input and its ``out``. Shapes
@@ -298,21 +414,32 @@ def chunked_corpus_topk(qvec: torch.Tensor, dvec: torch.Tensor,
              torch.full((q, k), -1, dtype=torch.int32, device=dev)),
             (torch.empty((q, k), dtype=torch.float32, device=dev),
              torch.empty((q, k), dtype=torch.int32, device=dev))]
-    # the query operand in its float32 compute form, once per scan
-    qf = score_form(qvec).float()
+    qs = score_form(qvec)
     if tuple(dlive.shape) != (d,) or not dlive.is_contiguous():
         raise ValueError(f"dlive must be a contiguous [{d}] mask")
+    kernel = dev.type == "cuda" and _scan_kernel_takes(qs, dvec)
     if dev.type == "cuda":
-        step = functools.partial(_launch_merge,
-                                 stream=torch.cuda.current_stream(dev)
-                                 .cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        step = functools.partial(_launch_merge, stream=stream)
     else:
         step = topk_merge_plain
+    if kernel:
+        qs = qs.contiguous()
+        s = torch.empty((q, chunk), dtype=torch.float32, device=dev)
+        # every chunk is a row range of the same table: the first
+        # chunk's check covers them all
+        _check_scan(qs, dvec[:chunk], s)
+    else:
+        # the query operand in its float32 compute form, once per scan
+        qf = qs.float()
     for c, lo in enumerate(range(0, d, chunk)):
-        s = torch.matmul(qf, score_form(dvec[lo:lo + chunk]).float().T)
+        if kernel:
+            _launch_scan(qs, dvec, lo, chunk, s, stream)
+        else:
+            s = scan_scores_plain(qf, dvec[lo:lo + chunk])
         if c == 0:
-            # every chunk's scores are a fresh contiguous [q, chunk]
-            # float32 product: the first chunk's check covers them all
+            # every chunk's scores are a contiguous [q, chunk] float32
+            # matrix: the first chunk's check covers them all
             _check_merge(*bufs[0], s, dlive[:chunk], d - chunk)
         step(*bufs[c % 2], s, dlive[lo:lo + chunk], lo, out=bufs[1 - c % 2])
     return bufs[(d // chunk) % 2]

@@ -56,7 +56,7 @@ caller can hold them against a twin: the same case functions below run
 a single-controller mesh of the same shape (:func:`twin_batch` lays a
 global batch out as the processes' stripes). The last stdout line is a
 JSON summary: the backend, the bytes staged across the boundary, the
-boundary exchanges by kind, the top-k launches, the tick times and the
+boundary exchanges by kind, the kernel launches, the tick times and the
 seconds from start to the group's ready point.
 """
 
@@ -408,6 +408,16 @@ def knn_feed(cfg: Dict) -> List[tuple]:
     return feed
 
 
+def _launches(l0=(0, 0, 0)) -> List[int]:
+    """(topk, topk_merge, scan_score) kernel launches of this process
+    since the counts ``l0``."""
+    from reflow_tpu_torch.kernels import topk as topk_mod
+
+    return [topk_mod.TOPK_LAUNCHES - l0[0],
+            topk_mod.TOPK_MERGE_LAUNCHES - l0[1],
+            topk_mod.SCAN_SCORE_LAUNCHES - l0[2]]
+
+
 def knn_graph(cfg: Dict):
     """Config 4's k-NN graph (bf16 queries, int8 corpus)."""
     return knn.build_graph(cfg["Q"], cfg["D"], cfg["dim"], cfg["k"],
@@ -419,13 +429,11 @@ def knn_graph(cfg: Dict):
 def drive_knn(cfg: Dict, ex, out: Dict[str, np.ndarray]) -> Dict:
     """The k-NN feed, one tick a batch; the index table of every tick
     lands in ``out`` (``<tick>/emitted``, ``<tick>/em_has``)."""
-    from reflow_tpu_torch.kernels import topk as topk_mod
-
     kg = knn_graph(cfg)
     sched = DirtyScheduler(kg.graph, ex)
     ticks = []
     for i, (bid, src, batch, kind) in enumerate(knn_feed(cfg)):
-        l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+        l0 = _launches()
         t0 = time.perf_counter()
         sched.push(kg.queries if src == "q" else kg.docs, batch,
                    batch_id=bid)
@@ -438,9 +446,7 @@ def drive_knn(cfg: Dict, ex, out: Dict[str, np.ndarray]) -> Dict:
         st = ex._node_state(kg.index.id)
         for key in ("emitted", "em_has"):
             _flat(st[key], f"k{i}/{key}", out)
-        ticks.append({"kind": kind, "ms": ms, "launches": [
-            topk_mod.TOPK_LAUNCHES - l0[0],
-            topk_mod.TOPK_MERGE_LAUNCHES - l0[1]]})
+        ticks.append({"kind": kind, "ms": ms, "launches": _launches(l0)})
     return {"ticks": ticks, "queries": len(sched.read_table(kg.index))}
 
 
@@ -455,7 +461,6 @@ def drive_knn_frontend(cfg: Dict, ex, out: Dict[str, np.ndarray]) -> Dict:
     windows. The index
     table after each round lands in ``out`` (``f<round>/emitted``,
     ``f<round>/em_has``)."""
-    from reflow_tpu_torch.kernels import topk as topk_mod
     from reflow_tpu_torch.serve import CoalesceWindow, IngestFrontend
 
     kg = knn_graph(cfg)
@@ -471,7 +476,7 @@ def drive_knn_frontend(cfg: Dict, ex, out: Dict[str, np.ndarray]) -> Dict:
                                               max_latency_s=0.001))
     rounds = [feed[:-2], feed[-2:]]
     out_rounds = []
-    l0 = (topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES)
+    l0 = _launches()
     try:
         for i, items in enumerate(rounds):
             tks = [fe.submit(kg.queries if src == "q" else kg.docs, batch,
@@ -502,8 +507,7 @@ def drive_knn_frontend(cfg: Dict, ex, out: Dict[str, np.ndarray]) -> Dict:
             "fallbacks": sched.megatick_fallbacks,
             "windows_pipelined": fe.windows_pipelined,
             "queue_bytes": _queue_bytes(ex),
-            "launches": [topk_mod.TOPK_LAUNCHES - l0[0],
-                         topk_mod.TOPK_MERGE_LAUNCHES - l0[1]]}
+            "launches": _launches(l0)}
 
 
 def stream_feed(cfg: Dict) -> List[tuple]:
@@ -681,7 +685,6 @@ def _cfg(base: Dict, args) -> Dict:
 def main(argv=None) -> int:
     args = _args(sys.argv[1:] if argv is None else argv)
     torch.set_num_threads(1)
-    from reflow_tpu_torch.kernels import topk as topk_mod
     from reflow_tpu_torch.parallel import dist, spmd
     from reflow_tpu_torch.parallel.mesh import (make_mesh,
                                                 shard_batch_process_local)
@@ -752,7 +755,7 @@ def main(argv=None) -> int:
                       if axis == (spmd.PROCESS_BOUNDARY,)},
             collectives={f"{kind}/{'x'.join(axis)}": list(v)
                          for (kind, axis), v in tally.items()},
-            launches=[topk_mod.TOPK_LAUNCHES, topk_mod.TOPK_MERGE_LAUNCHES])
+            launches=_launches())
         tmp = args.out + ".tmp.npz"
         np.savez(tmp, **out)
         os.replace(tmp, args.out)

@@ -328,7 +328,7 @@ def test_chip_smoke_phase_20_on_the_cpu(monkeypatch, one_thread):
     pr = dict(n_nodes=2000, n_edges=20_000, churn=0.01, tol=1e-4, seed=7,
               churn_ticks=2)
     out = cs.phase_config("cpu (no card)", knn, pr)
-    assert out["launches"] == (0, 0)        # the plain versions off the card
+    assert out["launches"] == (0, 0, 0)     # the plain versions off the card
     assert len(out["a"]["ms"]) == 3 and len(out["c"]["ms"]) == 2
     assert out["rel_err"] <= cs.PAGERANK_MAX_REL_ERR
     assert all(p <= 500 for p in out["passes"])

@@ -803,7 +803,7 @@ def test_lockcheck_leg_on_the_cpu(tmp_path):
     names = set(edges) | {b for tos in edges.values() for b in tos}
     for fam in ("serve.tier", "wal.", "serve.frontend."):
         assert any(n.startswith(fam) for n in names), fam
-    assert res["launches"] == [0, 0]      # the plain versions off the card
+    assert res["launches"] == [0, 0, 0]   # the plain versions off the card
 
 
 def test_lockcheck_unseen_maps_dynamic_names():

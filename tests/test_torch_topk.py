@@ -4,25 +4,33 @@ and ``jax.lax.top_k``, the scan step ``topk_merge`` against the JAX
 scan's step, and ``chunked_corpus_topk`` against the JAX one. Inputs are
 made with numpy from a seed and handed to both packages.
 
-On the CPU the port's ``topk`` and ``topk_merge`` take their plain
-versions (the tensors lie on the CPU); the CUDA kernels themselves are
-held to the plain versions, exactly, by ``chip_smoke.py`` phase 3 and by
-the ``cuda``-marked tests below on a machine with a card.
+On the CPU the port's ``topk``, ``topk_merge`` and ``scan_scores`` take
+their plain versions (the tensors lie on the CPU); the CUDA kernels
+themselves are held to the plain versions by ``chip_smoke.py`` phase 3
+and by the ``cuda``-marked tests below on a machine with a card. That
+machine has no JAX: there the ``cuda`` tests run alone, without the
+conftest (``python3 -m pytest -p no:cacheprovider --noconftest -m cuda
+tests/test_torch_topk.py``).
 """
 
 import importlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from reflow_tpu_torch.kernels import topk as ptopk
 
-# the JAX package's kernels/__init__ re-exports the function ``topk``,
-# which shadows the module of that name as a package attribute
-jtopk = importlib.import_module("reflow_tpu.kernels.topk")
+try:
+    import jax
+    import jax.numpy as jnp
+
+    # the JAX package's kernels/__init__ re-exports the function
+    # ``topk``, which shadows the module of that name as a package
+    # attribute
+    jtopk = importlib.import_module("reflow_tpu.kernels.topk")
+except ImportError:   # the card's machine, which runs the cuda tests only
+    jax = jnp = jtopk = None
 
 NEG = ptopk.NEG
 
@@ -108,9 +116,11 @@ def test_chunked_corpus_topk_f32_matches_jax(chunk):
     jv, ji = jtopk.chunked_corpus_topk(
         jnp.asarray(qv), jnp.asarray(dv), jnp.asarray(live), 6, chunk,
         use_pallas=False, precision=jax.lax.Precision.HIGHEST)
+    before = ptopk.SCAN_SCORE_LAUNCHES
     pv, pi = ptopk.chunked_corpus_topk(
         torch.from_numpy(qv), torch.from_numpy(dv), torch.from_numpy(live),
         6, chunk)
+    assert ptopk.SCAN_SCORE_LAUNCHES == before      # the plain product
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
     # float32 sums in another order: a few ulp of a unit-range score
     np.testing.assert_allclose(pv.numpy(), np.asarray(jv), atol=1e-5)
@@ -136,8 +146,11 @@ def test_chunked_corpus_topk_low_precision_matches_jax(doc):
     pq = torch.from_numpy(qv).to(torch.bfloat16)
     jv, ji = jtopk.chunked_corpus_topk(jq, jd, jnp.asarray(live), 8, 128,
                                        use_pallas=False)
+    before = ptopk.SCAN_SCORE_LAUNCHES
     pv, pi = ptopk.chunked_corpus_topk(pq, pd, torch.from_numpy(live), 8,
                                        128)
+    # CPU tensors take the plain scoring: no kernel launch
+    assert ptopk.SCAN_SCORE_LAUNCHES == before
     # the same bf16 operands summed in float32 in another order: scores
     # within 1e-2 (the bf16 inputs' own rounding scale), and near-equal
     # scores may swap places, so ids are held by recall
@@ -303,3 +316,136 @@ def test_merge_kernel_matches_plain_on_card(cuda_device, kind, q, k, n):
     pv, pi = ptopk.topk_merge_plain(*args, lo)
     assert ptopk.TOPK_MERGE_LAUNCHES == before + 1
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+# -- the corpus scan's scoring: scan_scores ----------------------------------
+
+def _scan_inputs(nq, nd, dim, doc, seed, device="cpu"):
+    """bf16 unit-vector queries (float32 ones for a float32 table) and
+    docs as a table stores them: int8 (round(unit * 127), every byte
+    value possible), bf16 or float32. Made with torch's generator on
+    ``device``, so a card's corpus never passes through the host."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def unit(n):
+        v = torch.randn((n, dim), generator=g, device=device)
+        return v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+
+    q = unit(nq)
+    if doc == "int8":
+        d = torch.round(unit(nd) * 127).to(torch.int8)
+        d[0, :256 if dim >= 256 else dim] = torch.arange(
+            -128, -128 + min(dim, 256), device=device).to(torch.int8)
+    else:
+        d = unit(nd).to(torch.bfloat16 if doc == "bf16" else torch.float32)
+    return (q if doc == "float32" else q.to(torch.bfloat16)), d
+
+
+def test_scan_kernel_wrapper_refuses_what_the_kernel_cannot_take():
+    q, d = _scan_inputs(8, 40, 32, "int8", seed=2)
+    out = torch.empty((8, 40))
+    ptopk._check_scan(q, d, out)                           # takes these
+    ptopk._check_scan(q, d.to(torch.bfloat16), out)
+    with pytest.raises(TypeError):
+        ptopk._check_scan(q.float(), d, out)               # query dtype
+    with pytest.raises(TypeError):
+        ptopk._check_scan(q, d.float(), out)               # doc dtype
+    with pytest.raises(TypeError):
+        ptopk._check_scan(q, d, out.double())              # out dtype
+    with pytest.raises(ValueError):
+        ptopk._check_scan(q, d, torch.empty((8, 39)))      # out shape
+    with pytest.raises(ValueError):
+        ptopk._check_scan(q, d[:, :16], out)               # dim mismatch
+    with pytest.raises(ValueError):
+        ptopk._check_scan(q, d.T.contiguous().T, out)      # not contiguous
+    q24, d24 = _scan_inputs(8, 40, 24, "int8", seed=3)
+    with pytest.raises(ValueError):
+        ptopk._check_scan(q24, d24, out)       # int8 dim not a multiple of 16
+    ptopk._check_scan(q24, d24.to(torch.bfloat16), out)     # bf16: of 8
+
+
+#: the scoring kernel against its plain version: float32 sums of 768
+#: products of unit vectors, taken in another order, differ by a few
+#: float32 ulps of 1.0; 1e-5 is half the benchmark's ``score_gap`` and
+#: ``rank_gap`` limit of 2e-5
+SCAN_TOL = 1e-5
+
+#: (queries, docs, dim, doc dtype): the main path's shape for both
+#: tables, then ragged ones (queries not a multiple of the kernel's 128,
+#: docs not a multiple of its 128, dim not a multiple of its 64)
+SCAN_CASES = [(256, 8192, 768, "int8"), (256, 8192, 768, "bf16"),
+              (37, 1000, 768, "int8"), (130, 203, 48, "int8"),
+              (37, 1001, 96, "bf16"), (1, 1, 16, "int8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nd,dim,doc", SCAN_CASES)
+def test_scan_kernel_matches_plain_on_card(cuda_device, nq, nd, dim, doc):
+    q, d = _scan_inputs(nq, nd, dim, doc, seed=nd, device=cuda_device)
+    before = ptopk.SCAN_SCORE_LAUNCHES
+    got = ptopk.scan_scores(q, d)
+    assert ptopk.SCAN_SCORE_LAUNCHES == before + 1
+    want = ptopk.scan_scores_plain(q, d)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= SCAN_TOL
+    assert torch.equal(ptopk.scan_scores(q, d), got)      # bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("doc", ["int8", "bf16"])
+def test_scan_kernel_operands_are_score_form_bit_for_bit(cuda_device, doc):
+    """A one-hot query's score is one exact product, 1.0 times the doc's
+    operand at that dim, plus exact zeros: each equals ``score_form``'s
+    value only if the kernel dequantized to the same bf16 bits."""
+    _, d = _scan_inputs(1, 64, 768, doc, seed=4, device=cuda_device)
+    eye = torch.eye(768, dtype=torch.bfloat16, device=cuda_device)
+    assert torch.equal(ptopk.scan_scores(eye, d),
+                       ptopk.score_form(d).float().T)
+
+
+@pytest.mark.cuda
+def test_chunked_scan_on_card_matches_plain_scan(cuda_device):
+    """The main path's rescan, 2^20 int8 docs in 128 chunks: 128 scoring
+    and 128 merge launches, a repeat bit for bit, scores within SCAN_TOL
+    of the plain scan's, and the plain scan's ids wherever the scores
+    around a place are more than 2 * SCAN_TOL apart (only candidates that
+    close can trade places when each moves by SCAN_TOL)."""
+    D, k = 1 << 20, 16
+    q, d = _scan_inputs(256, D, 768, "int8", seed=20, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    live = torch.rand(D, generator=g, device=cuda_device) < 0.9
+    l0 = (ptopk.SCAN_SCORE_LAUNCHES, ptopk.TOPK_MERGE_LAUNCHES)
+    kv, ki = ptopk.chunked_corpus_topk(q, d, live, k, 8192)
+    assert (ptopk.SCAN_SCORE_LAUNCHES - l0[0],
+            ptopk.TOPK_MERGE_LAUNCHES - l0[1]) == (128, 128)
+    kv2, ki2 = ptopk.chunked_corpus_topk(q, d, live, k, 8192)
+    assert torch.equal(kv, kv2) and torch.equal(ki, ki2)
+    pv, pi = ptopk.topk_plain(
+        torch.where(live[None, :], ptopk.scores(q, d), NEG), k + 1)
+    assert float((kv - pv[:, :k]).abs().max()) <= SCAN_TOL
+    gap = pv[:, :-1] - pv[:, 1:]                 # [Q, k]: place i to i + 1
+    before = torch.cat([torch.full_like(gap[:, :1], 1.0), gap[:, :-1]], 1)
+    firm = (before > 2 * SCAN_TOL) & (gap > 2 * SCAN_TOL)
+    assert float(firm.float().mean()) > 0.9      # the check holds most
+    assert torch.equal(ki[firm], pi[:, :k][firm])
+
+
+@pytest.mark.cuda
+def test_float32_table_keeps_the_float32_product_on_card(cuda_device):
+    """A float32 table is scored as before (no scoring launch): the scan
+    equals the plain scan's (float32 products, plain merges) bit for
+    bit."""
+    q, d = _scan_inputs(256, 16384, 768, "float32", seed=22,
+                        device=cuda_device)
+    live = torch.ones(16384, dtype=torch.bool, device=cuda_device)
+    l0 = (ptopk.SCAN_SCORE_LAUNCHES, ptopk.TOPK_MERGE_LAUNCHES)
+    kv, ki = ptopk.chunked_corpus_topk(q, d, live, 16, 8192)
+    assert (ptopk.SCAN_SCORE_LAUNCHES - l0[0],
+            ptopk.TOPK_MERGE_LAUNCHES - l0[1]) == (0, 2)
+    ev = torch.full((256, 16), NEG, device=cuda_device)
+    ei = torch.full((256, 16), -1, dtype=torch.int32, device=cuda_device)
+    for lo in range(0, 16384, 8192):
+        ev, ei = ptopk.topk_merge_plain(
+            ev, ei, ptopk.scan_scores_plain(q, d[lo:lo + 8192]),
+            live[lo:lo + 8192], lo)
+    assert torch.equal(kv, ev) and torch.equal(ki, ei)

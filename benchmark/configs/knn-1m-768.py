@@ -18,10 +18,14 @@ been written after it: the coalescer merges at most that many rows into
 one tick, so no two writes on one id share a tick (the port folds such
 a pair wrongly; PERF.md, Open questions). A schedule that would run out
 of ids is refused.
+
+``tiny`` and ``alter`` serve the CPU tests alone: the configuration's cut
+to a size the CPU runs in a second or two, and its planted fault.
 """
 
 from __future__ import annotations
 
+import copy
 from collections import deque
 from typing import Dict, List
 
@@ -42,6 +46,29 @@ PRELOAD_CHUNK = 1 << 16
 
 class TrafficRefused(ValueError):
     """The schedule needs more ids than the key space has."""
+
+
+def tiny(cfg: dict, mix: dict):
+    """``(cfg, mix)`` cut for a run on the CPU with the port's plain
+    kernels (copies; the widths are cut here only)."""
+    cfg, mix = copy.deepcopy(cfg), copy.deepcopy(mix)
+    cfg.update(doc_key_space=4096, dim=16, k=4, queries=8, scan_chunk=512)
+    # a tick merges at most this many rows: ids touched are held back
+    # that long, which the tiny key space must afford
+    cfg["frontend"]["max_rows"] = 256
+    mix.update(preload_docs=1024, rate_per_s=40, warm_s=0.3,
+               replay={"ticks": 3, "writes_per_tick": 2})
+    return cfg, mix
+
+
+def alter(table: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
+    """The served table with one answer altered: query 0's best document
+    swapped for an id it does not hold."""
+    table = dict(table)
+    row = np.array(table[0], copy=True)
+    row[0, 0] = row[-1, 0] + 1 if row[-1, 0] + 1 not in row[:, 0] else 0
+    table[0] = row
+    return table
 
 
 def _draw(pool: list, n: int, r: np.random.Generator) -> list:

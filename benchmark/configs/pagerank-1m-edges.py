@@ -9,10 +9,14 @@ the mix makes ready. Item operation of a mix:
 - ``rewire``: one edge gets a new destination, its source and so every
   out-degree kept: two delta rows (the old edge retracted, the new one
   inserted).
+
+``tiny`` and ``alter`` serve the CPU tests alone: the configuration's cut
+to a size the CPU runs in a second or two, and its planted fault.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List
 
 import numpy as np
@@ -25,6 +29,24 @@ from reflow_tpu_torch import DeltaBatch, DirtyScheduler, get_executor
 from reflow_tpu_torch.executors.device_delta import bucket_capacity
 from reflow_tpu_torch.serve import CoalesceWindow, IngestFrontend
 from reflow_tpu_torch.workloads import pagerank
+
+
+def tiny(cfg: dict, mix: dict):
+    """``(cfg, mix)`` cut for a run on the CPU with the port's plain
+    kernels (copies)."""
+    cfg, mix = copy.deepcopy(cfg), copy.deepcopy(mix)
+    cfg.update(nodes=2000, edges=20000)
+    mix.update(size={"min": 200, "max": 200}, warm_writes=3,
+               max_rate_per_s=100, replay={"ticks": 3, "writes_per_tick": 1})
+    return cfg, mix
+
+
+def alter(ranks: np.ndarray) -> np.ndarray:
+    """The served ranks with one answer altered: the top node's rank
+    moved by 1%."""
+    ranks = ranks.copy()
+    ranks[int(np.argmax(ranks))] *= 1.01
+    return ranks
 
 
 class Deployment:

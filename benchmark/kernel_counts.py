@@ -2,9 +2,10 @@
 the card's peaks.
 
 A frozen copy of the port's arithmetic for its top-k kernel (the least
-time of a launch), kept here so that the yardstick does not move when
-the program does. Each input byte is counted read once and each output
-byte written once, whatever the kernel reads again.
+time of a launch), and the count of the corpus scan's scoring kernel,
+kept here so that the yardstick does not move when the program does.
+Each input byte is counted read once and each output byte written once,
+whatever the kernel reads again.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989.4e12
 F32_OPS_PER_S = 67e12
 
-F32, I32, BOOL = 4, 4, 1
+F32, I32, BF16, I8, BOOL = 4, 4, 2, 1, 1
 
 
 def topk_bytes(q: int, n: int, k: int) -> int:
@@ -29,6 +30,14 @@ def topk_merge_bytes(q: int, n: int, k: int) -> int:
     ``[n]`` live mask read, the new ``[q, k]`` carry written."""
     return (q * k * (F32 + I32) + q * n * F32 + n * BOOL
             + q * k * (F32 + I32))
+
+
+def scan_score_bytes(q: int, dim: int, n: int) -> int:
+    """``scan_scores``, the scoring of one chunk of the corpus scan: the
+    int8 ``[n, dim]`` chunk and the bfloat16 ``[q, dim]`` queries read,
+    the float32 ``[q, n]`` scores written. Its operations are
+    ``score_ops(q, dim, n)``, at the bfloat16 peak."""
+    return n * dim * I8 + q * dim * BF16 + q * n * F32
 
 
 def topk_ops(q: int, n: int) -> int:

@@ -1,10 +1,9 @@
 """Tiny sizes of the cells, for runs on the CPU with the port's plain
-kernels (the widths are cut here only; the chip runs the files as they
-are)."""
+kernels: each configuration module's ``tiny`` cuts its cells (the widths
+are cut there only; the chip runs the files as they are)."""
 
 from __future__ import annotations
 
-import copy
 from pathlib import Path
 
 import torch
@@ -26,26 +25,35 @@ def bench() -> dict:
     return b
 
 
+def config_fn(b: dict, name: str, fn: str, root: Path = ROOT):
+    """Function ``fn`` of the configuration module of cell ``name``: each
+    configuration brings its own ``tiny`` (its CPU cut) and ``alter`` (its
+    planted fault), and no configuration falls back to another's."""
+    c = harness.cell(b, name, root)
+    path = c.config_dir / f"{c.config}.py"
+    f = getattr(harness.load_module(path), fn, None)
+    if not callable(f):
+        raise AttributeError(f"{path} defines no function {fn}(): every "
+                             f"configuration module brings tiny(cfg, mix) "
+                             f"and alter(output)")
+    return f
+
+
 def tiny(b: dict, name: str, root: Path = ROOT):
     """``(cfg, mix)`` of cell ``name`` cut to a size the CPU runs in a
-    second or two."""
+    second or two, by its configuration's ``tiny``."""
     c = harness.cell(b, name, root)
-    cfg, mix = copy.deepcopy(c.cfg), copy.deepcopy(c.mix)
-    if "doc_key_space" in cfg:
-        cfg.update(doc_key_space=4096, dim=16, k=4, queries=8,
-                   scan_chunk=512)
-        # a tick merges at most this many rows: ids touched are held back
-        # that long, which the tiny key space must afford
-        cfg["frontend"]["max_rows"] = 256
-        mix.update(preload_docs=1024,
-                   rate_per_s=40, warm_s=0.3,
-                   replay={"ticks": 3, "writes_per_tick": 2})
-    else:
-        cfg.update(nodes=2000, edges=20000)
-        mix.update(size={"min": 200, "max": 200}, warm_writes=3,
-                   max_rate_per_s=100,
-                   replay={"ticks": 3, "writes_per_tick": 1})
-    return cfg, mix
+    return config_fn(b, name, "tiny", root)(c.cfg, c.mix)
+
+
+def altered(b: dict, name: str, root: Path = ROOT):
+    """A run's hook that hands the reference the output with one answer
+    altered where it is produced, by the configuration's ``alter``."""
+    alter = config_fn(b, name, "alter", root)
+
+    def hook(dep, phase, out):
+        return alter(out) if phase == "output" else out
+    return hook
 
 
 def run(b: dict, name: str, trace: bool = False, root: Path = ROOT, **kw):

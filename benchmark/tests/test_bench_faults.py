@@ -1,11 +1,11 @@
 """Runs of each cell with the timed path broken underneath come out not
 correct: a window whose steps leave the state unchanged, half of each
-write left out, an answer altered where it is produced. (No cell spans
-chips, so no exchange between chips can be left out.)"""
+write left out, an answer altered where it is produced (by the cell's
+configuration module's ``alter``). (No cell spans chips, so no exchange
+between chips can be left out.)"""
 
 import time
 
-import numpy as np
 import pytest
 
 from reflow_tpu_torch.serve.tickets import APPLIED, Ticket, TicketResult
@@ -49,25 +49,14 @@ def _half(dep, phase, out):
     return out
 
 
-def _alter(dep, phase, out):
-    """One answer altered where it is produced: a query's best document
-    swapped for another id, or one node's rank moved."""
-    if phase != "output":
-        return out
-    if isinstance(out, np.ndarray):
-        out = out.copy()
-        out[int(np.argmax(out))] *= 1.01
-        return out
-    out = dict(out)
-    row = np.array(out[0], copy=True)
-    row[0, 0] = row[-1, 0] + 1 if row[-1, 0] + 1 not in row[:, 0] else 0
-    out[0] = row
-    return out
+#: each fault, as a run's hook for cell ``name``; ``alter`` is the one
+#: the cell's configuration module brings for its own output
+FAULTS = {"stale": lambda b, name: _stale, "half": lambda b, name: _half,
+          "alter": _tiny.altered}
 
 
-@pytest.mark.parametrize("fault", [_stale, _half, _alter],
-                         ids=["stale", "half", "alter"])
+@pytest.mark.parametrize("fault", list(FAULTS))
 @pytest.mark.parametrize("name", CELLS)
 def test_a_broken_run_is_not_correct(name, fault):
-    r = _tiny.run(BENCH, name, hook=fault)
+    r = _tiny.run(BENCH, name, hook=FAULTS[fault](BENCH, name))
     assert r["correct"] is False, r["checks"]

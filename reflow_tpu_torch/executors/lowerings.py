@@ -67,6 +67,7 @@ from reflow_tpu_torch.executors.device_delta import DeviceDelta
 from reflow_tpu_torch.graph import GraphError, Node
 from reflow_tpu_torch.kernels.topk import (NEG, chunked_corpus_topk, scores,
                                            topk)
+from reflow_tpu_torch.obs import trace as _trace
 from reflow_tpu_torch.obs.trace import span
 
 __all__ = ["lower_node", "knn_state", "reduce_state", "join_state",
@@ -393,8 +394,15 @@ def _lower_knn(op, node: Node, state, ins, *, on_sync=None
 def _lower_map(op, node: Node, state, ins, *, on_sync=None
                ) -> Tuple[DeviceDelta, Optional[dict]]:
     (d,) = ins
-    with span("map"):
+    # a params Map (a model's forward) runs fn over every row of the
+    # capacity, padding included: its span counts the rows it forwarded
+    # and the live ones (weight != 0), read after the tick
+    rows = ({"rows": d.capacity}
+            if _trace.ENABLED and op.params is not None else None)
+    with span("map", rows):
         if op.params is not None:
+            if rows is not None:
+                _trace.count_live(rows, d.nonzero())
             # the params are op state, passed as fn's first argument; a
             # row-wise fn maps over the rows with the params held fixed
             p = state["params"]

@@ -70,7 +70,8 @@ __all__ = ["ENABLED", "RING_CAPACITY", "SAMPLE_EVERY", "STAGES",
            "WINDOW_SPANS", "DEVICE_SPANS",
            "TraceCtx", "enable", "disable", "enabled", "reset", "evt",
            "events", "span", "device_tick_begin", "device_tick_end",
-           "device_resolve", "device_events", "mint", "mint_cause",
+           "device_resolve", "device_events", "count_live", "mint",
+           "mint_cause",
            "sample", "set_flight_hook", "ticket_stages", "wal_accum_reset",
            "wal_accum_add", "wal_accum_take"]
 
@@ -215,6 +216,7 @@ def reset() -> None:
         for label, _tick, a, b in _dev_pending:
             _dev_pool.setdefault(label, []).extend((a, b))
         _dev_pending.clear()
+        _counts_pending.clear()
         _anchors.clear()
     _anchor_known()
 
@@ -233,7 +235,10 @@ def evt(name: str, ts: float, dur: float, track: Optional[str] = None,
 
 def events() -> List[Tuple[str, Event]]:
     """Every buffered event as ``(track, event)``, per ring oldest first
-    (the recording thread's name is the default track)."""
+    (the recording thread's name is the default track); the counts still
+    on a card (:func:`count_live`) are waited for and filled in
+    first."""
+    _resolve_counts(wait=True)
     with _rings_lock:
         rings = list(_rings)
     return [(ev[3] or r.track, ev) for r in rings for ev in r.events()]
@@ -376,8 +381,9 @@ def device_resolve(wait: bool = False) -> None:
     the card has completed, or with ``wait`` every one recorded so far
     (waiting on those still in flight, outside the lock the pump's ticks
     take: for readers, never the hot path). Their events go back to the
-    pool."""
+    pool. The counts on a card (:func:`count_live`) resolve alike."""
     global _dev_ring
+    _resolve_counts(wait)
     if wait:
         with _dev_lock:
             ends = [b for _label, _tick, _a, b in _dev_pending]
@@ -413,6 +419,48 @@ def device_events() -> List[Tuple[str, Event]]:
     resolved first, waiting on the card for those still in flight."""
     ring = _device_ring()
     return [(ev[3], ev) for ev in ring.events()] if ring is not None else []
+
+
+# -- counts of the card's rows, read after the tick -------------------------
+
+#: live counts still on a card, oldest first: (span args, host copy, event)
+_counts_pending: Deque[Tuple[Dict[str, Any], Any, Any]] = deque()
+
+
+def count_live(args: Dict[str, Any], n: torch.Tensor) -> None:
+    """Put the device scalar ``n`` (a delta's live rows,
+    ``DeviceDelta.nonzero()``) into ``args["live"]`` (call under
+    ``ENABLED``), with no sync: on the CPU at once; on a card the count is
+    copied to the host behind a CUDA event, ``args["live"]`` is None until
+    the card has passed it, and the completed counts are filled in where
+    the device spans resolve (:func:`device_resolve`) and every count by
+    :func:`events`, which waits for them."""
+    if n.device.type != "cuda":
+        args["live"] = int(n)
+        return
+    host = n.to("cpu", non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(n.device))
+    args["live"] = None
+    with _dev_lock:
+        _counts_pending.append((args, host, ev))
+        backlog = len(_counts_pending) > PENDING_MAX
+    if backlog:
+        _resolve_counts(wait=False)
+
+
+def _resolve_counts(wait: bool) -> None:
+    """Fill in the counts the card has completed, oldest first, or with
+    ``wait`` every one recorded so far (waiting outside the lock)."""
+    if wait:
+        with _dev_lock:
+            evs = [ev for _args, _host, ev in _counts_pending]
+        for ev in evs:
+            ev.synchronize()
+    with _dev_lock:
+        while _counts_pending and _counts_pending[0][2].query():
+            args, host, _ev = _counts_pending.popleft()
+            args["live"] = int(host)
 
 
 def mint(batch_id: str, t0: float) -> TraceCtx:
